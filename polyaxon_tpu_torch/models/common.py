@@ -1,18 +1,43 @@
 """Shared model numerics (port of ``polyaxon_tpu/models/common.py``).
 
-Only the pieces the serving slice runs: RoPE, RMSNorm, the weight read
-at consumption, the unquantized logits projection, the embedding
-gather, one-row sampling and the random initializers. Parameters keep
-the JAX pytree's names and layouts (``x @ w`` with ``[in, out]``
-weights), so weights move between the packages as an identity map.
+The pieces the serving and training slices run: the ``ModelDef``
+convention, RoPE, RMSNorm, the weight read at consumption, the
+unquantized logits projection, the embedding gather, one-row sampling,
+the random initializers, and the training losses (cross entropy, the
+chunked LM loss, ``shift_right``). Parameters keep the JAX pytree's
+names and layouts (``x @ w`` with ``[in, out]`` weights), so weights
+move between the packages as an identity map.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+Variables = dict[str, Any]  # {"params": dict of tensors, "state": dict}
+Batch = dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelDef:
+    """A model as the runtime sees it (the JAX package's convention,
+    without ``logical_axes``: the port does not shard).
+
+    - ``init(generator, device=...) -> Variables`` (f32 master weights);
+    - ``apply(variables, batch, train, rng) -> (loss, metrics, state)``.
+    """
+
+    name: str
+    init: Callable[..., Variables]
+    apply: Callable[..., tuple[torch.Tensor, dict, Any]]
+    # tokens (LM) or samples (vision) consumed per batch element.
+    unit: str = "examples"
+    config: Any = None
 
 
 def truncated_normal_init(shape, generator: torch.Generator, *,
@@ -124,3 +149,63 @@ def sample_row(logits: torch.Tensor, generator: torch.Generator,
     draw = torch.multinomial(torch.softmax(masked, dim=-1), 1,
                              generator=generator)
     return sort_idx[draw[0]].to(torch.int32)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over unmasked positions (f32), plus accuracy. Labels < 0
+    are masked out."""
+    logits = logits.to(torch.float32)
+    log_probs = F.log_softmax(logits, dim=-1)
+    labels_clipped = labels.clamp(min=0).long()
+    nll = -log_probs.gather(-1, labels_clipped[..., None])[..., 0]
+    correct = (logits.argmax(-1) == labels_clipped).to(torch.float32)
+    valid = (labels >= 0).to(torch.float32)
+    mask = valid if mask is None else mask.to(torch.float32) * valid
+    denom = mask.sum().clamp(min=1.0)
+    return (nll * mask).sum() / denom, (correct * mask).sum() / denom
+
+
+def _chunk_stats(hc: torch.Tensor, head: torch.Tensor, yc: torch.Tensor,
+                 mc: torch.Tensor) -> torch.Tensor:
+    logits = (hc @ head).to(torch.float32)  # [B, chunk, V]
+    log_probs = F.log_softmax(logits, dim=-1)
+    nll = -log_probs.gather(-1, yc[..., None])[..., 0]
+    correct = (logits.argmax(-1) == yc).to(torch.float32)
+    return torch.stack([(nll * mc).sum(), (correct * mc).sum()])
+
+
+def chunked_lm_loss(hidden: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-token CE without materializing the [B, S, V] logits: the
+    lm-head projection and log-softmax run one sequence chunk at a time
+    under ``torch.utils.checkpoint``, so the backward recomputes each
+    chunk's [B, chunk, V] f32 logits from the saved hidden slab. The
+    chunk is ``pick_block(S, chunk)``, as in the JAX package; the numbers
+    are those of ``cross_entropy_loss`` over full logits."""
+    from polyaxon_tpu_torch.ops.flash import pick_block
+
+    S = hidden.shape[1]
+    chunk = pick_block(S, chunk)
+    if mask is None:
+        mask = labels >= 0
+    mask = mask.to(torch.float32) * (labels >= 0).to(torch.float32)
+    labels_clipped = labels.clamp(min=0).long()
+    stats = None
+    for start in range(0, S, chunk):
+        part = slice(start, start + chunk)
+        s = checkpoint(_chunk_stats, hidden[:, part], head,
+                       labels_clipped[:, part], mask[:, part],
+                       use_reentrant=False)
+        stats = s if stats is None else stats + s
+    denom = mask.sum().clamp(min=1.0)
+    return stats[0] / denom, stats[1] / denom
+
+
+def shift_right(tokens: torch.Tensor, bos_id: int = 0) -> torch.Tensor:
+    """Next-token LM inputs: tokens shifted right with BOS at position 0."""
+    return torch.cat([torch.full_like(tokens[:, :1], bos_id),
+                      tokens[:, :-1]], dim=1)

@@ -1,5 +1,6 @@
-"""Llama-3-style decoder, serving subset (port of
-``polyaxon_tpu/models/llama.py``).
+"""Llama-3-style decoder (port of ``polyaxon_tpu/models/llama.py``): the
+training surface (``apply``, packed sequences, remat) and the serving
+subset (the paged KV and suffix-prefill surfaces).
 
 Parameters are a plain dict of tensors with the JAX pytree's names and
 layouts: ``embed [V, D]``, ``lm_head [D, V]``, ``final_norm [D]`` and
@@ -13,24 +14,41 @@ IN PLACE (``index_put_``) rather than rebuilt per step as the JAX
 functions do; every function that writes it still returns it so the
 call shapes match. Page 0 is scratch: idle rows and unallocated
 coordinates write there and masks keep it unread.
+
+Training keeps f32 master weights and computes in ``cfg.dtype``; the
+layers run as a Python loop over per-layer views of the stacked tensors
+(``torch.unbind``, so each stacked tensor's gradient is assembled once,
+not once per layer). ``remat`` maps JAX's per-layer checkpoint policies
+onto ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
 from polyaxon_tpu_torch.models.common import (
+    ModelDef,
+    Variables,
     _embed_rows,
     _w,
+    chunked_lm_loss,
     lm_logits,
     rms_norm,
     rope,
     scaled_init,
+    shift_right,
     truncated_normal_init,
 )
 from polyaxon_tpu_torch.ops.attention import (
@@ -69,6 +87,19 @@ class LlamaConfig:
     # CUDA tensors, its plain version on the CPU); "gather" = the gather
     # + masked-softmax formulation.
     paged_attention_impl: str = "auto"
+    # Per-layer recompute: none | full | dots (save matmul outputs only).
+    remat: str = "none"
+    # Flash knobs (runtime keys flow here via model_overrides): tile
+    # sizes (validated, unused by the Hopper kernels) and the backward
+    # ("pallas" = the kernels on CUDA, "xla" = the plain backward).
+    # Setting one with attention_impl="xla" is an error.
+    flash_block_q: Optional[int | str] = None
+    flash_block_k: Optional[int | str] = None
+    flash_bwd_impl: Optional[str] = None
+    # Chunked lm-head loss slab length (peak memory holds [B, chunk, V]).
+    loss_chunk: int = 256
+    # Pipeline parallelism is not ported; >1 raises.
+    pipeline_stages: int = 1
 
     @property
     def head_dim(self) -> int:
@@ -191,10 +222,12 @@ def params_from_numpy(cfg: LlamaConfig, tree: dict, *, device,
 
 
 def _layers(params: dict):
-    """Per-layer views of the stacked ``[L, ...]`` tensors."""
-    stack = params["layers"]
-    for i in range(stack["wq"].shape[0]):
-        yield {name: t[i] for name, t in stack.items()}
+    """Per-layer views of the stacked ``[L, ...]`` tensors (one
+    ``unbind`` per tensor: its backward stacks the L layer gradients
+    once)."""
+    per_layer = {name: t.unbind(0) for name, t in params["layers"].items()}
+    for i in range(len(per_layer["wq"])):
+        yield {name: views[i] for name, views in per_layer.items()}
 
 
 def _norm(cfg, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -244,19 +277,54 @@ def _qkv(cfg, layer: dict, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
-def _attention(cfg, q, k, v) -> torch.Tensor:
+def _attention(cfg, q, k, v, segment_ids=None) -> torch.Tensor:
+    """``dot_product_attention`` owns the impl support matrix; the flash
+    knobs ride along as JAX's ``_layer`` passes them."""
     return dot_product_attention(q, k, v, causal=True,
                                  impl=cfg.attention_impl,
-                                 window=cfg.sliding_window)
+                                 segment_ids=segment_ids,
+                                 window=cfg.sliding_window,
+                                 block_q=cfg.flash_block_q,
+                                 block_k=cfg.flash_block_k,
+                                 bwd_impl=cfg.flash_bwd_impl)
 
 
 def _layer(cfg: LlamaConfig, x: torch.Tensor, layer: dict,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor,
+           segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, layer, x, positions)
-    attn = _attention(cfg, q, k, v)
+    attn = _attention(cfg, q, k, v, segment_ids)
     x = x + attn.reshape(B, S, -1) @ _w(layer["wo"], cfg.dtype)
     return _mlp(cfg, x, layer)
+
+
+# remat="dots": keep the outputs of matrix products, recompute the rest
+# (norms, RoPE, activations, attention) in the backward. JAX's
+# `checkpoint_dots_with_no_batch_dims` keeps the projections; the flash
+# kernels are invisible to the dispatcher, so attention is recomputed.
+_SAVED_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                        torch.ops.aten.bmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _layer_body(cfg: LlamaConfig):
+    """The per-layer function under ``cfg.remat``."""
+    body = functools.partial(_layer, cfg)
+    if cfg.remat == "none":
+        return body
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"unknown remat `{cfg.remat}` (none | full | dots)")
 
 
 def _positions(B: int, S: int, device, start=0) -> torch.Tensor:
@@ -264,15 +332,47 @@ def _positions(B: int, S: int, device, start=0) -> torch.Tensor:
             )[None].expand(B, S)
 
 
+def segment_starts(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Boolean [..., S] marking the first position of each segment."""
+    return torch.cat([torch.ones_like(segment_ids[..., :1], dtype=torch.bool),
+                      segment_ids[..., 1:] != segment_ids[..., :-1]], dim=-1)
+
+
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Within-segment positions for packed rows: [0,0,0,1,1] → [0,1,2,0,1]."""
+    S = segment_ids.shape[-1]
+    idx = torch.arange(S, dtype=torch.int32, device=segment_ids.device)
+    starts = torch.where(segment_starts(segment_ids), idx,
+                         torch.zeros_like(idx))
+    return idx - torch.cummax(starts, dim=-1).values
+
+
+def _check_not_pipelined(cfg: LlamaConfig) -> None:
+    if cfg.pipeline_stages > 1:
+        raise NotImplementedError(
+            f"pipeline_stages={cfg.pipeline_stages}: pipeline parallelism "
+            "is not ported yet (ROADMAP.md, Queue 1, 'The parallel layer')")
+
+
 def hidden_states(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
-                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token ids [B, S] → final-norm hidden states [B, S, D]."""
+                  positions: Optional[torch.Tensor] = None,
+                  segment_ids: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Token ids [B, S] → final-norm hidden states [B, S, D].
+
+    ``segment_ids`` [B, S] enables packed-sequence training: attention
+    stays within each segment and RoPE positions restart per segment
+    (derived unless ``positions`` is given)."""
+    _check_not_pipelined(cfg)
     B, S = tokens.shape
     if positions is None:
-        positions = _positions(B, S, tokens.device)
+        positions = (segment_positions(segment_ids)
+                     if segment_ids is not None
+                     else _positions(B, S, tokens.device))
     x = _embed(cfg, params, tokens, cfg.dtype)
+    body = _layer_body(cfg)
     for layer in _layers(params):
-        x = _layer(cfg, x, layer, positions)
+        x = body(x, layer, positions, segment_ids)
     return _norm(cfg, x, params["final_norm"])
 
 
@@ -293,6 +393,38 @@ def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     """Token ids → f32 logits [B, S, vocab]."""
     x = hidden_states(cfg, params, tokens, positions)
     return (x @ lm_head(cfg, params).to(cfg.dtype)).to(torch.float32)
+
+
+def apply(cfg: LlamaConfig, variables: Variables, batch: dict,
+          train: bool = True, rng=None):
+    """Next-token LM loss of ``batch["tokens"]`` [B, S] (optional
+    ``segments`` [B, S] for packed rows, ``mask`` [B, S]). Each packed
+    segment starts from BOS 0, so no token leaks across a boundary.
+    Returns (loss, {"loss", "accuracy"}, state)."""
+    tokens = batch["tokens"]
+    inputs = shift_right(tokens)
+    segments = batch.get("segments")
+    if segments is not None:
+        inputs = torch.where(segment_starts(segments),
+                             torch.zeros_like(inputs), inputs)
+    params = variables["params"]
+    x = hidden_states(cfg, params, inputs, segment_ids=segments)
+    head = lm_head(cfg, params).to(cfg.dtype)
+    loss, acc = chunked_lm_loss(x, head, tokens, batch.get("mask"),
+                                chunk=cfg.loss_chunk)
+    return loss, {"loss": loss, "accuracy": acc}, variables["state"]
+
+
+def model_def(name: str, **overrides) -> ModelDef:
+    cfg = dataclasses.replace(CONFIGS[name], **overrides)
+    _check_not_pipelined(cfg)
+    return ModelDef(
+        name=name,
+        init=lambda generator, device: init(cfg, generator, device=device),
+        apply=functools.partial(apply, cfg),
+        unit="tokens",
+        config=cfg,
+    )
 
 
 def _prompt_pass(cfg: LlamaConfig, params: dict, prompt: torch.Tensor):
@@ -330,10 +462,12 @@ def cb_admission(prompt: list) -> tuple:
 
 
 # ------------------------------------------------------- paged KV decode
-def check_kernel_shapes(cfg: LlamaConfig, device) -> None:
-    """On a CUDA device, raise if a kernel this config's serving path
-    launches cannot take its head_dim: at construction, not inside every
-    step. The CPU runs the plain versions, which take any shape."""
+def check_kernel_shapes(cfg: LlamaConfig, device, *,
+                        training: bool = False) -> None:
+    """On a CUDA device, raise if a kernel this config's serving path (or,
+    with ``training``, its training path) launches cannot take its
+    head_dim: at construction, not inside every step. The CPU runs the
+    plain versions, which take any shape."""
     if torch.device(device).type != "cuda":
         return
     from polyaxon_tpu_torch.ops import flash, paged_attention
@@ -341,7 +475,9 @@ def check_kernel_shapes(cfg: LlamaConfig, device) -> None:
     kernels = []
     if cfg.attention_impl in ("auto", "flash"):
         kernels.append(("flash_fwd", flash.KERNEL_HEAD_DIMS))
-    if cfg.paged_attention_impl == "auto":
+        if training and cfg.flash_bwd_impl != "xla":
+            kernels.append(("flash_bwd", flash.BWD_HEAD_DIMS))
+    if not training and cfg.paged_attention_impl == "auto":
         kernels.append(("paged_decode", paged_attention.KERNEL_HEAD_DIMS))
     for name, dims in kernels:
         if cfg.head_dim not in dims:

@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared
 library, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). Libraries land in ``ops/_build/`` (listed in ``.gitignore``)
-under a name that carries the source's hash, so an edited source builds
-anew. Nothing is compiled at import: the first launch of a kernel
-builds it, or ``build_all()`` starts every build at once.
+under a name that carries the hash of the source and of every local
+header it includes (``#include "x.cuh"``, followed recursively), so an
+edited source or header builds anew. Nothing is compiled at import: the
+first launch of a kernel builds it, or ``build_all()`` starts every
+build at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check()`` raises on a non-zero code. A failed build raises too.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +28,7 @@ from typing import Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
-KERNELS = ("flash_fwd", "paged_decode")
+KERNELS = ("flash_fwd", "flash_bwd", "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,9 +47,29 @@ def nvcc_path() -> str:
                        "a machine with the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[str]:
+    """``<name>.cu`` and the local headers it includes, recursively, in
+    a fixed order."""
+    order, stack = [], [f"{name}.cu"]
+    while stack:
+        rel = stack.pop()
+        if rel in order:
+            continue
+        order.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as fh:
+            found = _LOCAL_INCLUDE.findall(fh.read())
+        stack.extend(inc.decode() for inc in reversed(found))
+    return order
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _sources(name):
+        with open(os.path.join(CSRC, rel), "rb") as fh:
+            digest.update(rel.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

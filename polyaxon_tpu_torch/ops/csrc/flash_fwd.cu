@@ -29,38 +29,14 @@
 // lse = m + log(1), as `flash.py` finalizes.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
 constexpr int BLOCK_M = 64;   // q rows per block, 16 per warp
 constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two floats -> one register of two bf16, `lo` in the low half (the
-// lower column / k index of an mma fragment pair).
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
 
 template <int D, int BLOCK_N>  // head dim, keys per K/V tile
 __global__ void __launch_bounds__(THREADS)

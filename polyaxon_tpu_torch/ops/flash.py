@@ -1,16 +1,18 @@
-"""Flash attention forward: the Hopper kernel and its plain version
-(port of ``polyaxon_tpu/ops/flash.py``, forward only).
+"""Flash attention: the Hopper kernels and their plain versions (port of
+``polyaxon_tpu/ops/flash.py``).
 
 ``flash_attention_with_lse`` keeps the JAX signature and the
-``[B, S, H, D]`` layout. On CUDA tensors it launches
-``csrc/flash_fwd.cu`` (bf16, head_dim 64, 128 or 256, any sequence
-length, causal / sliding window / packed segments, GQA); on CPU tensors
-it runs ``flash_fwd_plain``, the same function in plain PyTorch. There
-is no fallback from the one to the other: a CUDA call the kernel cannot
-take (another dtype or head_dim, unaligned pointers) raises.
-
-The backward kernels belong to the training slice: the autograd
-function's backward raises until they land.
+``[B, S, H, D]`` layout, and is differentiable in both outputs through
+``_FlashFn``. On CUDA tensors its forward launches ``csrc/flash_fwd.cu``
+(bf16, head_dim 64, 128 or 256) and its backward ``csrc/flash_bwd.cu``
+(the dK/dV and dQ kernels, bf16, head_dim 64 or 128); both take any
+sequence length, causal / sliding window / packed segments and GQA. On
+CPU tensors the same autograd function runs ``flash_fwd_plain`` and
+``flash_bwd_plain``, the same functions in plain PyTorch. There is no
+fallback from the one to the other: a CUDA call a kernel cannot take
+(another dtype or head_dim, unaligned pointers) raises. The one explicit
+choice is ``bwd_impl="xla"``, which runs the plain backward on either
+device, as the JAX package's chunked XLA backward does.
 """
 
 from __future__ import annotations
@@ -24,9 +26,14 @@ import torch
 from polyaxon_tpu_torch.ops.attention import NEG_INF
 
 KERNEL_HEAD_DIMS = (64, 128, 256)
+# The backward kernels' f32 dK/dV accumulators of a 256 head_dim would
+# not fit in registers (csrc/flash_bwd.cu): 256 is refused on the card.
+BWD_HEAD_DIMS = (64, 128)
 
-# Launches of the CUDA kernel (one per wrapper call that reached it).
-launches = 0
+# Launches of each CUDA kernel (one per wrapper call that reached it).
+launches = 0            # flash_fwd.cu
+bwd_dkdv_launches = 0   # flash_bwd.cu, dK/dV
+bwd_dq_launches = 0     # flash_bwd.cu, dQ
 
 
 def pick_block(seq: int, preferred: int) -> int:
@@ -61,6 +68,29 @@ def _check_args(q, k, causal, window, segment_ids, bwd_impl,
                              f"got {blk!r}")
 
 
+def _plain_mask(sq: int, sk: int, causal: bool, window: Optional[int],
+                q_seg: Optional[torch.Tensor], k_seg: Optional[torch.Tensor],
+                device) -> torch.Tensor:
+    """``_block_mask`` over the whole [Sq, Sk] square, broadcastable to
+    [B, H, Sq, Sk]: causal rows >= cols, window rows - cols < window,
+    segment equality."""
+    rows = torch.arange(sq, device=device)[:, None]
+    cols = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = rows >= cols
+        if window:
+            mask &= rows - cols < window
+    mask = mask[None, None]
+    if q_seg is not None:
+        mask = mask & (q_seg[:, None, :, None] == k_seg[:, None, None, :])
+    return mask
+
+
+def _expand_kv(t: torch.Tensor, n_rep: int) -> torch.Tensor:
+    return t.to(torch.float32).repeat_interleave(n_rep, dim=2)
+
+
 def flash_fwd_plain(q, k, v, *, causal: bool, scale: float,
                     window: Optional[int] = None,
                     segment_ids: Optional[torch.Tensor] = None):
@@ -68,24 +98,13 @@ def flash_fwd_plain(q, k, v, *, causal: bool, scale: float,
     ``-1e30`` masking, a fully masked row gives o = 0 and
     lse = m + log(1). Returns (o [B, Sq, H, D] in q's dtype,
     lse [B, H, Sq] f32)."""
-    b, sq, h, d = q.shape
+    sq, h = q.shape[1], q.shape[2]
     sk, kv = k.shape[1], k.shape[2]
     n_rep = h // kv
-    qf = q.to(torch.float32)
-    kf = k.to(torch.float32).repeat_interleave(n_rep, dim=2)
-    vf = v.to(torch.float32).repeat_interleave(n_rep, dim=2)
+    qf, kf, vf = q.to(torch.float32), _expand_kv(k, n_rep), _expand_kv(v, n_rep)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    rows = torch.arange(sq, device=q.device)[:, None]
-    cols = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = rows >= cols
-        if window:
-            mask &= rows - cols < window
-    mask = mask[None, None]
-    if segment_ids is not None:
-        mask = mask & (segment_ids[:, None, :, None]
-                       == segment_ids[:, None, None, :])
+    mask = _plain_mask(sq, sk, causal, window, segment_ids, segment_ids,
+                       q.device)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
@@ -148,19 +167,154 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float,
     return o, lse
 
 
+def flash_bwd_plain(q, k, v, segment_ids, o, lse, do, dlse, *,
+                    causal: bool, scale: float,
+                    window: Optional[int] = None,
+                    _kv_segment_ids: Optional[torch.Tensor] = None):
+    """The backward kernels' function in plain PyTorch, in f32: what
+    ``_flash_bwd_xla`` computes, in one pass over the whole [Sq, Sk]
+    square instead of K/V chunks. P is recomputed from the saved lse and
+    masked after the exp (a fully masked row, lse = -1e30, gives 0);
+    ``ds = p * (dp - delta + dlse) * scale`` with ``delta = rowsum(do *
+    o)``; a GQA group's dK/dV fold onto its kv head. ``dlse`` or ``do``
+    may be None (that output unused). Returns (dq, dk, dv) in the dtypes
+    of q, k, v. (``_kv_segment_ids``, a test hook, gives the key side
+    other ids than the query side, to make fully masked rows.)"""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    n_rep = h // kv
+    qf, kf, vf = q.to(torch.float32), _expand_kv(k, n_rep), _expand_kv(v, n_rep)
+    dof = (torch.zeros_like(qf) if do is None else do.to(torch.float32))
+    delta = (dof * o.to(torch.float32)).sum(-1).transpose(1, 2)  # [B,H,Sq]
+    if dlse is not None:
+        delta = delta - dlse.to(torch.float32)
+    k_seg = _kv_segment_ids if _kv_segment_ids is not None else segment_ids
+    mask = _plain_mask(sq, sk, causal, window, segment_ids, k_seg, q.device)
+    # In place where it saves a [B, H, Sq, Sk] f32 temporary: this runs on
+    # the card at training shapes as the kernels' reference.
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf).mul_(scale)
+    p = torch.where(mask, s.sub_(lse[..., None]).exp_(), 0.0)
+    del s
+    ds = torch.einsum("bqhd,bkhd->bhqk", dof, vf)  # dp
+    ds.sub_(delta[..., None]).mul_(p).mul_(scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, sk, kv, n_rep, d).sum(3)
+    dv = dv.reshape(b, sk, kv, n_rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.cache
+def _bwd_entries():
+    """The built backward library and its two typed C entry points."""
+    from polyaxon_tpu_torch.ops import _build
+
+    lib = _build.load("flash_bwd")
+    fns = []
+    for name, n_out in (("flash_bwd_dkdv_bf16", 2), ("flash_bwd_dq_bf16", 1)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * (8 + n_out) + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fns.append(fn)
+    return lib, fns[0], fns[1]
+
+
+def _bwd_launchers(q, k, v, segment_ids, o, lse, do, dlse, *,
+                   causal: bool, scale: float, window: Optional[int] = None,
+                   _kv_segment_ids: Optional[torch.Tensor] = None):
+    """Check and prepare one backward call: returns
+    ``(launch_dkdv, launch_dq, (dq, dk, dv))``, where each launcher
+    runs its kernel once into the preallocated outputs on the current
+    stream and raises on a CUDA error. ``delta - dlse`` is computed here
+    in f32, as JAX computes delta in XLA outside its kernels."""
+    from polyaxon_tpu_torch.ops import _build
+
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if do is None:
+        do = torch.zeros_like(o)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if not t.is_cuda or t.dtype != torch.bfloat16:
+            raise TypeError(f"flash backward kernels take bf16 CUDA tensors; "
+                            f"{name} is {t.dtype} on {t.device}")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash backward kernels take head_dim in "
+                         f"{BWD_HEAD_DIMS}, got {d}")
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash backward needs 16-byte aligned {name}")
+    dd = (do.to(torch.float32) * o.to(torch.float32)).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        dd = dd - dlse.to(torch.float32)
+    dd = dd.contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    qseg = kseg = None
+    if segment_ids is not None:
+        qseg = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+        kseg = qseg if _kv_segment_ids is None else _kv_segment_ids.to(
+            device=q.device, dtype=torch.int32).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib, dkdv_fn, dq_fn = _bwd_entries()
+    inputs = (q, k, v, do, lse, dd, qseg, kseg)  # held by the launchers
+    tail = (b, sq, sk, h, kv, d, float(scale), int(causal), int(window or 0),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+    def launch(fn, what, *outputs):
+        ptrs = [t.data_ptr() if t is not None else None
+                for t in (*inputs, *outputs)]
+        _build.check(lib, fn(*ptrs, *tail), f"{what} launch")
+
+    return (lambda: launch(dkdv_fn, "flash_bwd_dkdv_bf16", dk, dv),
+            lambda: launch(dq_fn, "flash_bwd_dq_bf16", dq), (dq, dk, dv))
+
+
+def flash_bwd_cuda(q, k, v, segment_ids, o, lse, do, dlse, *,
+                   causal: bool, scale: float,
+                   window: Optional[int] = None,
+                   _kv_segment_ids: Optional[torch.Tensor] = None):
+    """Launch ``flash_bwd.cu``'s dK/dV kernel, then its dQ kernel, on
+    the current stream (no synchronise). Arguments as
+    ``flash_bwd_plain``. Raises on anything the kernels do not take."""
+    global bwd_dkdv_launches, bwd_dq_launches
+    launch_dkdv, launch_dq, grads = _bwd_launchers(
+        q, k, v, segment_ids, o, lse, do, dlse, causal=causal, scale=scale,
+        window=window, _kv_segment_ids=_kv_segment_ids)
+    launch_dkdv()
+    bwd_dkdv_launches += 1
+    launch_dq()
+    bwd_dq_launches += 1
+    return grads
+
+
 class _FlashFn(torch.autograd.Function):
-    """(o, lse) with the gradient the training slice will provide."""
+    """(o, lse), differentiable in both. Saves what JAX's forward rule
+    saves (q, k, v, segments, o, lse). CUDA tensors run the kernels
+    (the backward's plain version only when ``bwd_impl == "xla"``); CPU
+    tensors run the plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids, causal, scale, window):
-        return flash_fwd_cuda(q, k, v, causal=causal, scale=scale,
-                              window=window, segment_ids=segment_ids)
+    def forward(ctx, q, k, v, segment_ids, causal, scale, window, bwd_impl):
+        fwd = flash_fwd_cuda if q.is_cuda else flash_fwd_plain
+        o, lse = fwd(q, k, v, causal=causal, scale=scale, window=window,
+                     segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, segment_ids, o, lse)
+        ctx.set_materialize_grads(False)
+        ctx.args = (causal, scale, window, bwd_impl)
+        return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        raise NotImplementedError(
-            "flash attention backward (_bwd_dkdv_kernel, _bwd_dq_kernel) "
-            "belongs to the training slice: ROADMAP.md, Queue 2")
+        q, k, v, segment_ids, o, lse = ctx.saved_tensors
+        causal, scale, window, bwd_impl = ctx.args
+        bwd = (flash_bwd_cuda if q.is_cuda and bwd_impl != "xla"
+               else flash_bwd_plain)
+        dq, dk, dv = bwd(q, k, v, segment_ids, o, lse, do, dlse,
+                         causal=causal, scale=scale, window=window)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_with_lse(
@@ -178,26 +332,27 @@ def flash_attention_with_lse(
     bwd_impl: Optional[str] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Flash attention that also returns the row logsumexp
-    ``[B, H, Sq]`` (f32).
+    ``[B, H, Sq]`` (f32), differentiable in both outputs (an lse
+    cotangent enters ``ds`` additively).
 
     The argument list is the JAX package's. ``block_q``/``block_k`` and
     ``interpret`` are TPU tiling and Pallas knobs: they are validated and
-    otherwise unused, because the Hopper kernel tiles by 64 rows and
-    never interprets. ``bwd_impl`` is validated for the training slice.
-    Causal attention requires Sq == Sk (ValueError otherwise).
+    otherwise unused, because the Hopper kernels tile by 64 rows and
+    never interpret. ``bwd_impl``: None or ``"pallas"`` = the backward
+    kernels on CUDA tensors; ``"xla"`` = the plain backward on either
+    device. Causal attention requires Sq == Sk (ValueError otherwise).
 
-    Routing: CUDA tensors launch the kernel, and a CUDA call it cannot
-    take (a head_dim outside ``KERNEL_HEAD_DIMS``, another dtype) raises;
-    CPU tensors run ``flash_fwd_plain``.
+    Routing: CUDA tensors launch the kernels, and a CUDA call one cannot
+    take (a head_dim outside ``KERNEL_HEAD_DIMS`` forward or
+    ``BWD_HEAD_DIMS`` backward, another dtype) raises; CPU tensors run
+    ``flash_fwd_plain`` and ``flash_bwd_plain``.
     """
     _check_args(q, k, causal, window, segment_ids, bwd_impl,
                 block_q, block_k)
     scale = (softmax_scale if softmax_scale is not None
              else q.shape[-1] ** -0.5)
-    if not q.is_cuda:
-        return flash_fwd_plain(q, k, v, causal=causal, scale=scale,
-                               window=window, segment_ids=segment_ids)
-    return _FlashFn.apply(q, k, v, segment_ids, causal, scale, window)
+    return _FlashFn.apply(q, k, v, segment_ids, causal, scale, window,
+                          bwd_impl)
 
 
 def flash_attention(

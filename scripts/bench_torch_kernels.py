@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernels of one checkout on the card: the kernel checks
 of ``chip_smoke.py`` (build, hold against the plain versions, time
-kernel, plain version and library call) without the engine and HTTP
+kernel, plain version and library call) without the serving and training
 phases.
 
     python3 scripts/bench_torch_kernels.py [CHECKOUT]
@@ -35,10 +35,14 @@ def main() -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(chip_smoke.SEED)
     print(chip_smoke.smi_line(), flush=True)
-    for name, rec in (
-            ("flash_fwd", chip_smoke.check_flash(torch, flash, peaks, gen)),
-            ("paged_decode", chip_smoke.check_paged(torch, paged_attention,
-                                                    peaks, gen))):
+    records = [
+        ("flash_fwd", chip_smoke.check_flash(torch, flash, peaks, gen)),
+        ("paged_decode", chip_smoke.check_paged(torch, paged_attention,
+                                                peaks, gen))]
+    if hasattr(chip_smoke, "check_flash_bwd"):  # checkouts with training
+        bwd = chip_smoke.check_flash_bwd(torch, flash, peaks, gen)
+        records += [(f"flash_bwd_{k}", rec) for k, rec in bwd.items()]
+    for name, rec in records:
         print("RESULT " + json.dumps({"checkout": root, "kernel": name,
                                       **rec}), flush=True)
 

@@ -7,7 +7,10 @@ on a machine without it run:
 
 Tolerances are bf16 ones, about two ulps (atol 1e-2 + rtol 1e-2): outputs
 round to bf16 (2^-8 relative) and the kernels round P to bf16 for the
-tensor-core product; lse is f32 (2e-3).
+tensor-core product; lse is f32 (2e-3). Gradients are sums of up to
+S * n_rep bf16-rounded products whose size depends on the shape, so the
+backward's absolute tolerance is taken relative to the largest reference
+value: |kernel - plain| <= 1e-2 * max|plain| + 2e-2 * |plain|.
 """
 
 import json
@@ -19,6 +22,7 @@ import sys
 import time
 import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
@@ -72,6 +76,128 @@ def test_flash_matches_plain(gen, S, H, KV, D, window, segments, causal):
     assert (lse - plse).abs().max().item() < 2e-3
 
 
+def _bwd_close(got, want):
+    want = want.float()
+    torch.testing.assert_close(got.float(), want,
+                               atol=1e-2 * want.abs().max().item(),
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,window,segments,causal", [
+    (2, 1, 4, 4, 64, None, False, True),
+    (2, 77, 8, 2, 128, None, False, True),
+    (2, 300, 8, 8, 128, 50, False, True),
+    (2, 300, 8, 1, 64, None, True, True),      # GQA 8
+    (2, 130, 8, 2, 128, None, True, True),     # GQA 4, ragged, segments
+    (2, 200, 4, 2, 64, None, False, False),    # non-causal
+    (1, 4096, 32, 8, 64, None, True, True),    # the llama3_1b slice
+    (1, 4096, 32, 8, 128, 1000, False, True),  # llama3_8b, a window
+])
+def test_flash_bwd_matches_plain(gen, B, S, H, KV, D, window, segments,
+                                 causal):
+    q, k, v = _rand(gen, B, S, H, D), _rand(gen, B, S, KV, D), \
+        _rand(gen, B, S, KV, D)
+    seg = None
+    if segments:
+        seg = torch.sort(torch.randint(0, 5, (B, S), generator=gen,
+                                       device="cuda"), dim=1).values
+    o, lse = flash.flash_fwd_cuda(q, k, v, causal=causal, scale=D ** -0.5,
+                                  window=window, segment_ids=seg)
+    do = _rand(gen, B, S, H, D)
+    dlse = 0.1 * torch.randn(B, H, S, generator=gen, device="cuda")
+    before = (flash.bwd_dkdv_launches, flash.bwd_dq_launches)
+    got = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, dlse,
+                               causal=causal, scale=D ** -0.5, window=window)
+    torch.cuda.synchronize()
+    assert (flash.bwd_dkdv_launches, flash.bwd_dq_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash.flash_bwd_plain(q, k, v, seg, o, lse, do, dlse,
+                                 causal=causal, scale=D ** -0.5,
+                                 window=window)
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+        _bwd_close(g_, w_)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_cross_lengths(gen, D):
+    """Non-causal attention with Sq != Sk (a ragged 100 queries over 300
+    keys, GQA 2:1): the dK/dV grid follows Sk, the dQ grid Sq."""
+    B, Sq, Sk, H, KV = 2, 100, 300, 4, 2
+    q, do = _rand(gen, B, Sq, H, D), _rand(gen, B, Sq, H, D)
+    k, v = _rand(gen, B, Sk, KV, D), _rand(gen, B, Sk, KV, D)
+    o, lse = flash.flash_fwd_cuda(q, k, v, causal=False, scale=D ** -0.5)
+    dlse = torch.randn(B, H, Sq, generator=gen, device="cuda")
+    kw = dict(causal=False, scale=D ** -0.5)
+    got = flash.flash_bwd_cuda(q, k, v, None, o, lse, do, dlse, **kw)
+    want = flash.flash_bwd_plain(q, k, v, None, o, lse, do, dlse, **kw)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape
+        _bwd_close(g_, w_)
+
+
+def test_flash_bwd_fully_masked_rows_give_zero(gen):
+    """Query rows whose segment no key shares (lse = -1e30, o = 0): the
+    mask after the exp gives them zero dQ and no share of dK/dV."""
+    B, S, H, KV, D = 2, 200, 4, 2, 64
+    q, k, v = _rand(gen, B, S, H, D), _rand(gen, B, S, KV, D), \
+        _rand(gen, B, S, KV, D)
+    kseg = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+    qseg = kseg.clone()
+    qseg[:, 70:90] = 7
+    o, lse = flash.flash_fwd_cuda(q, k, v, causal=True, scale=D ** -0.5)
+    o[:, 70:90] = 0
+    lse[:, :, 70:90] = -1e30
+    do = _rand(gen, B, S, H, D)
+    dlse = torch.randn(B, H, S, generator=gen, device="cuda")
+    kw = dict(causal=True, scale=D ** -0.5, _kv_segment_ids=kseg)
+    got = flash.flash_bwd_cuda(q, k, v, qseg, o, lse, do, dlse, **kw)
+    want = flash.flash_bwd_plain(q, k, v, qseg, o, lse, do, dlse, **kw)
+    torch.cuda.synchronize()
+    assert got[0][:, 70:90].abs().max().item() == 0.0
+    for g_, w_ in zip(got, want):
+        _bwd_close(g_, w_)
+
+
+@pytest.mark.parametrize("bwd_impl", [None, "xla"])
+def test_flash_autograd_routes_backward(gen, bwd_impl):
+    """Through ``flash_attention_with_lse``: the default backward launches
+    both kernels once; ``bwd_impl="xla"`` launches none and runs the
+    plain backward. Both give the same gradients."""
+    B, S, H, KV, D = 2, 256, 8, 2, 64
+    leaves = [_rand(gen, B, S, H, D), _rand(gen, B, S, KV, D),
+              _rand(gen, B, S, KV, D)]
+    for t in leaves:
+        t.requires_grad_(True)
+    w = torch.randn(B, H, S, generator=gen, device="cuda")
+    before = (flash.bwd_dkdv_launches, flash.bwd_dq_launches)
+    o, lse = flash.flash_attention_with_lse(*leaves, causal=True,
+                                            bwd_impl=bwd_impl)
+    (o.float().square().sum() + (lse * w).sum()).backward()
+    torch.cuda.synchronize()
+    moved = (flash.bwd_dkdv_launches - before[0],
+             flash.bwd_dq_launches - before[1])
+    assert moved == ((1, 1) if bwd_impl is None else (0, 0))
+    q, k, v = (t.detach() for t in leaves)
+    o, lse = flash.flash_fwd_cuda(q, k, v, causal=True, scale=D ** -0.5)
+    want = flash.flash_bwd_plain(q, k, v, None, o, lse, 2 * o.float(), w,
+                                 causal=True, scale=D ** -0.5)
+    for t, w_ in zip(leaves, want):
+        _bwd_close(t.grad, w_)
+
+
+def test_flash_bwd_refuses_what_it_cannot_take(gen):
+    for d in (256, 96):
+        q = _rand(gen, 1, 8, 2, d)
+        lse = torch.zeros(1, 2, 8, device="cuda")
+        before = (flash.bwd_dkdv_launches, flash.bwd_dq_launches)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash.flash_bwd_cuda(q, q, q, None, q, lse, q, None,
+                                 causal=True, scale=1.0)
+        assert (flash.bwd_dkdv_launches, flash.bwd_dq_launches) == before
+
+
 def test_flash_refuses_what_it_cannot_take(gen):
     q = torch.randn(1, 8, 2, 128, generator=gen, device="cuda")  # f32
     with pytest.raises(TypeError, match="bf16"):
@@ -115,6 +241,40 @@ def test_paged_decode_refuses_what_it_cannot_take(gen):
     pos = torch.zeros(2, device="cuda", dtype=torch.int32)
     with pytest.raises(ValueError, match="head_dim"):
         paged_attention.paged_decode_attention(q, kp, kp, tables, pos)
+
+
+def test_training_config_refused_at_construction(gen):
+    """gemma_2b's head_dim 256 has no backward kernel: a flash training
+    job is refused before any weight is allocated."""
+    from polyaxon_tpu_torch.runtime.loop import run_torchjob
+
+    job = {"runtime": {"model": "gemma_2b", "attention_impl": "flash"}}
+    with pytest.raises(ValueError, match="flash_bwd"):
+        run_torchjob(job)
+
+
+def test_launcher_trains_llama_200m(gen, tmp_path):
+    """``python -m polyaxon_tpu_torch.runtime.launch`` trains llama_200m
+    (head_dim 64) for 3 packed steps through the flash kernels, logs one
+    JSON line per emission and exits 0."""
+    spec = {"kind": "jaxjob", "checkpointing": {"enabled": False},
+            "runtime": {"model": "llama_200m", "dataset": "lm_packed_synthetic",
+                        "steps": 3, "seq_len": 1024, "global_batch_size": 4,
+                        "grad_accum_steps": 2, "log_every": 1,
+                        "attention_impl": "flash", "remat": "dots"}}
+    env = dict(os.environ, POLYAXON_JAXJOB_SPEC=json.dumps(spec),
+               POLYAXON_RUN_ARTIFACTS_PATH=str(tmp_path))
+    out = subprocess.run(
+        [sys.executable, "-m", "polyaxon_tpu_torch.runtime.launch"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = [json.loads(x) for x in out.stdout.splitlines()
+             if x.startswith("{")]
+    steps = [x for x in lines if "loss" in x]
+    assert [x["step"] for x in steps] == [1, 2]
+    assert all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+               and 0 < x["mfu"] < 1 for x in steps)
+    assert lines[-1]["outputs"]["steps"] == 3
 
 
 def test_cli_serves_and_stops_on_sigterm(gen):
