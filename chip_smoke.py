@@ -7,14 +7,16 @@ Phases, each of which must pass:
 
 1. Build every kernel of the serving and training paths from
    ``ops/csrc`` with nvcc (all builds in parallel) and hold each kernel
-   against its plain PyTorch version at the paths' shapes (llama3_8b
-   prefill attention at a ragged length and at 2048; paged decode over 8
-   rows with ragged positions, a hole and an idle row; the flash backward
-   pair at llama3_1b's packed training shape and at a ragged length with
-   GQA 4:1 at head_dim 128). Times each kernel, its plain version and,
-   where one PyTorch call computes the same function,
-   ``F.scaled_dot_product_attention`` (forward or backward) as a
-   yardstick the port never calls.
+   against its plain PyTorch version at the paths' shapes: the flash
+   forward at llama3_8b prefill (a ragged length and 2048), at the
+   llama3_1b training microbatch (B=4, S=4096, D=64, packed segments) and
+   at gemma_2b's (S=4096, D=256, MQA 8:1, causal and with a window); paged
+   decode over 8 rows with ragged positions, a hole and an idle row; the
+   flash backward pair at llama3_1b's and gemma_2b's packed training
+   shapes and at a ragged length with GQA 4:1 at head_dim 128. Times each
+   kernel, its plain version and, where one PyTorch call computes the
+   same function, ``F.scaled_dot_product_attention`` (forward or
+   backward) as a yardstick the port never calls.
 2. The serving path: ``ContinuousBatchingEngine`` over llama3_8b at full
    width and depth (random bf16 weights from a seed), 16 requests of
    mixed lengths, some sharing a prefix. The kernels' launch counts are
@@ -36,6 +38,10 @@ Phases, each of which must pass:
    the plain backward that rounds P and dS to bf16 as the kernels do, and
    the kernel path's gradients with those of the forward kernel and the
    f32 plain backward.
+6. The training path at head_dim 256: ``run_torchjob`` trains gemma_2b at
+   full width and depth (18 layers, MQA 8:1, 2.51 B parameters) on packed
+   4096-token rows, global batch 4 in 4 microbatches, for 3 steps, with
+   the counters checked as in phase 4.
 
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
@@ -112,6 +118,24 @@ TRAIN_JOB = {
         "attention_impl": "flash", "log_every": 1, "seed": SEED,
     },
 }
+# gemma_2b at full width and depth (head_dim 256, MQA 8:1, 2.51 B
+# parameters), the same recipe at global batch 4 in 4 microbatches of 1
+# (PERF.md section 4), for 3 steps.
+GEMMA_LAYERS = 18
+GEMMA_STEPS = 3
+GEMMA_ACCUM = 4
+GEMMA_JOB = {
+    "kind": "jaxjob",
+    "mesh": {"axes": {"fsdp": -1}},
+    "checkpointing": {"enabled": False},
+    "runtime": {
+        "model": "gemma_2b", "dataset": "lm_packed_synthetic",
+        "steps": GEMMA_STEPS, "seq_len": 4096, "global_batch_size": 4,
+        "grad_accum_steps": GEMMA_ACCUM, "learning_rate": 3e-4,
+        "lr_schedule": "cosine", "optimizer": "adamw", "remat": "dots",
+        "attention_impl": "flash", "log_every": 1, "seed": SEED,
+    },
+}
 
 
 def fail(msg: str) -> None:
@@ -164,56 +188,103 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 # ------------------------------------------------------------ kernels
 def check_flash(torch, flash, peaks, gen):
-    """Kernel vs plain at llama3_8b prefill shapes; returns the record
-    for the kernels line (timed at S=2048) and prints each length."""
-    import torch.nn.functional as F
+    """Kernel vs plain at the paths' shapes: llama3_8b prefill (S=1000 and
+    S=2048, D=128; the kernels line's record is S=2048), the llama3_1b
+    training microbatch (D=64, held with packed segments, timed without)
+    and gemma_2b's (D=256, MQA 8:1, causal and with a 1024 window). Each
+    timed case prints kernel, plain, SDPA and bound ms and TFLOP/s."""
+    from polyaxon_tpu_torch.runtime.data import lm_packed_synthetic
 
-    B, H, KV, D = 1, 32, 8, 128
     worst = 0.0
     rec = None
     for S in (1000, 2048):
-        q = torch.randn(B, S, H, D, generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        k = torch.randn(B, S, KV, D, generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        v = torch.randn(B, S, KV, D, generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        o, lse = flash.flash_attention_with_lse(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        po, plse = flash.flash_fwd_plain(q, k, v, causal=True,
-                                         scale=D ** -0.5)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
-            fail(f"flash kernel produced non-finite values at S={S}")
-        err_o = (o.float() - po.float()).abs().max().item()
-        err_lse = (lse - plse).abs().max().item()
-        if not close(o, po) or err_lse > FLASH_LSE_ATOL:
-            fail(f"flash kernel disagrees with its plain version at S={S}: "
-                 f"o max abs err {err_o} (atol {OUT_ATOL} + rtol "
-                 f"{OUT_RTOL}), lse err {err_lse} (tol {FLASH_LSE_ATOL})")
-        worst = max(worst, err_o)
-        ms = time_ms(lambda: flash.flash_attention_with_lse(
-            q, k, v, causal=True), reps=20)
-        plain_ms = time_ms(lambda: flash.flash_fwd_plain(
-            q, k, v, causal=True, scale=D ** -0.5), reps=3, warmup=1)
+        args = _flash_inputs(torch, gen, 1, S, 32, 8, 128)
+        worst = max(worst, hold_flash(torch, flash, f"llama3_8b S={S}",
+                                      *args))
+        rec = time_flash(torch, flash, peaks, f"llama3_8b S={S}", *args)
+        del args
+    rec["max_abs_err"] = worst
+
+    segs = torch.from_numpy(next(lm_packed_synthetic(
+        4, seq_len=4096, vocab_size=128_256, seed=SEED))["segments"]).cuda()
+    args = _flash_inputs(torch, gen, 4, 4096, 32, 8, 64)
+    rec["max_abs_err"] = max(rec["max_abs_err"], hold_flash(
+        torch, flash, "llama3_1b B=4 S=4096 D=64 packed", *args, seg=segs))
+    time_flash(torch, flash, peaks, "llama3_1b B=4 S=4096 D=64", *args)
+    del args
+    args = _flash_inputs(torch, gen, 1, 4096, 8, 1, 256)
+    for window in (None, 1024):
+        label = f"gemma_2b S=4096 D=256 window={window}"
+        rec["max_abs_err"] = max(rec["max_abs_err"], hold_flash(
+            torch, flash, label, *args, window=window))
+        time_flash(torch, flash, peaks, label, *args, window=window)
+    del args
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _flash_inputs(torch, gen, B, S, H, KV, D):
+    return tuple(torch.randn(B, S, n, D, generator=gen, device="cuda",
+                             dtype=torch.bfloat16) for n in (H, KV, KV))
+
+
+def hold_flash(torch, flash, label, q, k, v, *, seg=None, window=None):
+    """The forward kernel against ``flash_fwd_plain`` (causal); fails on
+    a disagreement, returns the max abs error of o."""
+    D = q.shape[-1]
+    o, lse = flash.flash_attention_with_lse(q, k, v, causal=True,
+                                            window=window, segment_ids=seg)
+    torch.cuda.synchronize()
+    po, plse = flash.flash_fwd_plain(q, k, v, causal=True, scale=D ** -0.5,
+                                     window=window, segment_ids=seg)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+        fail(f"flash kernel produced non-finite values ({label})")
+    err_o = (o.float() - po.float()).abs().max().item()
+    err_lse = (lse - plse).abs().max().item()
+    if not close(o, po) or err_lse > FLASH_LSE_ATOL:
+        fail(f"flash kernel disagrees with its plain version ({label}): "
+             f"o max abs err {err_o} (atol {OUT_ATOL} + rtol {OUT_RTOL}), "
+             f"lse err {err_lse} (tol {FLASH_LSE_ATOL})")
+    print(f"flash {label}{' packed' if seg is not None else ''}: "
+          f"max_abs_err o={err_o:.3e} lse={err_lse:.3e}", flush=True)
+    del o, lse, po, plse
+    torch.cuda.empty_cache()
+    return err_o
+
+
+def time_flash(torch, flash, peaks, label, q, k, v, *, window=None):
+    """Kernel, plain and (without a window) SDPA times of the causal
+    forward, and its bound; returns the record."""
+    import torch.nn.functional as F
+
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    ms = time_ms(lambda: flash.flash_attention_with_lse(
+        q, k, v, causal=True, window=window), reps=20)
+    plain_ms = time_ms(lambda: flash.flash_fwd_plain(
+        q, k, v, causal=True, scale=D ** -0.5, window=window), reps=3,
+        warmup=1)
+    lib_ms = None
+    if window is None:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
-        pairs = S * (S + 1) // 2  # visible (row, col) pairs, causal
-        flops = 4.0 * B * H * pairs * D
-        nbytes = (2.0 * (2 * B * S * H * D + 2 * B * S * KV * D)
-                  + 4.0 * B * H * S)  # q, k, v read; o, lse written
-        bound_ms = max(flops / peaks[0], nbytes / peaks[1]) * 1e3
-        by = "operations" if flops / peaks[0] >= nbytes / peaks[1] else "bytes"
-        print(f"flash S={S}: max_abs_err o={err_o:.3e} lse={err_lse:.3e} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"sdpa_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({by}) "
-              f"kernel_TFLOPs={flops / ms / 1e9:.1f}", flush=True)
-        rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": by, "library_ms": lib_ms}
-        del q, k, v, o, lse, po, plse, qt, kt, vt
-    rec["max_abs_err"] = worst
-    return rec
+        del qt, kt, vt
+    # Visible (row, col) pairs: the causal triangle, cut to the band.
+    pairs = sum(min(r + 1, window or r + 1) for r in range(S))
+    flops = 4.0 * B * H * pairs * D
+    nbytes = (2.0 * (2 * B * S * H * D + 2 * B * S * KV * D)
+              + 4.0 * B * H * S)  # q, k, v read; o, lse written
+    bound_ms = max(flops / peaks[0], nbytes / peaks[1]) * 1e3
+    by = "operations" if flops / peaks[0] >= nbytes / peaks[1] else "bytes"
+    lib = f"{lib_ms:.4f}" if lib_ms is not None else "none"
+    print(f"flash {label} B={B} H={H} KV={KV}: kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} sdpa_ms={lib} bound_ms={bound_ms:.4f} "
+          f"({by}) kernel_TFLOPs={flops / ms / 1e9:.1f}", flush=True)
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms}
 
 
 def check_paged(torch, paged, peaks, gen):
@@ -338,7 +409,6 @@ def flash_bwd_plain_bf16(q, k, v, segment_ids, o, lse, do, dlse, *,
 def check_flash_bwd(torch, flash, peaks, gen):
     """Both backward kernels against ``flash_bwd_plain`` in bf16, then
     timed. Returns the two records for the kernels line."""
-    import torch.nn.functional as F
     from polyaxon_tpu_torch.runtime.data import lm_packed_synthetic
 
     seg = torch.from_numpy(next(lm_packed_synthetic(
@@ -346,7 +416,9 @@ def check_flash_bwd(torch, flash, peaks, gen):
     worst = {"dkdv": 0.0, "dq": 0.0}
     for label, shape, s in (
             ("llama3_1b packed S=4096 H32 KV8 D64", (1, 4096, 32, 8, 64), seg),
-            ("ragged S=1000 GQA 4:1 D128", (1, 1000, 32, 8, 128), None)):
+            ("ragged S=1000 GQA 4:1 D128", (1, 1000, 32, 8, 128), None),
+            ("gemma_2b packed S=4096 H8 KV1 D256", (1, 4096, 8, 1, 256),
+             seg)):
         args = _bwd_inputs(torch, flash, gen, *shape, s, dlse=True)
         D = shape[-1]
         got = flash.flash_bwd_cuda(*args, causal=True, scale=D ** -0.5)
@@ -376,9 +448,23 @@ def check_flash_bwd(torch, flash, peaks, gen):
         del args, got, emul
         torch.cuda.empty_cache()
 
-    # Times at B=4, S=4096 (one microbatch of the training path), no
-    # segments, no lse cotangent, so SDPA's backward is the same function.
-    B, S, H, KV, D = 4, 4096, 32, 8, 64
+    # Times at one microbatch of each training path (llama3_1b: B=4,
+    # S=4096, D=64, the kernels line's record; gemma_2b: B=1, S=4096,
+    # D=256), no segments, no lse cotangent, so SDPA's backward is the
+    # same function.
+    recs = time_flash_bwd(torch, flash, peaks, gen, 4, 4096, 32, 8, 64)
+    time_flash_bwd(torch, flash, peaks, gen, 1, 4096, 8, 1, 256)
+    for name in recs:
+        recs[name]["max_abs_err"] = worst[name]
+    return recs
+
+
+def time_flash_bwd(torch, flash, peaks, gen, B, S, H, KV, D):
+    """Times of the backward pair, its plain version and SDPA's backward
+    at one causal shape; returns the two kernels' records (without
+    max_abs_err)."""
+    import torch.nn.functional as F
+
     args = _bwd_inputs(torch, flash, gen, B, S, H, KV, D, None, dlse=False)
     kw = dict(causal=True, scale=D ** -0.5)
     run_dkdv, run_dq, _ = flash._bwd_launchers(*args, **kw)
@@ -399,27 +485,31 @@ def check_flash_bwd(torch, flash, peaks, gen):
     qbytes, kvbytes, rowbytes = 2.0 * B * S * H * D, 2.0 * B * S * KV * D, \
         4.0 * B * H * S
     inputs = 2 * qbytes + 2 * kvbytes + 2 * rowbytes  # q, do, k, v, lse, dd
+    # Products of head_dim per pair each kernel does: dQ recomputes S and
+    # dP; at head_dim 256 each half-dim block recomputes both again.
+    done = {"dkdv": 6, "dq": 5} if D == 256 else {"dkdv": 4, "dq": 3}
     recs = {}
     # The pair's minimal work, split so that the two bounds add up to it:
     # 5 products of head_dim per visible pair (S and dP once, then dV, dK
     # and dQ), each input read once and each output written once. dK/dV
     # is charged S, dP, dV, dK and the inputs; dQ only its own product and
-    # its output. (The two-kernel split does 7: dQ recomputes S and dP.)
-    for name, n_prod, n_done, nbytes, ms in (
-            ("dkdv", 4, 4, inputs + 2 * kvbytes, dkdv_ms),
-            ("dq", 1, 3, qbytes, dq_ms)):
+    # its output.
+    for name, n_prod, nbytes, ms in (
+            ("dkdv", 4, inputs + 2 * kvbytes, dkdv_ms),
+            ("dq", 1, qbytes, dq_ms)):
         flops = 2.0 * D * n_prod * pairs
         t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
-        recs[name] = {"max_abs_err": worst[name], "ms": ms,
-                      "plain_ms": plain_ms,
+        recs[name] = {"ms": ms, "plain_ms": plain_ms,
                       "bound_ms": max(t_ops, t_bytes) * 1e3,
                       "bound_by": "operations" if t_ops >= t_bytes
                       else "bytes", "library_ms": lib_ms}
-        print(f"flash_bwd {name} B={B} S={S}: kernel_ms={ms:.4f} "
+        print(f"flash_bwd {name} B={B} S={S} H={H} KV={KV} D={D}: "
+              f"kernel_ms={ms:.4f} "
               f"bound_ms={recs[name]['bound_ms']:.4f} "
               f"({recs[name]['bound_by']}) TFLOPs_done="
-              f"{2.0 * D * n_done * pairs / ms / 1e9:.1f}", flush=True)
-    print(f"flash_bwd pair B={B} S={S}: wrapper_ms={pair_ms:.4f} "
+              f"{2.0 * D * done[name] * pairs / ms / 1e9:.1f}", flush=True)
+    print(f"flash_bwd pair B={B} S={S} H={H} KV={KV} D={D}: "
+          f"wrapper_ms={pair_ms:.4f} "
           f"(dkdv+dq {dkdv_ms + dq_ms:.4f}) plain_ms={plain_ms:.4f} "
           f"sdpa_bwd_ms={lib_ms:.4f} bound_ms="
           f"{recs['dkdv']['bound_ms'] + recs['dq']['bound_ms']:.4f} "
@@ -486,6 +576,20 @@ def compare_first_admission(torch, llama, cfg, params, prompt):
     print(f"first admission (prompt {len(prompt)}): rel err k={out['k']:.3e} "
           f"v={out['v']:.3e} logits={out['logits']:.3e} "
           f"same_argmax={same_argmax}", flush=True)
+
+
+def time_prefill(torch, llama, flash, cfg, params):
+    """Device time of one 2,048-token llama3_8b prompt pass (the prefill's
+    KV, 32 flash forward launches), by CUDA events."""
+    row = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            SEED))
+    before = flash.launches
+    ms = time_ms(lambda: llama.paged_prefill_kv(cfg, params, row), reps=5,
+                 warmup=1)
+    per = (flash.launches - before) // 6
+    print(f"prefill llama3_8b 2048 tokens: ms={ms:.2f} "
+          f"flash_fwd_launches_per_prefill={per}", flush=True)
 
 
 def run_engine(flash, paged, cfg, params):
@@ -570,41 +674,45 @@ def run_http(flash, paged):
           flush=True)
 
 
-def run_training(torch, flash):
-    """The training main path; returns its launch counts."""
+def run_training(torch, flash, job, layers):
+    """One training main path; returns its launch counts."""
     from polyaxon_tpu_torch.runtime.loop import run_torchjob
 
+    rt = job["runtime"]
+    steps, accum = rt["steps"], rt["grad_accum_steps"]
     emitted = []
     torch.cuda.reset_peak_memory_stats()
     flash.launches = flash.bwd_dkdv_launches = flash.bwd_dq_launches = 0
     t0 = time.perf_counter()
-    result = run_torchjob(TRAIN_JOB,
-                          on_metrics=lambda s, v: emitted.append((s, v)))
+    result = run_torchjob(job, on_metrics=lambda s, v: emitted.append((s, v)))
     wall = time.perf_counter() - t0
     counts = {"flash_fwd": flash.launches,
               "flash_bwd_dkdv": flash.bwd_dkdv_launches,
               "flash_bwd_dq": flash.bwd_dq_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for step, vals in emitted:
-        print(f"train step {step}: loss={vals['loss']:.5f} "
+        print(f"train {rt['model']} step {step}: loss={vals['loss']:.5f} "
               f"grad_norm={vals['grad_norm']:.5f} "
               f"step_ms={vals['step_time_ms']:.1f} "
               f"tokens_per_s={vals['tokens_per_sec']:.1f} "
               f"mfu={vals.get('mfu', float('nan')):.4f}", flush=True)
-    if len(emitted) != TRAIN_STEPS - 1 or result.steps != TRAIN_STEPS:
-        fail(f"training ran {result.steps} steps with {len(emitted)} "
-             "emissions")
+    if len(emitted) != steps - 1 or result.steps != steps:
+        fail(f"{rt['model']} training ran {result.steps} steps with "
+             f"{len(emitted)} emissions")
     for step, vals in emitted:
         if not (math.isfinite(vals["loss"])
                 and math.isfinite(vals["grad_norm"])):
-            fail(f"training step {step}: non-finite loss or grad norm {vals}")
-    want_bwd = TRAIN_LAYERS * TRAIN_ACCUM * TRAIN_STEPS
-    if counts["flash_fwd"] <= 0 or counts["flash_bwd_dkdv"] != want_bwd \
-            or counts["flash_bwd_dq"] != want_bwd:
-        fail(f"training main path launches {counts}; each backward kernel "
-             f"must run {want_bwd} times (layers x microbatches x steps)")
+            fail(f"{rt['model']} training step {step}: non-finite loss or "
+                 f"grad norm {vals}")
+    # remat "dots" recomputes the forward kernel once in the backward.
+    want_bwd = layers * accum * steps
+    if counts != {"flash_fwd": 2 * want_bwd, "flash_bwd_dkdv": want_bwd,
+                  "flash_bwd_dq": want_bwd}:
+        fail(f"{rt['model']} training main path launches {counts}; each "
+             f"backward kernel must run {want_bwd} times (layers x "
+             f"microbatches x steps), the forward twice as often")
     last = emitted[-1][1]
-    print(f"train llama3_1b: steps={result.steps} tokens_per_step="
+    print(f"train {rt['model']}: steps={result.steps} tokens_per_step="
           f"{result.units_per_step} tokens_per_s={result.throughput:.1f} "
           f"step_ms={last['step_time_ms']:.1f} mfu={last.get('mfu')} "
           f"first_step_s={result.compile_time_s:.1f} wall_s={wall:.1f} "
@@ -782,23 +890,28 @@ def main() -> None:
           f"paged_attention_impl={cfg.paged_attention_impl}", flush=True)
     counts, first_prompt = run_engine(flash, paged_attention, cfg, params)
     compare_first_admission(torch, llama, cfg, params, first_prompt)
+    time_prefill(torch, llama, flash, cfg, params)
     del params
     torch.cuda.empty_cache()
 
     run_http(flash, paged_attention)
 
-    train_counts = run_training(torch, flash)
+    train_counts = run_training(torch, flash, TRAIN_JOB, TRAIN_LAYERS)
     torch.cuda.empty_cache()
     first_step_parity(torch, llama, flash)
     torch.cuda.empty_cache()
+    gemma_counts = run_training(torch, flash, GEMMA_JOB, GEMMA_LAYERS)
+    torch.cuda.empty_cache()
 
-    # flash_fwd runs on both paths: its launches are the two main-path
-    # runs' sum (each printed above).
+    # flash_fwd runs on every path: its launches are the three main-path
+    # runs' sum, the backward kernels' the two training runs' (each
+    # printed above).
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="polyaxon_tpu_torch/ops/csrc/flash_fwd.cu",
              replaces="polyaxon_tpu/ops/flash.py:177",
-             launches=counts["flash_fwd"] + train_counts["flash_fwd"],
+             launches=counts["flash_fwd"] + train_counts["flash_fwd"]
+             + gemma_counts["flash_fwd"],
              **_ordered(flash_rec)),
         dict(name="paged_decode", route="cuda",
              source="polyaxon_tpu_torch/ops/csrc/paged_decode.cu",
@@ -807,12 +920,14 @@ def main() -> None:
         dict(name="flash_bwd_dkdv", route="cuda",
              source="polyaxon_tpu_torch/ops/csrc/flash_bwd.cu",
              replaces="polyaxon_tpu/ops/flash.py:417",
-             launches=train_counts["flash_bwd_dkdv"],
+             launches=train_counts["flash_bwd_dkdv"]
+             + gemma_counts["flash_bwd_dkdv"],
              **_ordered(bwd_recs["dkdv"])),
         dict(name="flash_bwd_dq", route="cuda",
              source="polyaxon_tpu_torch/ops/csrc/flash_bwd.cu",
              replaces="polyaxon_tpu/ops/flash.py:484",
-             launches=train_counts["flash_bwd_dq"],
+             launches=train_counts["flash_bwd_dq"]
+             + gemma_counts["flash_bwd_dq"],
              **_ordered(bwd_recs["dq"])),
     ]
     print(f"total_s={time.perf_counter() - t_start:.1f}", flush=True)

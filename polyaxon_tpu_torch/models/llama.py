@@ -476,7 +476,7 @@ def check_kernel_shapes(cfg: LlamaConfig, device, *,
     if cfg.attention_impl in ("auto", "flash"):
         kernels.append(("flash_fwd", flash.KERNEL_HEAD_DIMS))
         if training and cfg.flash_bwd_impl != "xla":
-            kernels.append(("flash_bwd", flash.BWD_HEAD_DIMS))
+            kernels.append(("flash_bwd", flash.KERNEL_HEAD_DIMS))
     if not training and cfg.paged_attention_impl == "auto":
         kernels.append(("paged_decode", paged_attention.KERNEL_HEAD_DIMS))
     for name, dims in kernels:

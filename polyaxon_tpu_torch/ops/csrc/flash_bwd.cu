@@ -44,9 +44,19 @@
 // and zero gradients; ds = p * (dp - delta + dlse) * scale, where the
 // caller passes dd = delta - dlse (delta = rowsum(dO * O), in f32). Any
 // sequence length: tail keys >= Sk and tail rows >= Sq are masked and
-// never written. head_dim 64 and 128; the f32 dK and dV accumulators of a
-// 256 head_dim would not fit in registers, so that entry returns
-// cudaErrorInvalidValue (and the wrapper refuses it first).
+// never written. head_dim 64, 128 and 256.
+//
+// head_dim 256 (gemma_2b): the f32 dK and dV accumulators of 16 keys x
+// 256 dims would take 2 x 16 x 256 / 32 = 256 registers per thread, so
+// both kernels split the head dim over two blocks (SPLIT = 2): each block
+// owns one 128-wide half of dK/dV (or of dQ) and recomputes S and dP over
+// the full 256 from its shared-memory tiles. That doubles the S/dP
+// products (9 products per pair for dK/dV and 6 for dQ instead of 4 and
+// 3 at the same accumulator cost as head_dim 128) and keeps the design
+// as it is; the fused backward redesign removes the recompute. The dQ
+// kernel then keeps its Q and dO tiles in shared memory instead of
+// registers (64 A-fragment registers each at head_dim 256). Tiles above
+// 48 KB live in dynamic shared memory.
 
 #include <cuda_runtime.h>
 
@@ -87,7 +97,7 @@ constexpr size_t dkdv_smem_bytes() {
          static_cast<size_t>(BQ) * (2 * sizeof(float) + sizeof(int));
 }
 
-template <int D, int BQ>
+template <int D, int BQ, int SPLIT>  // head dim, q rows per tile, dK/dV split
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -100,7 +110,8 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       float scale, int causal, int window) {
   constexpr int KSTEPS = D / 16;  // k-steps of the products over head dim
   constexpr int NT_Q = BQ / 8;    // 8-column tiles of S^T (q columns)
-  constexpr int NT_D = D / 8;     // 8-column tiles of dK / dV
+  constexpr int DO = D / SPLIT;   // dK / dV columns this block owns
+  constexpr int NT_D = DO / 8;    // 8-column tiles of dK / dV
   constexpr int LDS = D + 8;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -113,7 +124,8 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int* seg_s = reinterpret_cast<int*>(dd_s + BQ);
 
   const int k0 = blockIdx.x * BLOCK_M;
-  const int kvh = blockIdx.y;
+  const int kvh = blockIdx.y / SPLIT;
+  const int c_out = (blockIdx.y % SPLIT) * DO;  // first owned column
   const int b = blockIdx.z;
   const int n_rep = H / KV;
   const int tid = threadIdx.x;
@@ -213,8 +225,8 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < NT_D; ++n) {
           uint32_t bo[2], bq[2];
-          smem_b_kn(bo, dOs, LDS, kk * 16, n * 8, g, t4);
-          smem_b_kn(bq, Qs, LDS, kk * 16, n * 8, g, t4);
+          smem_b_kn(bo, dOs, LDS, kk * 16, c_out + n * 8, g, t4);
+          smem_b_kn(bq, Qs, LDS, kk * 16, c_out + n * 8, g, t4);
           mma_16816(dv_acc[n], pa, bo);
           mma_16816(dk_acc[n], sa, bq);
         }
@@ -227,7 +239,7 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= Sk) continue;
     const size_t off = kv_off + static_cast<size_t>(key[r]) * kv_stride +
-                       t4 * 2;
+                       c_out + t4 * 2;
 #pragma unroll
     for (int n = 0; n < NT_D; ++n) {
       *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
@@ -238,7 +250,13 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int BN>  // head dim, keys per streamed K/V tile
+template <int D, int BN, int SPLIT>
+constexpr size_t dq_smem_bytes() {  // K/V tiles, and Q/dO tiles at D > 128
+  return static_cast<size_t>(2 * BN + (D > 128 ? 2 * BLOCK_M : 0)) *
+         (D + 8) * sizeof(bf16);
+}
+
+template <int D, int BN, int SPLIT>  // head dim, keys per K/V tile, dQ split
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
@@ -250,15 +268,24 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     int Sq, int Sk, int H, int KV, float scale, int causal,
                     int window) {
   constexpr int KSTEPS = D / 16;
-  constexpr int NT_S = BN / 8;  // 8-column tiles of S (keys)
-  constexpr int NT_D = D / 8;   // 8-column tiles of dQ
+  constexpr int NT_S = BN / 8;      // 8-column tiles of S (keys)
+  constexpr int DO = D / SPLIT;     // dQ columns this block owns
+  constexpr int NT_D = DO / 8;      // 8-column tiles of dQ
   constexpr int LDS = D + 8;
+  // Q and dO A fragments: in registers for the whole kv sweep, or (at
+  // D > 128, where they would take 128 registers) read from shared memory.
+  constexpr bool QSMEM = D > 128;
+  constexpr int KREG = QSMEM ? 1 : KSTEPS;
 
-  __shared__ __align__(16) bf16 Ks[BN * LDS];
-  __shared__ __align__(16) bf16 Vs[BN * LDS];
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + BN * LDS;
+  bf16* Qs = Vs + BN * LDS;           // QSMEM only
+  bf16* dOs = Qs + BLOCK_M * LDS;     // QSMEM only
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BLOCK_M;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / SPLIT;
+  const int c_out = (blockIdx.y % SPLIT) * DO;  // first owned column
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x;
@@ -273,25 +300,31 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t kv_off = static_cast<size_t>(b) * Sk * kv_stride +
                         static_cast<size_t>(kvh) * D;
 
-  // Q and dO fragments (A operands) stay in registers for the kv sweep.
-  uint32_t qf[KSTEPS][4], of[KSTEPS][4];
+  uint32_t qf[KREG][4], of[KREG][4];
+  if constexpr (QSMEM) {
+    // Visible to every warp after the first tile's __syncthreads below.
+    load_rows<D>(Qs, q + q_off, q_stride, q0, BLOCK_M, Sq, tid);
+    load_rows<D>(dOs, dout + q_off, q_stride, q0, BLOCK_M, Sq, tid);
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int c = kk * 16 + t4 * 2;
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const int c = kk * 16 + t4 * 2;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      uint32_t ql = 0, qh = 0, ol = 0, oh = 0;
-      if (row[r] < Sq) {
-        const size_t off = q_off + static_cast<size_t>(row[r]) * q_stride + c;
-        ql = *reinterpret_cast<const uint32_t*>(q + off);
-        qh = *reinterpret_cast<const uint32_t*>(q + off + 8);
-        ol = *reinterpret_cast<const uint32_t*>(dout + off);
-        oh = *reinterpret_cast<const uint32_t*>(dout + off + 8);
+      for (int r = 0; r < 2; ++r) {
+        uint32_t ql = 0, qh = 0, ol = 0, oh = 0;
+        if (row[r] < Sq) {
+          const size_t off = q_off + static_cast<size_t>(row[r]) * q_stride +
+                             c;
+          ql = *reinterpret_cast<const uint32_t*>(q + off);
+          qh = *reinterpret_cast<const uint32_t*>(q + off + 8);
+          ol = *reinterpret_cast<const uint32_t*>(dout + off);
+          oh = *reinterpret_cast<const uint32_t*>(dout + off + 8);
+        }
+        qf[kk][r] = ql;
+        qf[kk][r + 2] = qh;
+        of[kk][r] = ol;
+        of[kk][r + 2] = oh;
       }
-      qf[kk][r] = ql;
-      qf[kk][r + 2] = qh;
-      of[kk][r] = ol;
-      of[kk][r + 2] = oh;
     }
   }
   float lse_r[2] = {0.f, 0.f}, dd_r[2] = {0.f, 0.f};
@@ -329,19 +362,33 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_rows<D>(Vs, v + kv_off, kv_stride, k0, BN, Sk, tid);
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x BN keys.
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows x BN keys, over
+    // the full head dim.
     float s[NT_S][4], dp[NT_S][4];
 #pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
+    for (int n = 0; n < NT_S; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qa[4], oa[4];
+      if constexpr (QSMEM) {
+        smem_a(qa, Qs, LDS, warp * 16, kk * 16, g, t4);
+        smem_a(oa, dOs, LDS, warp * 16, kk * 16, g, t4);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = qf[kk][i];
+          oa[i] = of[kk][i];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT_S; ++n) {
         uint32_t bk[2], bv[2];
         smem_b_nk(bk, Ks, LDS, n * 8, kk * 16, g, t4);
         smem_b_nk(bv, Vs, LDS, n * 8, kk * 16, g, t4);
-        mma_16816(s[n], qf[kk], bk);
-        mma_16816(dp[n], of[kk], bv);
+        mma_16816(s[n], qa, bk);
+        mma_16816(dp[n], oa, bv);
       }
     }
 
@@ -360,7 +407,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // dQ += dS K.
+    // dQ += dS K over this block's columns of K.
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t a[4];
@@ -368,7 +415,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < NT_D; ++n) {
         uint32_t bk[2];
-        smem_b_kn(bk, Ks, LDS, kk * 16, n * 8, g, t4);
+        smem_b_kn(bk, Ks, LDS, kk * 16, c_out + n * 8, g, t4);
         mma_16816(dq_acc[n], a, bk);
       }
     }
@@ -377,7 +424,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= Sq) continue;
-    bf16* out = dq + q_off + static_cast<size_t>(row[r]) * q_stride + t4 * 2;
+    bf16* out = dq + q_off + static_cast<size_t>(row[r]) * q_stride +
+                c_out + t4 * 2;
 #pragma unroll
     for (int n = 0; n < NT_D; ++n)
       *reinterpret_cast<uint32_t*>(out + n * 8) =
@@ -391,7 +439,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       static_cast<const float*>(lse), static_cast<const float*>(dd),      \
       static_cast<const int*>(qseg), static_cast<const int*>(kseg)
 
-template <int D, int BQ>
+template <int D, int BQ, int SPLIT>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* dd,
                 const void* qseg, const void* kseg, void* dk, void* dv,
@@ -399,23 +447,28 @@ int launch_dkdv(const void* q, const void* k, const void* v,
                 int window, cudaStream_t st) {
   constexpr size_t smem = dkdv_smem_bytes<D, BQ>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D, BQ>,
+      flash_bwd_dkdv_kernel<D, BQ, SPLIT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sk + BLOCK_M - 1) / BLOCK_M, KV, B);
-  flash_bwd_dkdv_kernel<D, BQ><<<grid, THREADS, smem, st>>>(
+  const dim3 grid((Sk + BLOCK_M - 1) / BLOCK_M, KV * SPLIT, B);
+  flash_bwd_dkdv_kernel<D, BQ, SPLIT><<<grid, THREADS, smem, st>>>(
       BWD_PTRS, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H,
       KV, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int BN>
+template <int D, int BN, int SPLIT>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* dd, const void* qseg,
               const void* kseg, void* dq, int B, int Sq, int Sk, int H,
               int KV, float scale, int causal, int window, cudaStream_t st) {
-  const dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, H, B);
-  flash_bwd_dq_kernel<D, BN><<<grid, THREADS, 0, st>>>(
+  constexpr size_t smem = dq_smem_bytes<D, BN, SPLIT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D, BN, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, H * SPLIT, B);
+  flash_bwd_dq_kernel<D, BN, SPLIT><<<grid, THREADS, smem, st>>>(
       BWD_PTRS, static_cast<bf16*>(dq), Sq, Sk, H, KV, scale, causal,
       window);
   return static_cast<int>(cudaGetLastError());
@@ -427,8 +480,8 @@ extern "C" {
 
 // q, dout [B, Sq, H, D], k/v [B, Sk, KV, D] bf16 contiguous; lse and
 // dd = delta - dlse [B, H, Sq] f32; qseg [B, Sq] and kseg [B, Sk] int32 or
-// both null; dk/dv [B, Sk, KV, D] bf16. D in {64, 128}; window <= 0 means
-// unbounded. Returns cudaGetLastError() after launch
+// both null; dk/dv [B, Sk, KV, D] bf16. D in {64, 128, 256}; window <= 0
+// means unbounded. Returns cudaGetLastError() after launch
 // (cudaErrorInvalidValue for another D).
 int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* dd,
@@ -438,11 +491,16 @@ int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
                         void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch_dkdv<64, 64>(q, k, v, dout, lse, dd, qseg, kseg, dk, dv, B,
-                               Sq, Sk, H, KV, scale, causal, window, st);
+    return launch_dkdv<64, 64, 1>(q, k, v, dout, lse, dd, qseg, kseg, dk, dv,
+                                  B, Sq, Sk, H, KV, scale, causal, window, st);
   if (D == 128)
-    return launch_dkdv<128, 32>(q, k, v, dout, lse, dd, qseg, kseg, dk, dv,
-                                B, Sq, Sk, H, KV, scale, causal, window, st);
+    return launch_dkdv<128, 32, 1>(q, k, v, dout, lse, dd, qseg, kseg, dk,
+                                   dv, B, Sq, Sk, H, KV, scale, causal,
+                                   window, st);
+  if (D == 256)
+    return launch_dkdv<256, 32, 2>(q, k, v, dout, lse, dd, qseg, kseg, dk,
+                                   dv, B, Sq, Sk, H, KV, scale, causal,
+                                   window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -454,11 +512,14 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                       int causal, int window, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch_dq<64, 64>(q, k, v, dout, lse, dd, qseg, kseg, dq, B, Sq,
-                             Sk, H, KV, scale, causal, window, st);
+    return launch_dq<64, 64, 1>(q, k, v, dout, lse, dd, qseg, kseg, dq, B,
+                                Sq, Sk, H, KV, scale, causal, window, st);
   if (D == 128)
-    return launch_dq<128, 32>(q, k, v, dout, lse, dd, qseg, kseg, dq, B, Sq,
-                              Sk, H, KV, scale, causal, window, st);
+    return launch_dq<128, 32, 1>(q, k, v, dout, lse, dd, qseg, kseg, dq, B,
+                                 Sq, Sk, H, KV, scale, causal, window, st);
+  if (D == 256)
+    return launch_dq<256, 32, 2>(q, k, v, dout, lse, dd, qseg, kseg, dq, B,
+                                 Sq, Sk, H, KV, scale, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

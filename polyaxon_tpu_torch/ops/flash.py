@@ -4,10 +4,10 @@
 ``flash_attention_with_lse`` keeps the JAX signature and the
 ``[B, S, H, D]`` layout, and is differentiable in both outputs through
 ``_FlashFn``. On CUDA tensors its forward launches ``csrc/flash_fwd.cu``
-(bf16, head_dim 64, 128 or 256) and its backward ``csrc/flash_bwd.cu``
-(the dK/dV and dQ kernels, bf16, head_dim 64 or 128); both take any
-sequence length, causal / sliding window / packed segments and GQA. On
-CPU tensors the same autograd function runs ``flash_fwd_plain`` and
+and its backward ``csrc/flash_bwd.cu`` (the dK/dV and dQ kernels), all
+bf16 at head_dim 64, 128 or 256; both take any sequence length, causal /
+sliding window / packed segments and GQA. On CPU tensors the same
+autograd function runs ``flash_fwd_plain`` and
 ``flash_bwd_plain``, the same functions in plain PyTorch. There is no
 fallback from the one to the other: a CUDA call a kernel cannot take
 (another dtype or head_dim, unaligned pointers) raises. The one explicit
@@ -25,10 +25,7 @@ import torch
 
 from polyaxon_tpu_torch.ops.attention import NEG_INF
 
-KERNEL_HEAD_DIMS = (64, 128, 256)
-# The backward kernels' f32 dK/dV accumulators of a 256 head_dim would
-# not fit in registers (csrc/flash_bwd.cu): 256 is refused on the card.
-BWD_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)  # forward and backward kernels
 
 # Launches of each CUDA kernel (one per wrapper call that reached it).
 launches = 0            # flash_fwd.cu
@@ -240,9 +237,9 @@ def _bwd_launchers(q, k, v, segment_ids, o, lse, do, dlse, *,
         if not t.is_cuda or t.dtype != torch.bfloat16:
             raise TypeError(f"flash backward kernels take bf16 CUDA tensors; "
                             f"{name} is {t.dtype} on {t.device}")
-    if d not in BWD_HEAD_DIMS:
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash backward kernels take head_dim in "
-                         f"{BWD_HEAD_DIMS}, got {d}")
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         if t.data_ptr() % 16:
@@ -343,9 +340,8 @@ def flash_attention_with_lse(
     device. Causal attention requires Sq == Sk (ValueError otherwise).
 
     Routing: CUDA tensors launch the kernels, and a CUDA call one cannot
-    take (a head_dim outside ``KERNEL_HEAD_DIMS`` forward or
-    ``BWD_HEAD_DIMS`` backward, another dtype) raises; CPU tensors run
-    ``flash_fwd_plain`` and ``flash_bwd_plain``.
+    take (a head_dim outside ``KERNEL_HEAD_DIMS``, another dtype)
+    raises; CPU tensors run ``flash_fwd_plain`` and ``flash_bwd_plain``.
     """
     _check_args(q, k, causal, window, segment_ids, bwd_impl,
                 block_q, block_k)

@@ -2,14 +2,17 @@
 """Time the port's kernels of one checkout on the card: the kernel checks
 of ``chip_smoke.py`` (build, hold against the plain versions, time
 kernel, plain version and library call) without the serving and training
-phases.
+phases, then the flash forward alone at the paths' shapes.
 
     python3 scripts/bench_torch_kernels.py [CHECKOUT]
 
 CHECKOUT (default: this repository) is the root of a checkout whose
 ``chip_smoke.py`` and ``polyaxon_tpu_torch`` are used, so two versions can
 be compared in one run on the same card: run it on parent, change,
-change, parent. Prints one ``RESULT`` JSON line per kernel.
+change, parent. Prints one ``RESULT`` JSON line per kernel record, and
+one per forward shape (``FWD_SHAPES``, timed by this script through the
+checkout's ``flash_attention_with_lse``, so every checkout is timed at
+the same shapes).
 """
 
 from __future__ import annotations
@@ -17,6 +20,16 @@ from __future__ import annotations
 import json
 import os
 import sys
+
+# (label, B, S, H, KV, D, packed): llama3_8b prefill, the llama3_1b
+# training microbatch without and with the training path's packed
+# segments (``lm_packed_synthetic``), gemma_2b's; all causal.
+FWD_SHAPES = (
+    ("llama3_8b S=2048 D=128", 1, 2048, 32, 8, 128, False),
+    ("llama3_1b B=4 S=4096 D=64", 4, 4096, 32, 8, 64, False),
+    ("llama3_1b B=4 S=4096 D=64 packed", 4, 4096, 32, 8, 64, True),
+    ("gemma_2b S=4096 D=256", 1, 4096, 8, 1, 256, False),
+)
 
 
 def main() -> None:
@@ -27,6 +40,7 @@ def main() -> None:
 
     import chip_smoke
     from polyaxon_tpu_torch.ops import _build, flash, paged_attention
+    from polyaxon_tpu_torch.runtime.data import lm_packed_synthetic
 
     if not torch.cuda.is_available():
         chip_smoke.fail("torch.cuda.is_available() is false")
@@ -45,6 +59,20 @@ def main() -> None:
     for name, rec in records:
         print("RESULT " + json.dumps({"checkout": root, "kernel": name,
                                       **rec}), flush=True)
+    for label, B, S, H, KV, D, packed in FWD_SHAPES:
+        q, k, v = (torch.randn(B, S, n, D, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for n in (H, KV, KV))
+        seg = torch.from_numpy(next(lm_packed_synthetic(
+            B, seq_len=S, vocab_size=128_256, seed=chip_smoke.SEED))[
+                "segments"]).cuda() if packed else None
+        ms = chip_smoke.time_ms(lambda: flash.flash_attention_with_lse(
+            q, k, v, causal=True, segment_ids=seg), reps=20)
+        flops = 4.0 * B * H * S * (S + 1) / 2 * D
+        print("RESULT " + json.dumps({
+            "checkout": root, "kernel": "flash_fwd", "shape": label,
+            "ms": ms, "TFLOPs": flops / ms / 1e9}), flush=True)
+        del q, k, v, seg
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

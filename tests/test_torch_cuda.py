@@ -13,6 +13,7 @@ backward's absolute tolerance is taken relative to the largest reference
 value: |kernel - plain| <= 1e-2 * max|plain| + 2e-2 * |plain|.
 """
 
+import dataclasses
 import json
 import os
 import signal
@@ -55,6 +56,15 @@ def _rand(gen, *shape):
     (200, 4, 2, 64, None, False, False),
     (150, 8, 1, 256, None, False, True),   # gemma_2b's head_dim
     (90, 8, 1, 256, 40, True, True),
+    # The forward's tile edges: 128 q rows per block (two warpgroups of
+    # 64), 128 keys per tile at head_dim 64/128 and 64 at 256.
+    (127, 4, 2, 64, None, False, True),
+    (129, 8, 8, 128, None, True, True),
+    (200, 8, 1, 256, None, False, True),   # MQA 8:1, ragged key tile
+    (1, 8, 1, 256, None, False, True),
+    (333, 8, 2, 128, 70, True, True),      # window with segments
+    (700, 8, 1, 256, 300, True, True),     # gemma: window, segments
+    (257, 4, 4, 64, None, False, False),   # non-causal, ragged
 ])
 def test_flash_matches_plain(gen, S, H, KV, D, window, segments, causal):
     B = 2
@@ -92,6 +102,9 @@ def _bwd_close(got, want):
     (2, 200, 4, 2, 64, None, False, False),    # non-causal
     (1, 4096, 32, 8, 64, None, True, True),    # the llama3_1b slice
     (1, 4096, 32, 8, 128, 1000, False, True),  # llama3_8b, a window
+    (2, 300, 8, 1, 256, None, False, True),    # head_dim 256, MQA 8:1
+    (2, 333, 8, 1, 256, 90, True, True),       # segments and a window
+    (1, 4096, 8, 1, 256, None, True, True),    # the gemma_2b slice
 ])
 def test_flash_bwd_matches_plain(gen, B, S, H, KV, D, window, segments,
                                  causal):
@@ -117,6 +130,22 @@ def test_flash_bwd_matches_plain(gen, B, S, H, KV, D, window, segments,
     for g_, w_ in zip(got, want):
         assert torch.isfinite(g_).all()
         _bwd_close(g_, w_)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_fwd_cross_lengths(gen, D):
+    """Non-causal attention with Sq != Sk, both ragged, at B=3: the
+    forward's q tiles follow Sq and its key tiles Sk."""
+    for Sq, Sk in ((100, 300), (300, 77), (1, 129)):
+        q = _rand(gen, 3, Sq, 8, D)
+        k, v = _rand(gen, 3, Sk, 2, D), _rand(gen, 3, Sk, 2, D)
+        o, lse = flash.flash_attention_with_lse(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        po, plse = flash.flash_fwd_plain(q, k, v, causal=False,
+                                         scale=D ** -0.5)
+        torch.testing.assert_close(o.float(), po.float(), atol=1e-2,
+                                   rtol=1e-2)
+        assert (lse - plse).abs().max().item() < 2e-3
 
 
 @pytest.mark.parametrize("D", [64, 128])
@@ -188,7 +217,7 @@ def test_flash_autograd_routes_backward(gen, bwd_impl):
 
 
 def test_flash_bwd_refuses_what_it_cannot_take(gen):
-    for d in (256, 96):
+    for d in (96,):
         q = _rand(gen, 1, 8, 2, d)
         lse = torch.zeros(1, 2, 8, device="cuda")
         before = (flash.bwd_dkdv_launches, flash.bwd_dq_launches)
@@ -244,13 +273,19 @@ def test_paged_decode_refuses_what_it_cannot_take(gen):
 
 
 def test_training_config_refused_at_construction(gen):
-    """gemma_2b's head_dim 256 has no backward kernel: a flash training
-    job is refused before any weight is allocated."""
+    """A head_dim no kernel takes (llama_200m widened to head_dim 96):
+    a flash training job is refused before any weight is allocated.
+    gemma_2b's head_dim 256 passes the same check."""
+    from polyaxon_tpu_torch.models import llama
     from polyaxon_tpu_torch.runtime.loop import run_torchjob
 
-    job = {"runtime": {"model": "gemma_2b", "attention_impl": "flash"}}
-    with pytest.raises(ValueError, match="flash_bwd"):
+    job = {"runtime": {"model": "llama_200m", "attention_impl": "flash",
+                       "dim": 768, "n_heads": 8, "n_kv_heads": 4}}
+    with pytest.raises(ValueError, match="head_dim"):
         run_torchjob(job)
+    gemma = dataclasses.replace(llama.CONFIGS["gemma_2b"],
+                                attention_impl="flash")
+    llama.check_kernel_shapes(gemma, "cuda", training=True)
 
 
 def test_launcher_trains_llama_200m(gen, tmp_path):

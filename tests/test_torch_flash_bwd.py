@@ -71,6 +71,9 @@ PALLAS_CASES = {
     "s512": ({"causal": True}, {"S": 512}),
     "window_64": ({"causal": True, "window": 64}, {}),
     "segments": ({"causal": True, "segments": True}, {}),
+    # gemma_2b's head_dim and MQA.
+    "d256_mqa_segments": ({"causal": True, "segments": True},
+                          {"H": 4, "KV": 1, "D": 256}),
 }
 
 

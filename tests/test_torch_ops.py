@@ -211,6 +211,24 @@ class TestKernelModules:
                 text = fh.read()
             assert pallas in text and "bound" in text
 
+    def test_forward_kernel_is_built_from_wgmma_and_tma(self):
+        """The forward compiles from its source and the Hopper header
+        alone: both products on ``wgmma``, K/V through TMA and
+        ``mbarrier``s, no ``mma.sync``."""
+        from polyaxon_tpu_torch.ops import _build
+
+        assert _build._sources("flash_fwd") == ["flash_fwd.cu",
+                                                "sm90_bf16.cuh"]
+        text = ""
+        for rel in _build._sources("flash_fwd"):
+            with open(f"{_build.CSRC}/{rel}") as fh:
+                text += fh.read()
+        for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                       "mbarrier.try_wait", "setmaxnreg",
+                       "cudaGetDriverEntryPoint"):
+            assert needle in text
+        assert "mma.sync" not in text
+
 
 def _imports(path):
     with open(path) as fh:

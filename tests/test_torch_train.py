@@ -322,13 +322,21 @@ class TestModel:
                             torch.Generator().manual_seed(0),
                             device="cpu")["params"],
                 torch.zeros(1, 4, dtype=torch.long))
-        # gemma_2b's head_dim 256 has no backward kernel: a training
-        # config on the card is refused at construction; serving and the
-        # explicit plain backward are not.
+        # A training config on the card whose head_dim no kernel takes is
+        # refused at construction; serving checks only the forward and
+        # decode kernels, and the explicit plain backward takes any
+        # head_dim. gemma_2b's head_dim 256 now has backward kernels.
+        odd = dataclasses.replace(tllama.CONFIGS["llama_200m"],
+                                  attention_impl="flash", n_heads=8,
+                                  n_kv_heads=4, dim=768)
+        assert odd.head_dim == 96
+        with pytest.raises(ValueError, match="flash_fwd"):
+            tllama.check_kernel_shapes(odd, "cuda", training=True)
+        tllama.check_kernel_shapes(odd, "cpu", training=True)
         gemma = dataclasses.replace(tllama.CONFIGS["gemma_2b"],
                                     attention_impl="flash")
-        with pytest.raises(ValueError, match="flash_bwd"):
-            tllama.check_kernel_shapes(gemma, "cuda", training=True)
+        assert gemma.head_dim == 256
+        tllama.check_kernel_shapes(gemma, "cuda", training=True)
         tllama.check_kernel_shapes(gemma, "cuda", training=False)
         tllama.check_kernel_shapes(dataclasses.replace(
             gemma, flash_bwd_impl="xla"), "cuda", training=True)
@@ -373,41 +381,59 @@ class TestTrainStep:
         llama_tiny from JAX's initial weights and the same packed
         batches: the port's train step against JAX's on a 1-device
         mesh."""
-        from polyaxon_tpu.parallel import build_mesh, rules_for_mesh
-        from polyaxon_tpu.runtime.config import RuntimeConfig as JCfg
-        from polyaxon_tpu.runtime.optim import build_optimizer as jbuild
-        from polyaxon_tpu.runtime.step import build_init as jinit
-        from polyaxon_tpu.runtime.step import build_train_step as jstep
+        _check_trajectory(cpu_devices, "llama_tiny")
 
-        spec = _trajectory_cfg()
-        batches = [_packed(batch=4, seed=6, i=i) for i in range(5)]
-        mesh = build_mesh(axes={"dp": 1}, devices=cpu_devices[:1])
-        rules = rules_for_mesh(mesh)
-        jmodel = jllama.model_def("llama_tiny", dtype=jnp.float32,
-                                  loss_chunk=16)
-        jopt = jbuild(JCfg(**spec))
-        with mesh:
-            jstate = jinit(jmodel, jopt, mesh, rules)(jax.random.key(0))
-            params0 = jax.tree.map(np.asarray, jstate["params"])
-            train = jstep(jmodel, jopt, mesh, rules)
-            want = []
-            for b in batches:
-                jstate, m = train(jstate, jax.tree.map(jnp.asarray, b),
-                                  jax.random.key(1))
-                want.append((float(m["loss"]), float(m["grad_norm"])))
+    def test_gemma_head_dim_256_trajectory_matches_jax(self, cpu_devices):
+        """The same at gemma's conventions (tied embeddings, GeGLU, (1+w)
+        norms, scaled embeddings) and gemma_2b's head_dim 256 and MQA:
+        dim 512, 2 q heads, 1 kv head, 2 layers, through the port's flash
+        attention."""
+        assert dataclasses.replace(tllama.CONFIGS["gemma_tiny"],
+                                   **GEMMA_HD256).head_dim == 256
+        _check_trajectory(cpu_devices, "gemma_tiny", steps=3,
+                          **GEMMA_HD256)
 
-        model_def = get_model("llama_tiny", dtype=torch.float32,
-                              attention_impl="flash", loss_chunk=16)
-        opt = toptim.build_optimizer(RuntimeConfig.from_dict(spec))
-        params = tllama.params_from_numpy(model_def.config, params0,
-                                          device="cpu")
-        state = build_init(model_def, opt, device="cpu", params=params)(0)
-        step = build_train_step(model_def, opt)
-        for b, (loss, gnorm) in zip(batches, want):
-            state, m = step(state, {k: torch.from_numpy(v)
-                                    for k, v in b.items()})
-            assert float(m["loss"]) == pytest.approx(loss, abs=1e-4)
-            assert float(m["grad_norm"]) == pytest.approx(gnorm, rel=1e-4)
+
+# gemma_tiny widened to gemma_2b's head_dim (512 / 2 = 256) and MQA.
+GEMMA_HD256 = dict(dim=512, n_heads=2, n_kv_heads=1, ffn_dim=256)
+
+
+def _check_trajectory(cpu_devices, name, steps=5, **overrides):
+    from polyaxon_tpu.parallel import build_mesh, rules_for_mesh
+    from polyaxon_tpu.runtime.config import RuntimeConfig as JCfg
+    from polyaxon_tpu.runtime.optim import build_optimizer as jbuild
+    from polyaxon_tpu.runtime.step import build_init as jinit
+    from polyaxon_tpu.runtime.step import build_train_step as jstep
+
+    spec = dict(_trajectory_cfg(), model=name, steps=steps)
+    batches = [_packed(batch=4, seed=6, i=i) for i in range(steps)]
+    mesh = build_mesh(axes={"dp": 1}, devices=cpu_devices[:1])
+    rules = rules_for_mesh(mesh)
+    jmodel = jllama.model_def(name, dtype=jnp.float32, loss_chunk=16,
+                              **overrides)
+    jopt = jbuild(JCfg(**spec))
+    with mesh:
+        jstate = jinit(jmodel, jopt, mesh, rules)(jax.random.key(0))
+        params0 = jax.tree.map(np.asarray, jstate["params"])
+        train = jstep(jmodel, jopt, mesh, rules)
+        want = []
+        for b in batches:
+            jstate, m = train(jstate, jax.tree.map(jnp.asarray, b),
+                              jax.random.key(1))
+            want.append((float(m["loss"]), float(m["grad_norm"])))
+
+    model_def = get_model(name, dtype=torch.float32, attention_impl="flash",
+                          loss_chunk=16, **overrides)
+    opt = toptim.build_optimizer(RuntimeConfig.from_dict(spec))
+    params = tllama.params_from_numpy(model_def.config, params0,
+                                      device="cpu")
+    state = build_init(model_def, opt, device="cpu", params=params)(0)
+    step = build_train_step(model_def, opt)
+    for b, (loss, gnorm) in zip(batches, want):
+        state, m = step(state, {k: torch.from_numpy(v)
+                                for k, v in b.items()})
+        assert float(m["loss"]) == pytest.approx(loss, abs=1e-4)
+        assert float(m["grad_norm"]) == pytest.approx(gnorm, rel=1e-4)
 
 
 # ------------------------------------------------------------ runtime
