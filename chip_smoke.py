@@ -12,11 +12,16 @@ Phases, each of which must pass:
    llama3_1b training microbatch (B=4, S=4096, D=64, packed segments) and
    at gemma_2b's (S=4096, D=256, MQA 8:1, causal and with a window); paged
    decode over 8 rows with ragged positions, a hole and an idle row; the
-   flash backward pair at llama3_1b's and gemma_2b's packed training
-   shapes and at a ragged length with GQA 4:1 at head_dim 128. Times each
-   kernel, its plain version and, where one PyTorch call computes the
-   same function, ``F.scaled_dot_product_attention`` (forward or
-   backward) as a yardstick the port never calls.
+   flash backward pair at llama3_1b's packed training microbatch (B=4,
+   the dK/dV kernel's in-block group loop, as training runs it), at the
+   same row alone (B=1), at gemma_2b's packed shape and at a ragged length
+   with GQA 4:1 at head_dim 128 (these three through its head-split grid;
+   each case prints its split count, and both grids must be held). Times
+   each kernel, its plain version
+   and, where one PyTorch call computes the same function,
+   ``F.scaled_dot_product_attention`` (forward or backward) as a
+   yardstick the port never calls; the backward pair also with the
+   training path's packed segments.
 2. The serving path: ``ContinuousBatchingEngine`` over llama3_8b at full
    width and depth (random bf16 weights from a seed), 16 requests of
    mixed lengths, some sharing a prefix. The kernels' launch counts are
@@ -411,16 +416,24 @@ def check_flash_bwd(torch, flash, peaks, gen):
     timed. Returns the two records for the kernels line."""
     from polyaxon_tpu_torch.runtime.data import lm_packed_synthetic
 
-    seg = torch.from_numpy(next(lm_packed_synthetic(
-        1, seq_len=4096, vocab_size=128_256, seed=SEED))["segments"]).cuda()
+    segs = {b: torch.from_numpy(next(lm_packed_synthetic(
+        b, seq_len=4096, vocab_size=128_256, seed=SEED))["segments"]).cuda()
+        for b in (1, 4)}
+    split_fn = flash._bwd_entries()[2]
     worst = {"dkdv": 0.0, "dq": 0.0}
+    splits = set()
     for label, shape, s in (
-            ("llama3_1b packed S=4096 H32 KV8 D64", (1, 4096, 32, 8, 64), seg),
+            ("llama3_1b packed B=4 S=4096 H32 KV8 D64",
+             (4, 4096, 32, 8, 64), segs[4]),
+            ("llama3_1b packed B=1 S=4096 H32 KV8 D64",
+             (1, 4096, 32, 8, 64), segs[1]),
             ("ragged S=1000 GQA 4:1 D128", (1, 1000, 32, 8, 128), None),
             ("gemma_2b packed S=4096 H8 KV1 D256", (1, 4096, 8, 1, 256),
-             seg)):
+             segs[1])):
         args = _bwd_inputs(torch, flash, gen, *shape, s, dlse=True)
-        D = shape[-1]
+        B, S, H, KV, D = shape
+        n_split = split_fn(B, S, H, KV, D)
+        splits.add(n_split > 1)
         got = flash.flash_bwd_cuda(*args, causal=True, scale=D ** -0.5)
         torch.cuda.synchronize()
         want = flash.flash_bwd_plain(*args, causal=True, scale=D ** -0.5)
@@ -442,27 +455,32 @@ def check_flash_bwd(torch, flash, peaks, gen):
         emul_errs = " ".join(
             f"{n}={(g.float() - w.float()).abs().max().item():.3e}"
             for n, g, w in zip(("dq", "dk", "dv"), got, emul))
-        print(f"flash_bwd {label}: max_abs_err dq={errs['dq']:.3e} "
+        print(f"flash_bwd {label} (dkdv_head_split={n_split}): "
+              f"max_abs_err dq={errs['dq']:.3e} "
               f"dk={errs['dk']:.3e} dv={errs['dv']:.3e}; against the plain "
               f"version with P and dS in bf16: {emul_errs}", flush=True)
         del args, got, emul
         torch.cuda.empty_cache()
+    if splits != {False, True}:
+        fail("the held backward cases do not cover both dK/dV grids "
+             "(in-block group loop and head split)")
 
     # Times at one microbatch of each training path (llama3_1b: B=4,
     # S=4096, D=64, the kernels line's record; gemma_2b: B=1, S=4096,
     # D=256), no segments, no lse cotangent, so SDPA's backward is the
-    # same function.
-    recs = time_flash_bwd(torch, flash, peaks, gen, 4, 4096, 32, 8, 64)
-    time_flash_bwd(torch, flash, peaks, gen, 1, 4096, 8, 1, 256)
+    # same function; then the pair again with the path's packed segments.
+    recs = time_flash_bwd(torch, flash, peaks, gen, 4, 4096, 32, 8, 64,
+                          segs[4])
+    time_flash_bwd(torch, flash, peaks, gen, 1, 4096, 8, 1, 256, segs[1])
     for name in recs:
         recs[name]["max_abs_err"] = worst[name]
     return recs
 
 
-def time_flash_bwd(torch, flash, peaks, gen, B, S, H, KV, D):
+def time_flash_bwd(torch, flash, peaks, gen, B, S, H, KV, D, seg):
     """Times of the backward pair, its plain version and SDPA's backward
-    at one causal shape; returns the two kernels' records (without
-    max_abs_err)."""
+    at one causal shape, and of the pair with the packed segments ``seg``
+    [B, S]; returns the two kernels' records (without max_abs_err)."""
     import torch.nn.functional as F
 
     args = _bwd_inputs(torch, flash, gen, B, S, H, KV, D, None, dlse=False)
@@ -486,7 +504,8 @@ def time_flash_bwd(torch, flash, peaks, gen, B, S, H, KV, D):
         4.0 * B * H * S
     inputs = 2 * qbytes + 2 * kvbytes + 2 * rowbytes  # q, do, k, v, lse, dd
     # Products of head_dim per pair each kernel does: dQ recomputes S and
-    # dP; at head_dim 256 each half-dim block recomputes both again.
+    # dP; at head_dim 256 the two consumer warpgroups of a block each own
+    # half of the output's columns and both compute S and dP.
     done = {"dkdv": 6, "dq": 5} if D == 256 else {"dkdv": 4, "dq": 3}
     recs = {}
     # The pair's minimal work, split so that the two bounds add up to it:
@@ -508,13 +527,19 @@ def time_flash_bwd(torch, flash, peaks, gen, B, S, H, KV, D):
               f"bound_ms={recs[name]['bound_ms']:.4f} "
               f"({recs[name]['bound_by']}) TFLOPs_done="
               f"{2.0 * D * done[name] * pairs / ms / 1e9:.1f}", flush=True)
+    del args, qt, kt, vt, ot, dot
+    torch.cuda.empty_cache()
+    args = _bwd_inputs(torch, flash, gen, B, S, H, KV, D, seg, dlse=False)
+    packed_ms = time_ms(lambda: flash.flash_bwd_cuda(*args, **kw), reps=20)
     print(f"flash_bwd pair B={B} S={S} H={H} KV={KV} D={D}: "
           f"wrapper_ms={pair_ms:.4f} "
-          f"(dkdv+dq {dkdv_ms + dq_ms:.4f}) plain_ms={plain_ms:.4f} "
+          f"(dkdv+dq {dkdv_ms + dq_ms:.4f}) packed_wrapper_ms="
+          f"{packed_ms:.4f} plain_ms={plain_ms:.4f} "
           f"sdpa_bwd_ms={lib_ms:.4f} bound_ms="
           f"{recs['dkdv']['bound_ms'] + recs['dq']['bound_ms']:.4f} "
-          f"(5 products)", flush=True)
-    del args, qt, kt, vt, ot, dot
+          f"(5 products) dkdv_head_split="
+          f"{flash._bwd_entries()[2](B, S, H, KV, D)}", flush=True)
+    del args
     torch.cuda.empty_cache()
     return recs
 

@@ -185,33 +185,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(q_bar, 0);
     const uint32_t q_wg = q_s + wg * 64 * 128;  // this group's rows
 
-    // S = Q K^T for one stage: 64 rows x BN keys over the head dim,
-    // issued (committed by the caller, not waited for). The first step
-    // overwrites s (scale-d 0).
-    auto issue_s = [&](float* s, int st) {
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const uint32_t in_panel = (ks % 4) * 32;  // 16 columns deeper
-        const uint64_t da = smem_desc(
-            q_wg + (ks / 4) * BLOCK_M * 128 + in_panel, 16, 1024);
-        const uint64_t db = smem_desc(
-            k_s + st * L::KV_BYTES + (ks / 4) * BN * 128 + in_panel, 16,
-            1024);
-        wgmma_ss<BN>(s, da, db, ks > 0);
-      }
-    };
-    // O += P V for one stage: 16 keys per step, V MN-major (+2048 bytes a
-    // step), issued.
-    auto issue_pv = [&](uint32_t (*pa)[4], int st) {
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint64_t db =
-            smem_desc(v_s + st * L::KV_BYTES + kk * 2048, BN * 128, 1024);
-        wgmma_rs<D>(acc, pa[kk], db, 1);
-      }
-    };
     // The online softmax of a finished S: mask (only where the tile cuts
     // the diagonal, the band, the tail or segments), the running max and
     // sum, P in bf16 as the A operand. Returns each row's rescale factor
@@ -311,7 +284,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         float s[BN / 2];
         uint32_t pa[BN / 16][4];
         float alpha[2];
-        issue_s(s, stage);
+        wgmma_fence();  // S = Q K^T: 64 rows x BN keys over the head dim
+        issue_ss<BN, D>(s, q_wg, BLOCK_M, k_s + stage * L::KV_BYTES);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs<BN / 2>(s);
@@ -321,7 +295,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         }
         softmax(s, pa, k0, ksg, alpha);
         rescale(alpha);
-        issue_pv(pa, stage);
+        wgmma_fence();  // O += P V, V MN-major
+        issue_rs<D, BN>(acc, pa, v_s + stage * L::KV_BYTES, 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs<D / 2>(acc);
@@ -357,47 +332,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
             m[r] + logf(l_safe);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [batch, rows, heads, D] bf16 tensor as a 4-D map (innermost first:
-// D, heads, rows, batch) read in boxes of 64 columns x 1 head x box_rows
-// rows, 128-byte swizzled.
-bool make_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int D,
-              int heads, int rows, int batch, int box_rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(heads) * D * 2,
-      static_cast<cuuint64_t>(rows) * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, int BN>

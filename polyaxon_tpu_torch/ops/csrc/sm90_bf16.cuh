@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash forward: `wgmma` (the
+// Hopper (sm_90a) building blocks of the flash kernels: `wgmma` (the
 // warpgroup tensor-core product), TMA tile loads, `mbarrier`s and
-// `setmaxnreg`, as inline PTX. Nothing here launches; `flash_fwd.cu`
-// composes them.
+// `setmaxnreg`, as inline PTX, and the host-side tensor maps the TMA
+// loads read. Nothing here launches; `flash_fwd.cu` and `flash_bwd.cu`
+// compose them.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle
 // (CU_TENSOR_MAP_SWIZZLE_128B) in panels of 64 bf16 columns: a tile of
@@ -23,6 +24,8 @@
 //     ((T, 8, m), (8, k)) : ((1, T, LBO), (8T, SBO)), LBO = the panel
 //     stride (the next 64 columns of D), SBO = 1024 bytes (the next 8
 //     keys). A 16-key step is +2048 bytes.
+// Both orders read the same TMA-written tile: the backward uses each Q,
+// dO and K tile K-major in one product and MN-major in another.
 //
 // Fragment layouts (per warpgroup of 4 warps; w = warp in the group,
 // g = lane / 4, t = lane % 4):
@@ -39,6 +42,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -149,6 +153,67 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // Barrier `id` (1..15; 0 is __syncthreads) over `count` threads.
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// bar.sync on barrier ID0, or ID1 where `second`: a warp-uniform
+// predicate picks between immediate ids, so no register holds the id.
+template <int ID0, int ID1, int COUNT>
+__device__ __forceinline__ void bar_sync_of(bool second) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p bar.sync %2, %3;\n@!p bar.sync %1, %3;\n}\n" ::"r"(int(second)),
+      "n"(ID0), "n"(ID1), "n"(COUNT)
+      : "memory");
+}
+
+// bar.arrive on barrier ID0, or ID1 where `second` (as `bar_sync_of`).
+template <int ID0, int ID1, int COUNT>
+__device__ __forceinline__ void bar_arrive_of(bool second) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p bar.arrive %2, %3;\n@!p bar.arrive %1, %3;\n}\n" ::"r"(
+          int(second)),
+      "n"(ID0), "n"(ID1), "n"(COUNT)
+      : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously (zero-filled
+// when !valid; `src` must still be a valid address); complete after
+// `cp_async_wait_all` in the issuing thread.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Two 32-bit words from shared address `addr` (8-byte aligned).
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ int2 lds_s2(uint32_t addr) {
+  int2 v;
+  asm volatile("ld.shared.v2.s32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+// x, hidden from the optimiser: a loop-invariant shared address passed
+// through it is not expanded into per-step descriptors held in registers
+// across the loop (the backward's dK/dV kernel spills without it).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
 }
 
 // 2^x in one instruction (ex2.approx, flushing subnormal results to 0).
@@ -389,6 +454,79 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
   } else {
     wgmma_m64n256k16_rs(d, a, desc_b, scale_d);
   }
+}
+
+// acc (+)= A B over `depth` (D / 16 steps of 16): A is 64 rows of a
+// K-major tile whose panels hold `a_rows` rows, B the `N` rows of a
+// K-major tile whose panels hold N rows. Issued, not committed.
+template <int N, int D>
+__device__ __forceinline__ void issue_ss(float* acc, uint32_t a, int a_rows,
+                                         uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t in_panel = (ks % 4) * 32;  // 16 columns deeper
+    const uint64_t da = smem_desc(a + (ks / 4) * a_rows * 128 + in_panel,
+                                  16, 1024);
+    const uint64_t db = smem_desc(b + (ks / 4) * N * 128 + in_panel, 16,
+                                  1024);
+    wgmma_ss<N>(acc, da, db, ks > 0);
+  }
+}
+
+// acc += A B over K rows of B: A from registers (K / 16 fragments), B the
+// MN-major tile of K rows starting at `b` (its column panels hold K rows),
+// N columns wide from `col0`. Issued, not committed.
+template <int N, int K>
+__device__ __forceinline__ void issue_rs(float* acc, uint32_t (*a)[4],
+                                         uint32_t b, int col0) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t db =
+        smem_desc(b + (col0 / 64) * K * 128 + kk * 2048, K * 128, 1024);
+    wgmma_rs<N>(acc, a[kk], db, 1);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime already
+// loaded.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [batch, rows, heads, D] bf16 tensor as a 4-D map (innermost first:
+// D, heads, rows, batch) read in boxes of 64 columns x 1 head x box_rows
+// rows, 128-byte swizzled.
+bool make_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int D,
+              int heads, int rows, int batch, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(heads) * D * 2,
+      static_cast<cuuint64_t>(rows) * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

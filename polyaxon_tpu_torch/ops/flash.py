@@ -204,19 +204,25 @@ def flash_bwd_plain(q, k, v, segment_ids, o, lse, do, dlse, *,
 
 @functools.cache
 def _bwd_entries():
-    """The built backward library and its two typed C entry points."""
+    """The built backward library and its typed C entry points: dK/dV
+    with the GQA group split over ``n_split`` blocks (1: no split, no
+    partials), dQ, and the split count."""
     from polyaxon_tpu_torch.ops import _build
 
     lib = _build.load("flash_bwd")
-    fns = []
-    for name, n_out in (("flash_bwd_dkdv_bf16", 2), ("flash_bwd_dq_bf16", 1)):
+    tail = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fns = {}
+    for name, n_ptrs, n_ints in (("flash_bwd_dkdv_split_bf16", 12, 7),
+                                 ("flash_bwd_dq_bf16", 9, 6)):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * (8 + n_out) + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fns.append(fn)
-    return lib, fns[0], fns[1]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + tail
+        fns[name] = fn
+    split = lib.flash_bwd_dkdv_split
+    split.restype = ctypes.c_int
+    split.argtypes = [ctypes.c_int] * 5
+    return lib, fns, split
 
 
 def _bwd_launchers(q, k, v, segment_ids, o, lse, do, dlse, *,
@@ -226,7 +232,10 @@ def _bwd_launchers(q, k, v, segment_ids, o, lse, do, dlse, *,
     ``(launch_dkdv, launch_dq, (dq, dk, dv))``, where each launcher
     runs its kernel once into the preallocated outputs on the current
     stream and raises on a CUDA error. ``delta - dlse`` is computed here
-    in f32, as JAX computes delta in XLA outside its kernels."""
+    in f32, as JAX computes delta in XLA outside its kernels. Where the
+    dK/dV grid alone would not fill the card (``flash_bwd_dkdv_split``),
+    the dK/dV launcher splits each GQA group's q heads over blocks into
+    f32 partials allocated here, and sums them in a second kernel."""
     from polyaxon_tpu_torch.ops import _build
 
     b, sq, h, d = q.shape
@@ -255,18 +264,25 @@ def _bwd_launchers(q, k, v, segment_ids, o, lse, do, dlse, *,
         kseg = qseg if _kv_segment_ids is None else _kv_segment_ids.to(
             device=q.device, dtype=torch.int32).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib, dkdv_fn, dq_fn = _bwd_entries()
+    lib, fns, split_fn = _bwd_entries()
+    n_split = split_fn(b, sk, h, kv, d)
     inputs = (q, k, v, do, lse, dd, qseg, kseg)  # held by the launchers
-    tail = (b, sq, sk, h, kv, d, float(scale), int(causal), int(window or 0),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sizes = (b, sq, sk, h, kv, d)
+    flags = (float(scale), int(causal), int(window or 0), stream)
 
-    def launch(fn, what, *outputs):
+    def launch(name, outputs, *ints):
         ptrs = [t.data_ptr() if t is not None else None
                 for t in (*inputs, *outputs)]
-        _build.check(lib, fn(*ptrs, *tail), f"{what} launch")
+        _build.check(lib, fns[name](*ptrs, *sizes, *ints, *flags),
+                     f"{name} launch")
 
-    return (lambda: launch(dkdv_fn, "flash_bwd_dkdv_bf16", dk, dv),
-            lambda: launch(dq_fn, "flash_bwd_dq_bf16", dq), (dq, dk, dv))
+    parts = (torch.empty((2, n_split, *k.shape), dtype=torch.float32,
+                         device=q.device) if n_split > 1 else (None, None))
+    return (functools.partial(launch, "flash_bwd_dkdv_split_bf16",
+                              (parts[0], parts[1], dk, dv), n_split),
+            functools.partial(launch, "flash_bwd_dq_bf16", (dq,)),
+            (dq, dk, dv))
 
 
 def flash_bwd_cuda(q, k, v, segment_ids, o, lse, do, dlse, *,

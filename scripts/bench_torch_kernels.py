@@ -9,10 +9,11 @@ phases, then the flash forward alone at the paths' shapes.
 CHECKOUT (default: this repository) is the root of a checkout whose
 ``chip_smoke.py`` and ``polyaxon_tpu_torch`` are used, so two versions can
 be compared in one run on the same card: run it on parent, change,
-change, parent. Prints one ``RESULT`` JSON line per kernel record, and
-one per forward shape (``FWD_SHAPES``, timed by this script through the
-checkout's ``flash_attention_with_lse``, so every checkout is timed at
-the same shapes).
+change, parent. Prints one ``RESULT`` JSON line per kernel record, one
+per forward shape (``FWD_SHAPES``, timed by this script through the
+checkout's ``flash_attention_with_lse``) and one per backward shape
+(``BWD_SHAPES``, the dK/dV and dQ pair through the checkout's
+``flash_bwd_cuda``), so every checkout is timed at the same shapes.
 """
 
 from __future__ import annotations
@@ -29,6 +30,14 @@ FWD_SHAPES = (
     ("llama3_1b B=4 S=4096 D=64", 4, 4096, 32, 8, 64, False),
     ("llama3_1b B=4 S=4096 D=64 packed", 4, 4096, 32, 8, 64, True),
     ("gemma_2b S=4096 D=256", 1, 4096, 8, 1, 256, False),
+)
+# The backward pair at one microbatch of each training path, without and
+# with its packed segments; all causal, no lse cotangent.
+BWD_SHAPES = (
+    ("llama3_1b B=4 S=4096 D=64", 4, 4096, 32, 8, 64, False),
+    ("llama3_1b B=4 S=4096 D=64 packed", 4, 4096, 32, 8, 64, True),
+    ("gemma_2b S=4096 D=256", 1, 4096, 8, 1, 256, False),
+    ("gemma_2b S=4096 D=256 packed", 1, 4096, 8, 1, 256, True),
 )
 
 
@@ -59,12 +68,17 @@ def main() -> None:
     for name, rec in records:
         print("RESULT " + json.dumps({"checkout": root, "kernel": name,
                                       **rec}), flush=True)
-    for label, B, S, H, KV, D, packed in FWD_SHAPES:
-        q, k, v = (torch.randn(B, S, n, D, generator=gen, device="cuda",
-                               dtype=torch.bfloat16) for n in (H, KV, KV))
+    def inputs(B, S, H, KV, D, packed):
+        q, k, v, do = (torch.randn(B, S, n, D, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16)
+                       for n in (H, KV, KV, H))
         seg = torch.from_numpy(next(lm_packed_synthetic(
             B, seq_len=S, vocab_size=128_256, seed=chip_smoke.SEED))[
                 "segments"]).cuda() if packed else None
+        return q, k, v, do, seg
+
+    for label, B, S, H, KV, D, packed in FWD_SHAPES:
+        q, k, v, _, seg = inputs(B, S, H, KV, D, packed)
         ms = chip_smoke.time_ms(lambda: flash.flash_attention_with_lse(
             q, k, v, causal=True, segment_ids=seg), reps=20)
         flops = 4.0 * B * H * S * (S + 1) / 2 * D
@@ -72,6 +86,19 @@ def main() -> None:
             "checkout": root, "kernel": "flash_fwd", "shape": label,
             "ms": ms, "TFLOPs": flops / ms / 1e9}), flush=True)
         del q, k, v, seg
+        torch.cuda.empty_cache()
+    for label, B, S, H, KV, D, packed in BWD_SHAPES:
+        q, k, v, do, seg = inputs(B, S, H, KV, D, packed)
+        kw = dict(causal=True, scale=D ** -0.5)
+        o, lse = flash.flash_fwd_cuda(q, k, v, segment_ids=seg, **kw)
+        ms = chip_smoke.time_ms(lambda: flash.flash_bwd_cuda(
+            q, k, v, seg, o, lse, do, None, **kw), reps=20)
+        # The pair's minimum: 5 products of head_dim per causal pair.
+        flops = 10.0 * B * H * S * (S + 1) / 2 * D
+        print("RESULT " + json.dumps({
+            "checkout": root, "kernel": "flash_bwd_pair", "shape": label,
+            "ms": ms, "TFLOPs_5_products": flops / ms / 1e9}), flush=True)
+        del q, k, v, do, seg, o, lse
         torch.cuda.empty_cache()
 
 

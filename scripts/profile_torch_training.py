@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where a llama3_1b training step spends its time in the PyTorch port.
+"""Where a training step spends its time in the PyTorch port.
 
-    python3 scripts/profile_torch_training.py [--accum 4] [--steps 2]
+    python3 scripts/profile_torch_training.py [--model gemma_2b] [--accum 4] [--steps 2]
 
-On one GPU, the training step of ``chip_smoke.py``'s main path: llama3_1b
-at full width and depth (f32 master weights from a seed, bf16 compute),
-packed 4096-token rows (``lm_packed_synthetic``), global batch 16 in
-``--accum`` microbatches, remat "dots", flash attention (forward and
-backward kernels), adamw. After one warm-up step it prints
+On one GPU, a training step of ``chip_smoke.py``'s main path: llama3_1b
+(global batch 16) or gemma_2b (global batch 4) at full width and depth
+(f32 master weights from a seed, bf16 compute), packed 4096-token rows
+(``lm_packed_synthetic``) in ``--accum`` microbatches, remat "dots", flash
+attention (forward and backward kernels), adamw. After one warm-up step
+it prints
 
 - the host wall time per step over ``--steps`` unprofiled steps, with
   tokens/s and MFU against the card's dense bf16 peak;
@@ -34,6 +35,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
+# Global batch of each model's training setup in ``chip_smoke.py``.
+BATCH = {"llama3_1b": 16, "gemma_2b": 4}
+
+
 def _category(name: str) -> str:
     low = name.lower()
     if "flash_bwd" in low:
@@ -47,6 +52,7 @@ def _category(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=sorted(BATCH), default="llama3_1b")
     ap.add_argument("--accum", type=int, default=4)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
@@ -57,7 +63,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    from polyaxon_tpu_torch.models import get_model
+    from polyaxon_tpu_torch.models import get_model, llama
     from polyaxon_tpu_torch.runtime.config import RuntimeConfig
     from polyaxon_tpu_torch.runtime.data import lm_packed_synthetic
     from polyaxon_tpu_torch.runtime.flops import (peak_flops,
@@ -65,11 +71,11 @@ def main() -> None:
     from polyaxon_tpu_torch.runtime.optim import build_optimizer, tree_leaves
     from polyaxon_tpu_torch.runtime.step import build_init, build_train_step
 
-    seq, batch = 4096, 16
-    model_def = get_model("llama3_1b", remat="dots", attention_impl="flash",
+    seq, batch = 4096, BATCH[args.model]
+    model_def = get_model(args.model, remat="dots", attention_impl="flash",
                           max_seq_len=seq)
     opt = build_optimizer(RuntimeConfig.from_dict(dict(
-        model="llama3_1b", steps=10, learning_rate=3e-4,
+        model=args.model, steps=10, learning_rate=3e-4,
         lr_schedule="cosine")))
     update = opt.update
 
@@ -80,8 +86,9 @@ def main() -> None:
     opt.update = annotated_update
     state = build_init(model_def, opt, device="cuda")(args.seed)
     step = build_train_step(model_def, opt, accum_steps=args.accum)
-    stream = lm_packed_synthetic(batch, seq_len=seq, vocab_size=128_256,
-                                 seed=args.seed)
+    stream = lm_packed_synthetic(
+        batch, seq_len=seq, vocab_size=llama.CONFIGS[args.model].vocab_size,
+        seed=args.seed)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in next(stream).items()}
                for _ in range(2)]
 
@@ -95,9 +102,9 @@ def main() -> None:
     wall = (time.perf_counter() - t0) / args.steps
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     tokens = batch * seq
-    flops = train_flops_per_token("llama3_1b", seq, n_params) * tokens
+    flops = train_flops_per_token(args.model, seq, n_params) * tokens
     peak = peak_flops(torch.cuda.get_device_name(0))
-    print(f"train llama3_1b accum={args.accum} tokens_per_step={tokens}: "
+    print(f"train {args.model} accum={args.accum} tokens_per_step={tokens}: "
           f"host_wall_ms_per_step={wall * 1e3:.1f} "
           f"tokens_per_s={tokens / wall:.1f} "
           f"mfu={flops / wall / peak if peak else float('nan'):.4f} "

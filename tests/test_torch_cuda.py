@@ -148,7 +148,7 @@ def test_flash_fwd_cross_lengths(gen, D):
         assert (lse - plse).abs().max().item() < 2e-3
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_bwd_cross_lengths(gen, D):
     """Non-causal attention with Sq != Sk (a ragged 100 queries over 300
     keys, GQA 2:1): the dK/dV grid follows Sk, the dQ grid Sq."""
@@ -164,6 +164,62 @@ def test_flash_bwd_cross_lengths(gen, D):
     for g_, w_ in zip(got, want):
         assert g_.shape == w_.shape
         _bwd_close(g_, w_)
+
+
+def _bwd_case(gen, B, S, H, KV, D, segments):
+    q, k, v = _rand(gen, B, S, H, D), _rand(gen, B, S, KV, D), \
+        _rand(gen, B, S, KV, D)
+    seg = None
+    if segments:
+        seg = torch.sort(torch.randint(0, 6, (B, S), generator=gen,
+                                       device="cuda"), dim=1).values
+    o, lse = flash.flash_fwd_cuda(q, k, v, causal=True, scale=D ** -0.5,
+                                  segment_ids=seg)
+    do = _rand(gen, B, S, H, D)
+    dlse = 0.1 * torch.randn(B, H, S, generator=gen, device="cuda")
+    return q, k, v, seg, o, lse, do, dlse
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,split", [
+    # One block per (key tile, kv head, batch row) fills the card: each
+    # block loops over its whole GQA group and writes bf16 dK/dV.
+    (4, 2048, 32, 8, 64, False),
+    (2, 2176, 32, 8, 128, False),
+    # Too few such blocks (MQA, one batch row): the group's q heads are
+    # split over blocks into f32 partials, summed by a second kernel.
+    (1, 1000, 8, 1, 256, True),
+    (1, 1536, 32, 8, 64, True),
+])
+def test_flash_bwd_grid_paths(gen, B, S, H, KV, D, split):
+    """Both dK/dV grids against ``flash_bwd_plain``, with packed
+    segments and an lse cotangent."""
+    _, _, split_fn = flash._bwd_entries()
+    n_split = split_fn(B, S, H, KV, D)
+    assert (n_split > 1) == split and (H // KV) % n_split == 0
+    args = _bwd_case(gen, B, S, H, KV, D, segments=True)
+    kw = dict(causal=True, scale=D ** -0.5)
+    got = flash.flash_bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = flash.flash_bwd_plain(*args, **kw)
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+        _bwd_close(g_, w_)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (2, 1024, 32, 8, 64),    # the in-block group loop
+    (1, 1024, 8, 1, 256),    # the head-split grid and its partial sum
+])
+def test_flash_bwd_is_deterministic(gen, B, S, H, KV, D):
+    """No atomics: two calls on the same inputs give bitwise-equal dq,
+    dk and dv."""
+    args = _bwd_case(gen, B, S, H, KV, D, segments=False)
+    kw = dict(causal=True, scale=D ** -0.5)
+    first = [t.clone() for t in flash.flash_bwd_cuda(*args, **kw)]
+    second = flash.flash_bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_bwd_fully_masked_rows_give_zero(gen):

@@ -9,6 +9,7 @@ the Pallas interpreter against one pass in the port).
 
 import ast
 import importlib
+import os
 import sys
 
 import jax.numpy as jnp
@@ -228,6 +229,29 @@ class TestKernelModules:
                        "cudaGetDriverEntryPoint"):
             assert needle in text
         assert "mma.sync" not in text
+
+    def test_backward_kernels_are_built_from_wgmma_and_tma(self):
+        """The backward pair compiles from its source and the Hopper
+        header alone: every product on ``wgmma``, tiles through TMA and an
+        ``mbarrier`` ring, no ``mma.sync``; the C entry points the wrapper
+        binds are all there."""
+        from polyaxon_tpu_torch.ops import _build
+
+        assert _build._sources("flash_bwd") == ["flash_bwd.cu",
+                                                "sm90_bf16.cuh"]
+        with open(f"{_build.CSRC}/flash_bwd.cu") as fh:
+            source = fh.read()
+        with open(f"{_build.CSRC}/sm90_bf16.cuh") as fh:
+            text = source + fh.read()
+        for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                       "mbarrier.try_wait", "setmaxnreg",
+                       "cuTensorMapEncodeTiled"):
+            assert needle in text
+        assert "mma.sync" not in text
+        for entry in ("flash_bwd_dkdv_bf16", "flash_bwd_dkdv_split_bf16",
+                      "flash_bwd_dkdv_split", "flash_bwd_dq_bf16"):
+            assert f"int {entry}(" in source
+        assert "mma_bf16.cuh" not in os.listdir(_build.CSRC)
 
 
 def _imports(path):

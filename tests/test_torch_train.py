@@ -502,12 +502,12 @@ class TestRuntime:
 def test_lib_path_follows_included_headers(tmp_path, monkeypatch):
     from polyaxon_tpu_torch.ops import _build
 
-    for name in ("flash_bwd.cu", "mma_bf16.cuh"):
+    for name in ("flash_bwd.cu", "sm90_bf16.cuh"):
         (tmp_path / name).write_bytes(open(os.path.join(_build.CSRC, name),
                                            "rb").read())
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
     before = _build._lib_path("flash_bwd")
-    assert _build._sources("flash_bwd") == ["flash_bwd.cu", "mma_bf16.cuh"]
-    with open(tmp_path / "mma_bf16.cuh", "a") as fh:
+    assert _build._sources("flash_bwd") == ["flash_bwd.cu", "sm90_bf16.cuh"]
+    with open(tmp_path / "sm90_bf16.cuh", "a") as fh:
         fh.write("// edited\n")
     assert _build._lib_path("flash_bwd") != before
