@@ -11,7 +11,10 @@ Phases, each of which must pass:
    forward at llama3_8b prefill (a ragged length and 2048), at the
    llama3_1b training microbatch (B=4, S=4096, D=64, packed segments) and
    at gemma_2b's (S=4096, D=256, MQA 8:1, causal and with a window); paged
-   decode over 8 rows with ragged positions, a hole and an idle row; the
+   decode at four cases (``decode_cases``: llama3_8b at 8 ragged rows
+   with a hole and an idle row, at 8 long rows, gemma_2b's MQA, llama3_1b
+   at 64 rows; one split and several must both be held, two calls must
+   agree bitwise), timed by CUDA-graph replay with a cold L2; the
    flash backward pair at llama3_1b's packed training microbatch (B=4,
    the dK/dV kernel's in-block group loop, as training runs it), at the
    same row alone (B=1), at gemma_2b's packed shape and at a ragged length
@@ -292,64 +295,161 @@ def time_flash(torch, flash, peaks, label, q, k, v, *, window=None):
             "bound_by": by, "library_ms": lib_ms}
 
 
-def check_paged(torch, paged, peaks, gen):
-    """Kernel vs plain: 8 rows, page 16, llama3_8b heads, ragged
-    positions up to 2047, one hole inside a live row, one idle row."""
-    B, H, KV, Hd, page, maxp = 8, 32, 8, 128, 16, 128
-    pos = torch.tensor([2047, 1000, 517, 1533, 64, 1999, 1200, -1],
-                       dtype=torch.int32)
-    P = B * maxp + 1
+# Paged decode cases (label, B, H, KV, Hd, page, maxp, positions, holes as
+# (row, table slot)): a. llama3_8b at 8 rows, ragged up to 2,047, a hole
+# and an idle row (the kernels line's record); b. llama3_8b at 8 long
+# rows (6,000 to 8,191); c. gemma_2b's MQA (8 q heads on 1 kv head,
+# head_dim 256), ragged up to 8,191; d. llama3_1b at 64 rows, positions
+# seeded uniform in 0..2,047 (a grid that fills the card: one split).
+def decode_cases():
+    import numpy as np
+
+    d_pos = np.random.default_rng(SEED).integers(0, 2048, 64).tolist()
+    return (
+        ("a llama3_8b B=8", 8, 32, 8, 128, 16, 128,
+         [2047, 1000, 517, 1533, 64, 1999, 1200, -1], [(1, 20)]),
+        ("b llama3_8b long B=8", 8, 32, 8, 128, 16, 512,
+         [8191, 6000, 7013, 6544, 8000, 6321, 7777, 7400], [(2, 100)]),
+        ("c gemma_2b B=8", 8, 8, 1, 256, 16, 512,
+         [8191, 4000, 1033, 6133, 257, 7999, 4800, -1], []),
+        ("d llama3_1b B=64", 64, 32, 8, 64, 16, 128, d_pos, []),
+    )
+
+
+# Enough copies of (q, K pool, V pool) that one graph replay touches four
+# times the 50 MB L2 between two uses of a copy: every launch reads its
+# K/V from HBM, as the engine's decode step does (a whole model's weights
+# stream between two calls of one layer).
+COLD_BYTES = 200e6
+
+
+def decode_case(torch, gen, label, B, H, KV, Hd, page, maxp, pos, holes):
+    """Tables over a pool of just the live pages (a seeded permutation),
+    the holes punched, and as many input copies as ``COLD_BYTES`` needs.
+    Also the bytes and operations of the bound."""
+    pos_t = torch.tensor(pos, dtype=torch.int32)
+    pages = [p // page + 1 if p >= 0 else 0 for p in pos]
+    P = sum(pages) + 1
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
         SEED)) + 1
     tables = torch.full((B, maxp), -1, dtype=torch.int32)
     used = 0
-    for b in range(B):
-        n = int(pos[b]) // page + 1 if pos[b] >= 0 else 0
+    for b, n in enumerate(pages):
         tables[b, :n] = perm[used:used + n].to(torch.int32)
         used += n
-    tables[1, 20] = -1  # a hole inside row 1's live range
+    for b, j in holes:
+        tables[b, j] = -1
     # Bytes this run's data needs: each visible K/V token row once (holes
     # and columns past pos excluded), q, tables and pos read, out written.
-    live_tokens = 0
-    for b in range(B):
-        p = int(pos[b])
-        for j in range(p // page + 1 if p >= 0 else 0):
+    live = 0
+    for b, p in enumerate(pos):
+        for j in range(pages[b]):
             if int(tables[b, j]) >= 0:
-                live_tokens += min(page, p - j * page + 1)
-    q = torch.randn(B, H, Hd, generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    kp = torch.randn(P, page, KV, Hd, generator=gen, device="cuda",
-                     dtype=torch.bfloat16)
-    vp = torch.randn(P, page, KV, Hd, generator=gen, device="cuda",
-                     dtype=torch.bfloat16)
-    tables, pos = tables.cuda(), pos.cuda()
-    out = paged.paged_decode_attention(q, kp, vp, tables, pos)
+                live += min(page, p - j * page + 1)
+    kv_bytes = 2.0 * live * KV * Hd * 2
+    copies = max(2, math.ceil(COLD_BYTES / kv_bytes))
+    ins = [tuple(torch.randn(*shape, generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+                 for shape in ((B, H, Hd), (P, page, KV, Hd),
+                               (P, page, KV, Hd)))
+           for _ in range(copies)]
+    return {"label": label, "shape": (B, H, KV, Hd, page, maxp),
+            "ins": ins, "tables": tables.cuda(), "pos": pos_t.cuda(),
+            "live_tokens": live,
+            "bytes": kv_bytes + 2.0 * 2 * B * H * Hd + 4.0 * B * (maxp + 1),
+            "flops": 4.0 * live * H * Hd}
+
+
+def time_decode(torch, paged, case, reps: int = 20):
+    """(graph ms, eager ms) of the wrapper at one case. Graph: ``reps``
+    launches captured in one CUDA graph, rotating through the case's
+    input copies (cold L2), timed over 3 replays by CUDA events. Eager:
+    50 launches from Python on one copy (warm L2), the host-bound way the
+    engine calls it today."""
+    tables, pos = case["tables"], case["pos"]
+    fns = [lambda c=c: paged.paged_decode_attention(*c, tables, pos)
+           for c in case["ins"]]
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    ref = paged.paged_decode_plain(q, kp, vp, tables, pos)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
     torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        fail("paged decode kernel produced non-finite values")
-    if out[B - 1].abs().max().item() != 0.0:
-        fail("paged decode kernel: idle row is not zero")
-    err = (out.float() - ref.float()).abs().max().item()
-    if not close(out, ref):
-        fail(f"paged decode kernel disagrees with its plain version: "
-             f"max abs err {err} (atol {OUT_ATOL} + rtol {OUT_RTOL})")
-    ms = time_ms(lambda: paged.paged_decode_attention(q, kp, vp, tables,
-                                                      pos), reps=50)
-    plain_ms = time_ms(lambda: paged.paged_decode_plain(
-        q, kp, vp, tables, pos), reps=5, warmup=1)
-    nbytes = (2.0 * live_tokens * KV * Hd * 2 + 2.0 * 2 * B * H * Hd
-              + 4.0 * B * (maxp + 1))
-    flops = 4.0 * live_tokens * (H // KV) * KV * Hd
-    bound_ms = max(flops / peaks[0], nbytes / peaks[1]) * 1e3
-    by = "operations" if flops / peaks[0] >= nbytes / peaks[1] else "bytes"
-    print(f"paged_decode: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({by}) "
-          f"live_tokens={live_tokens} "
-          f"achieved_GBps={nbytes / ms / 1e6:.1f}", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    graph_ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return graph_ms, time_ms(fns[0], reps=50)
+
+
+def check_paged(torch, paged, peaks, gen):
+    """The decode kernel against ``paged_decode_plain`` at the four
+    ``decode_cases``: finite, within OUT_ATOL/OUT_RTOL, idle rows exactly
+    zero, two calls bitwise equal; one case with one split and one with
+    more must be held. Each case prints its split count, the graph (cold
+    L2) and eager times, the bound and the achieved GB/s. Returns case
+    a's record, with the worst error over the cases."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, rec, kinds = 0.0, None, set()
+    for spec in decode_cases():
+        case = decode_case(torch, gen, *spec)
+        label, (B, H, KV, Hd, page, maxp) = case["label"], case["shape"]
+        tables, pos = case["tables"], case["pos"]
+        q, kp, vp = case["ins"][0]
+        splits = paged.decode_splits(B, H, KV, page, maxp, sms)
+        out = paged.paged_decode_attention(q, kp, vp, tables, pos)
+        again = paged.paged_decode_attention(q, kp, vp, tables, pos)
+        torch.cuda.synchronize()
+        ref = paged.paged_decode_plain(q, kp, vp, tables, pos)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"paged decode kernel produced non-finite values ({label})")
+        idle = (pos < 0).nonzero().flatten().tolist()
+        if idle and out[idle].abs().max().item() != 0.0:
+            fail(f"paged decode kernel: idle row is not zero ({label})")
+        if not torch.equal(out, again):
+            fail(f"paged decode kernel: two calls differ ({label})")
+        err = (out.float() - ref.float()).abs().max().item()
+        if not close(out, ref):
+            fail(f"paged decode kernel disagrees with its plain version "
+                 f"({label}): max abs err {err} (atol {OUT_ATOL} + rtol "
+                 f"{OUT_RTOL})")
+        worst = max(worst, err)
+        kinds.add(splits > 1)
+        del out, again, ref
+        ms, eager_ms = time_decode(torch, paged, case)
+        t_ops, t_bytes = case["flops"] / peaks[0], case["bytes"] / peaks[1]
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"paged_decode {label} H={H} KV={KV} Hd={Hd} maxp={maxp}: "
+              f"splits={splits} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+              f"(graph, cold L2, {len(case['ins'])} input copies) "
+              f"eager_ms={eager_ms:.4f} (50 host-issued launches, warm L2) "
+              f"bound_ms={bound_ms:.4f} ({by}) live_tokens="
+              f"{case['live_tokens']} bytes={case['bytes'] / 1e6:.1f}MB "
+              f"achieved_GBps={case['bytes'] / ms / 1e6:.1f}", flush=True)
+        if rec is None:
+            plain_ms = time_ms(lambda: paged.paged_decode_plain(
+                q, kp, vp, tables, pos), reps=5, warmup=1)
+            rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": by, "library_ms": None}
+            print(f"paged_decode {label}: plain_ms={plain_ms:.4f}",
+                  flush=True)
+        del case, q, kp, vp
+        torch.cuda.empty_cache()
+    if kinds != {False, True}:
+        fail("the held decode cases do not cover both grids (one split "
+             "and several)")
+    rec["max_abs_err"] = worst
+    return rec
 
 
 def _bwd_close(got, want) -> bool:

@@ -517,15 +517,28 @@ def paged_coords(pos: torch.Tensor, tables: torch.Tensor, page: int):
     return pos_safe[:, None], write_page, write_off, valid
 
 
+def paged_kernel_args(positions: torch.Tensor, tables: torch.Tensor,
+                      valid: torch.Tensor):
+    """What the decode kernel takes, the same in every layer of a step:
+    (tables as int32, pos [B] int32 with -1 for a row the mask leaves
+    empty)."""
+    live = valid[:, 0, 0, :].any(dim=-1)
+    pos = torch.where(live, positions[:, 0],
+                      torch.full_like(positions[:, 0], -1))
+    return tables.to(torch.int32), pos.to(torch.int32)
+
+
 def paged_attn_step(cfg, layer: dict, x: torch.Tensor,
                     k_pages: torch.Tensor, v_pages: torch.Tensor,
                     positions: torch.Tensor, write_page: torch.Tensor,
                     write_off: torch.Tensor, tables: torch.Tensor,
-                    valid: torch.Tensor):
+                    valid: torch.Tensor, kernel_args):
     """Writes this step's K/V into each row's current page slot (in
     place) and attends over the row's pages. ``tables`` [B, maxp]
     (-1 = not allocated), ``valid`` [B, 1, 1, maxp*page] masks real
-    positions. Returns (x after the attention residual, k_pages,
+    positions; ``kernel_args`` is ``paged_kernel_args``'s result (for
+    ``paged_attention_impl="auto"``), computed once per step by the
+    caller. Returns (x after the attention residual, k_pages,
     v_pages)."""
     dt = cfg.dtype
     B = x.shape[0]
@@ -540,12 +553,8 @@ def paged_attn_step(cfg, layer: dict, x: torch.Tensor,
             paged_decode_attention,
         )
 
-        # `pos` from the RoPE positions + the mask's idle bit.
-        live = valid[:, 0, 0, :].any(dim=-1)
-        pos_vec = torch.where(live, positions[:, 0],
-                              torch.full_like(positions[:, 0], -1))
         attn = paged_decode_attention(
-            q[:, 0], k_pages, v_pages, tables, pos_vec).to(dt)[:, None]
+            q[:, 0], k_pages, v_pages, *kernel_args).to(dt)[:, None]
     elif impl == "gather":
         idx = tables.clamp(min=0).long()
         keys = repeat_kv(k_pages[idx].reshape(B, -1, KV, Hd), H // KV)
@@ -570,11 +579,13 @@ def decode_step_paged(cfg: LlamaConfig, params: dict, cache: dict,
     cache), the cache updated in place."""
     page = cache["k"].shape[2]
     positions, write_page, write_off, valid = paged_coords(pos, tables, page)
+    kernel_args = (paged_kernel_args(positions, tables, valid)
+                   if cfg.paged_attention_impl == "auto" else None)
     x = _embed(cfg, params, tokens, cfg.dtype)[:, None, :]
     for i, layer in enumerate(_layers(params)):
         x, _, _ = paged_attn_step(
             cfg, layer, x, cache["k"][i], cache["v"][i], positions,
-            write_page, write_off, tables, valid)
+            write_page, write_off, tables, valid, kernel_args)
         x = _mlp(cfg, x, layer)
     x = _norm(cfg, x, params["final_norm"])
     return decode_logits(cfg, params, x[:, 0]), cache

@@ -2,12 +2,20 @@
 (port of ``polyaxon_tpu/ops/paged_attention.py``).
 
 ``paged_decode_attention`` keeps the JAX signature. On CUDA tensors it
-launches ``csrc/paged_decode.cu``, which streams each row's pages
-straight from the pool (holes and pages past the row's position are
-never read); on CPU tensors it runs ``paged_decode_plain``, the gather
-formulation of the same function. A CUDA call the kernel cannot take
-(another dtype or head_dim) raises: there is no fallback. Any GQA ratio
-H/KV is taken.
+launches ``csrc/paged_decode.cu``, which splits each row's live pages over
+blocks and streams them straight from the pool (holes and pages past the
+row's position are never read); on CPU tensors it runs
+``paged_decode_plain``, the gather formulation of the same function. A
+CUDA call the kernel cannot take (another dtype or head_dim) raises: there
+is no fallback. Any GQA ratio H/KV is taken.
+
+The split count comes from ``decode_splits``, on the host and without a
+device sync; the kernel cuts each row's live tokens into tiles of
+``TILE_TOKENS`` tokens and split ``s`` of ``n`` takes tiles
+``[s * ntiles // n, (s + 1) * ntiles // n)``, then merges the splits'
+partials in split order. The wrapper allocates partials with torch and
+keeps one zeroed counter buffer per device (the kernel leaves it zero), so
+a call can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -21,9 +29,36 @@ import torch
 from polyaxon_tpu_torch.ops.attention import NEG_INF
 
 KERNEL_HEAD_DIMS = (64, 128, 256)
+# Tokens per tile, the unit in which the kernel splits a row (its
+# ``Cfg<HD>::T`` at every head_dim; ``paged_decode_tile_tokens`` in the
+# library says the same).
+TILE_TOKENS = 32
+# q heads of one kv head per block (the tensor-core product's M rows); a
+# larger GQA group takes ceil(rep / GROUP_ROWS) blocks per kv head.
+GROUP_ROWS = 16
+# Blocks per SM the split count aims for (three of the kernel's blocks fit
+# on an SM at head_dim 64 and 128, two at 256; more blocks than slots
+# balance ragged rows better), the fewest tiles a split of a full-width
+# row gets (the last block's merge reads every split's partial), and the
+# most splits the kernel takes.
+BLOCKS_PER_SM = 4
+MIN_SPLIT_TILES = 8
+MAX_SPLITS = 256
 
 # Launches of the CUDA kernel (one per wrapper call that reached it).
 launches = 0
+
+
+def decode_splits(B: int, H: int, KV: int, page: int, maxp: int,
+                  sms: int) -> int:
+    """Splits per (row, kv head): 1 where rows x kv heads already give
+    every SM ``BLOCKS_PER_SM`` blocks, else about that many blocks, with
+    at least ``MIN_SPLIT_TILES`` tiles of the table's width per split and
+    never more splits than the table has pages."""
+    blocks = B * KV * -(-(H // KV) // GROUP_ROWS)
+    tiles = -(-(maxp * page) // TILE_TOKENS)
+    return max(1, min(BLOCKS_PER_SM * sms // blocks,
+                      tiles // MIN_SPLIT_TILES, maxp, MAX_SPLITS))
 
 
 def paged_decode_plain(q, k_pages, v_pages, tables, pos):
@@ -62,14 +97,39 @@ def _entry():
     lib = _build.load("paged_decode")
     fn = lib.paged_decode_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     return lib, fn
 
 
-def paged_decode_cuda(q, k_pages, v_pages, tables, pos):
-    """Launch ``paged_decode.cu`` on the current stream (no synchronise).
-    Raises on anything the kernel does not take."""
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_counters: dict[int, torch.Tensor] = {}
+
+
+def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """Zeroed int32 counters for the last-block merge, one buffer per
+    device, reused across calls (every launch leaves them zero). Inside a
+    CUDA-graph capture a buffer too small is allocated afresh (its zeroing
+    is captured with the launch), never cached."""
+    buf = _counters.get(device.index)
+    if buf is not None and buf.numel() >= n:
+        return buf
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=device)
+    buf = _counters[device.index] = torch.zeros(
+        max(n, 4096), dtype=torch.int32, device=device)
+    return buf
+
+
+def paged_decode_cuda(q, k_pages, v_pages, tables, pos, *,
+                      splits: Optional[int] = None):
+    """Launch ``paged_decode.cu`` on the current stream (no synchronise,
+    no host sync). ``splits`` overrides ``decode_splits`` (tests force one
+    or several). Raises on anything the kernel does not take."""
     global launches
     from polyaxon_tpu_torch.ops import _build
 
@@ -89,14 +149,27 @@ def paged_decode_cuda(q, k_pages, v_pages, tables, pos):
         if t.data_ptr() % 16:
             raise ValueError(f"paged decode kernel needs 16-byte aligned "
                              f"{name}")
-    tables = tables.to(device=q.device, dtype=torch.int32).contiguous()
-    pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
+    dev = q.device
+    n = splits or decode_splits(B, H, KV, page, maxp, _sm_count(dev.index))
+    if not 1 <= n <= MAX_SPLITS:
+        raise ValueError(f"paged decode kernel takes 1 to {MAX_SPLITS} "
+                         f"splits, not {n}")
+    tables = tables.to(device=dev, dtype=torch.int32).contiguous()
+    pos = pos.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    op = mp = lp = counters = None
+    if n > 1:
+        op = torch.empty(B * H * n * Hd, dtype=torch.float32, device=dev)
+        ml = torch.empty(2, B * H * n, dtype=torch.float32, device=dev)
+        mp, lp = ml[0], ml[1]
+        counters = _counter_buffer(dev,
+                                   B * KV * -(-(H // KV) // GROUP_ROWS))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib, fn = _entry()
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-              tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-              B, H, KV, Hd, page, maxp, float(Hd ** -0.5),
-              torch.cuda.current_stream(q.device).cuda_stream)
+              tables.data_ptr(), pos.data_ptr(), out.data_ptr(), ptr(op),
+              ptr(mp), ptr(lp), ptr(counters), B, H, KV, Hd, page, maxp, n,
+              float(Hd ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "paged_decode_bf16 launch")
     launches += 1
     return out

@@ -11,13 +11,20 @@ CHECKOUT (default: this repository) is the root of a checkout whose
 be compared in one run on the same card: run it on parent, change,
 change, parent. Prints one ``RESULT`` JSON line per kernel record, one
 per forward shape (``FWD_SHAPES``, timed by this script through the
-checkout's ``flash_attention_with_lse``) and one per backward shape
+checkout's ``flash_attention_with_lse``), one per backward shape
 (``BWD_SHAPES``, the dK/dV and dQ pair through the checkout's
-``flash_bwd_cuda``), so every checkout is timed at the same shapes.
+``flash_bwd_cuda``) and one per decode case (``DECODE_SHAPES``, the cases
+of this repository's ``chip_smoke.decode_cases``, timed through the
+checkout's ``paged_decode_attention`` by this repository's
+``chip_smoke.time_decode``: a CUDA graph of 20 launches rotating through
+enough input copies that every launch reads its K/V from HBM, beside 50
+eager launches), so every checkout is timed at the same shapes and by
+the same clock.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import sys
@@ -39,11 +46,25 @@ BWD_SHAPES = (
     ("gemma_2b S=4096 D=256", 1, 4096, 8, 1, 256, False),
     ("gemma_2b S=4096 D=256 packed", 1, 4096, 8, 1, 256, True),
 )
+# The paged decode cases, by the first letter of their label in
+# ``chip_smoke.decode_cases``: a. llama3_8b, 8 ragged rows (the kernels
+# line's case); b. 8 long rows; c. gemma_2b's MQA; d. llama3_1b, 64 rows.
+DECODE_SHAPES = ("a", "b", "c", "d")
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _here_smoke():
+    """This repository's ``chip_smoke`` (the decode cases and their
+    timer), whatever checkout is measured."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main() -> None:
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                           os.path.join(os.path.dirname(__file__), ".."))
+    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
     sys.path.insert(0, root)
     import torch
 
@@ -99,6 +120,20 @@ def main() -> None:
             "checkout": root, "kernel": "flash_bwd_pair", "shape": label,
             "ms": ms, "TFLOPs_5_products": flops / ms / 1e9}), flush=True)
         del q, k, v, do, seg, o, lse
+        torch.cuda.empty_cache()
+
+    here = _here_smoke()
+    for spec in here.decode_cases():
+        if spec[0][0] not in DECODE_SHAPES:
+            continue
+        case = here.decode_case(torch, gen, *spec)
+        ms, eager_ms = here.time_decode(torch, paged_attention, case)
+        print("RESULT " + json.dumps({
+            "checkout": root, "kernel": "paged_decode",
+            "shape": case["label"], "graph_ms_cold_l2": ms,
+            "eager_ms": eager_ms, "GBps": case["bytes"] / ms / 1e6}),
+            flush=True)
+        del case
         torch.cuda.empty_cache()
 
 

@@ -32,7 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def _category(name: str) -> str:
     low = name.lower()
-    if "paged_decode_kernel" in low:
+    if "paged_decode_kernel" in low:  # the merge runs inside it
         return "paged_decode kernel"
     if "flash_fwd_kernel" in low:
         return "flash_fwd kernel"

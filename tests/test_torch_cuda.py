@@ -13,6 +13,7 @@ backward's absolute tolerance is taken relative to the largest reference
 value: |kernel - plain| <= 1e-2 * max|plain| + 2e-2 * |plain|.
 """
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -294,13 +295,8 @@ def test_flash_refuses_what_it_cannot_take(gen):
     assert flash.launches == before
 
 
-@pytest.mark.parametrize("H,KV,Hd,page", [
-    (32, 8, 128, 16), (8, 1, 256, 16), (4, 2, 64, 4), (8, 8, 128, 32),
-    (12, 4, 64, 16),    # llama3_draft_200m: a group of 3
-    (24, 2, 128, 16),   # a group of 12: three blocks per kv head
-])
-def test_paged_decode_matches_plain(gen, H, KV, Hd, page):
-    B, maxp = 4, 8
+def _paged_inputs(gen, B, H, KV, Hd, page, maxp):
+    """Tables with a hole inside row 0, row 2 cut short, row 3 idle."""
     P = B * maxp + 1
     tables = torch.arange(1, P, device="cuda", dtype=torch.int32).reshape(
         B, maxp)
@@ -310,14 +306,72 @@ def test_paged_decode_matches_plain(gen, H, KV, Hd, page):
                        device="cuda", dtype=torch.int32)
     q = _rand(gen, B, H, Hd)
     kp, vp = _rand(gen, P, page, KV, Hd), _rand(gen, P, page, KV, Hd)
+    return q, kp, vp, tables, pos
+
+
+@pytest.mark.parametrize("H,KV,Hd,page", [
+    (32, 8, 128, 16), (8, 1, 256, 16), (4, 2, 64, 4), (8, 8, 128, 32),
+    (12, 4, 64, 16),    # llama3_draft_200m: a group of 3
+    (24, 2, 128, 16),   # a group of 12
+    (48, 1, 64, 16),    # a group of 48: three blocks per kv head
+])
+@pytest.mark.parametrize("splits", [1, 3, None])
+def test_paged_decode_matches_plain(gen, H, KV, Hd, page, splits):
+    """One split and several forced (row 0 spans many tiles, rows 1-3
+    leave splits empty), and the rule's own count."""
+    q, kp, vp, tables, pos = _paged_inputs(gen, 4, H, KV, Hd, page, 40)
     before = paged_attention.launches
-    out = paged_attention.paged_decode_attention(q, kp, vp, tables, pos)
+    out = paged_attention.paged_decode_cuda(q, kp, vp, tables, pos,
+                                            splits=splits)
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
     ref = paged_attention.paged_decode_plain(q, kp, vp, tables, pos)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
                                rtol=1e-2)
     assert out[3].abs().max().item() == 0.0
+
+
+def test_paged_decode_tile_matches_the_library(gen):
+    lib, _ = paged_attention._entry()
+    lib.paged_decode_tile_tokens.restype = ctypes.c_int
+    lib.paged_decode_tile_tokens.argtypes = [ctypes.c_int]
+    for hd in paged_attention.KERNEL_HEAD_DIMS:
+        assert lib.paged_decode_tile_tokens(hd) == \
+            paged_attention.TILE_TOKENS
+
+
+@pytest.mark.parametrize("splits", [1, 5, None])
+def test_paged_decode_is_deterministic(gen, splits):
+    """Two calls give bitwise-equal outputs, whichever block merges."""
+    q, kp, vp, tables, pos = _paged_inputs(gen, 4, 8, 1, 256, 16, 64)
+    a = paged_attention.paged_decode_cuda(q, kp, vp, tables, pos,
+                                          splits=splits)
+    b = paged_attention.paged_decode_cuda(q, kp, vp, tables, pos,
+                                          splits=splits)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_paged_decode_graph_replay_equals_eager(gen):
+    """The wrapper captures in a CUDA graph (no host sync, no
+    cudaMalloc), and a replay on new inputs in the same buffers equals
+    the eager call."""
+    q, kp, vp, tables, pos = _paged_inputs(gen, 4, 32, 8, 128, 16, 64)
+    assert paged_attention.decode_splits(
+        4, 32, 8, 16, 64,
+        torch.cuda.get_device_properties(0).multi_processor_count) > 1
+    paged_attention.paged_decode_attention(q, kp, vp, tables, pos)  # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention.paged_decode_attention(q, kp, vp, tables, pos)
+    q.copy_(_rand(gen, *q.shape))
+    pos[1] = 400
+    graph.replay()
+    torch.cuda.synchronize()
+    want = paged_attention.paged_decode_attention(q, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_paged_decode_refuses_what_it_cannot_take(gen):
