@@ -14,8 +14,9 @@ Phases, each of which must pass:
    decode at four cases (``decode_cases``: llama3_8b at 8 ragged rows
    with a hole and an idle row, at 8 long rows, gemma_2b's MQA, llama3_1b
    at 64 rows; one split and several must both be held, two calls must
-   agree bitwise), timed by CUDA-graph replay with a cold L2; the
-   flash backward pair at llama3_1b's packed training microbatch (B=4,
+   agree bitwise), timed by CUDA-graph replay with a cold L2, and two
+   streams launching multi-split decode at once, in a loop (each must
+   match the plain version); the flash backward pair at llama3_1b's packed training microbatch (B=4,
    the dK/dV kernel's in-block group loop, as training runs it), at the
    same row alone (B=1), at gemma_2b's packed shape and at a ragged length
    with GQA 4:1 at head_dim 128 (these three through its head-split grid;
@@ -50,6 +51,28 @@ Phases, each of which must pass:
    full width and depth (18 layers, MQA 8:1, 2.51 B parameters) on packed
    4096-token rows, global batch 4 in 4 microbatches, for 3 steps, with
    the counters checked as in phase 4.
+7. The checkpoint drill: phase 4's job with checkpoints every 2 steps
+   (one kept, saved asynchronously), launched as
+   ``python -m polyaxon_tpu_torch.runtime.launch`` in a temporary
+   artifacts directory and SIGKILLed as soon as the store lists a
+   committed step, then started again on the same directory: it must
+   restore that step from the spill or the store, reach step 6 and exit
+   0, with each backward kernel launched once per layer, microbatch and
+   step it trained. Its losses are held against an uninterrupted run at
+   its depth (phase 4's at full depth; bitwise if a second uninterrupted
+   run repeats the first bitwise, else within three times the two runs'
+   spread), the tracking record is read back (loss
+   events, outputs, statuses, GPU memory samples), the checkpoint is
+   restored here and its leaf CRC-32s held against the manifest, and
+   tier 0 is timed here (the replica a spill restore promotes, then a
+   snapshot published as the replica), with no further disk write. The
+   drill's files go to a fresh temporary directory; its depth is cut
+   only if three checkpoints do not fit in the free disk or in
+   DRILL_DISK_BUDGET, or the launcher's snapshot in host memory.
+8. The paged engine serves the drill's checkpoint: two requests of 16
+   new tokens (flash forward and paged decode at head_dim 64, counters
+   zeroed before and read after), then the first admission against the
+   plain path.
 
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
@@ -369,11 +392,16 @@ def time_decode(torch, paged, case, reps: int = 20):
     tables, pos = case["tables"], case["pos"]
     fns = [lambda c=c: paged.paged_decode_attention(*c, tables, pos)
            for c in case["ins"]]
-    for fn in fns:
-        fn()
+    # Warm up on the capture stream, so its merge-counter buffer exists
+    # before the capture and the graph holds kernel launches only.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(reps):
             fns[i % len(fns)]()
     graph.replay()
@@ -450,6 +478,54 @@ def check_paged(torch, paged, peaks, gen):
              "and several)")
     rec["max_abs_err"] = worst
     return rec
+
+
+DECODE_STREAM_ITERS = 100
+
+
+def check_decode_streams(torch, paged, gen):
+    """Two streams launch multi-split decode at once, in a loop: case a
+    (llama3_8b, 8 rows) on one and case c (gemma_2b MQA) on the other.
+    Each stream keeps its own merge counters, so every output must match
+    the plain version (OUT_ATOL/OUT_RTOL) and its stream's first output
+    bitwise."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    specs = [decode_cases()[0], decode_cases()[2]]
+    cases, refs = [], []
+    for spec in specs:
+        case = decode_case(torch, gen, *spec)
+        B, H, KV, Hd, page, maxp = case["shape"]
+        if paged.decode_splits(B, H, KV, page, maxp, sms) < 2:
+            fail(f"two-stream decode check: case {case['label']} runs one "
+                 "split; it needs several")
+        args = (*case["ins"][0], case["tables"], case["pos"])
+        cases.append(args)
+        refs.append(paged.paged_decode_plain(*args))
+        del case
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(DECODE_STREAM_ITERS):
+        for i, (st, args) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(st):
+                outs[i].append(paged.paged_decode_attention(*args))
+    torch.cuda.synchronize()
+    for spec, ref, got in zip(specs, refs, outs):
+        if not close(got[0], ref):
+            err = (got[0].float() - ref.float()).abs().max().item()
+            fail(f"two-stream decode ({spec[0]}): disagrees with its plain "
+                 f"version, max abs err {err}")
+        differ = sum(not torch.equal(o, got[0]) for o in got)
+        if differ:
+            fail(f"two-stream decode ({spec[0]}): {differ} of {len(got)} "
+                 "launches differ from the first")
+    print(f"paged_decode two streams: {DECODE_STREAM_ITERS} concurrent "
+          f"multi-split launches per stream ({specs[0][0]} | {specs[1][0]})"
+          f", all equal to the plain version and bitwise to each other",
+          flush=True)
+    del cases, refs, outs
+    torch.cuda.empty_cache()
 
 
 def _bwd_close(got, want) -> bool:
@@ -800,7 +876,8 @@ def run_http(flash, paged):
 
 
 def run_training(torch, flash, job, layers):
-    """One training main path; returns its launch counts."""
+    """One training main path; returns its launch counts and the loss of
+    each emitted step."""
     from polyaxon_tpu_torch.runtime.loop import run_torchjob
 
     rt = job["runtime"]
@@ -844,7 +921,7 @@ def run_training(torch, flash, job, layers):
           f"max_memory_allocated_GB={peak_gb:.2f} "
           f"final_loss={result.final_metrics['loss']:.5f} launches={counts}",
           flush=True)
-    return counts
+    return counts, {step: vals["loss"] for step, vals in emitted}, result
 
 
 def first_step_parity(torch, llama, flash):
@@ -962,6 +1039,497 @@ def first_step_parity(torch, llama, flash):
     del params
 
 
+# ------------------------------------------------------ checkpoint drill
+# TRAIN_JOB with checkpoints every 2 steps, one kept in the store, saved
+# asynchronously.
+DRILL_CKPT = {"enabled": True, "intervalSteps": 2, "maxToKeep": 1,
+              "asyncSave": True}
+# Room the drill's files need on the disk at once, in units of one
+# checkpoint's bytes: the store's step, the older step the spill's hard
+# links keep after the store has pruned it (SPILL_KEEP = 2), and the step
+# being written.
+DRILL_FILE_STATES = 3
+# The most disk the drill's files may take at once, whatever is free:
+# machines that run this script may cap how far a job's disk use grows
+# (at 45 GiB on some), and the builds and logs need a little of that.
+DRILL_DISK_BUDGET = 44 * 2**30
+# Host memory left free beside the launcher's page-locked snapshot
+# buffer (one checkpoint).
+DRILL_HOST_MARGIN = 10e9
+# The launcher's restart: ``launch.main()``, as ``python -m`` runs it,
+# then the process's kernel launch counts on one JSON line.
+DRILL_CHILD = (
+    "import json, sys\n"
+    "from polyaxon_tpu_torch.ops import flash\n"
+    "from polyaxon_tpu_torch.runtime import launch\n"
+    "rc = launch.main()\n"
+    "print(json.dumps({'launches': {'flash_fwd': flash.launches, "
+    "'flash_bwd_dkdv': flash.bwd_dkdv_launches, "
+    "'flash_bwd_dq': flash.bwd_dq_launches}}), flush=True)\n"
+    "sys.exit(rc)\n")
+# The tolerance on a resumed loss when two uninterrupted runs differ:
+# this many times their largest difference (the resumed run is one more
+# sample of the same spread).
+DRILL_SPREAD_FACTOR = 3.0
+SERVE_NEW_TOKENS = 16
+
+
+def _store_steps(ckdir: str) -> list[int]:
+    try:
+        return sorted(int(n) for n in os.listdir(ckdir) if n.isdigit())
+    except OSError:
+        return []
+
+
+def _tail(path: str, n: int = 4000) -> str:
+    try:
+        with open(path, errors="replace") as fh:
+            return fh.read()[-n:]
+    except OSError:
+        return ""
+
+
+def _json_lines(path: str) -> list[dict]:
+    out = []
+    with open(path, errors="replace") as fh:
+        for line in fh:
+            if line.startswith("{"):
+                try:
+                    out.append(json.loads(line))
+                except json.JSONDecodeError:
+                    continue
+    return out
+
+
+def drill_job(torch, llama, free_disk: float, free_host: float):
+    """The drill's job and its depth: TRAIN_JOB with DRILL_CKPT at full
+    width, its depth cut only if DRILL_FILE_STATES checkpoints do not fit
+    in the free disk or in DRILL_DISK_BUDGET, or the launcher's snapshot
+    does not fit in the host's available memory less DRILL_HOST_MARGIN.
+    Returns (job, layers, checkpoint bytes)."""
+    cfg = llama.CONFIGS["llama3_1b"]
+    meta = llama.init(cfg, torch.Generator(), device="meta")["params"]
+    per_layer = sum(t.numel() for t in meta["layers"].values()) \
+        // cfg.n_layers
+    other = sum(t.numel() for t in _leaves(meta)) - per_layer * cfg.n_layers
+
+    def state_bytes(layers):  # f32 params, adamw mu and nu
+        return 12 * (other + per_layer * layers)
+
+    def fits(layers):
+        files = DRILL_FILE_STATES * state_bytes(layers)
+        return (files <= min(free_disk, DRILL_DISK_BUDGET)
+                and state_bytes(layers) <= free_host - DRILL_HOST_MARGIN)
+
+    layers = TRAIN_LAYERS
+    while layers > 1 and not fits(layers):
+        layers -= 1
+    job = json.loads(json.dumps(TRAIN_JOB))
+    job["checkpointing"] = dict(DRILL_CKPT)
+    if layers < TRAIN_LAYERS:
+        job["runtime"]["n_layers"] = layers
+        print(f"checkpoint drill: {DRILL_FILE_STATES} checkpoints of "
+              f"{state_bytes(TRAIN_LAYERS) / 1e9:.2f} GB do not fit in "
+              f"{min(free_disk, DRILL_DISK_BUDGET) / 1e9:.1f} GB of disk "
+              f"({free_disk / 1e9:.1f} GB free, budget "
+              f"{DRILL_DISK_BUDGET / 1e9:.1f} GB), or a snapshot in "
+              f"{free_host / 1e9:.1f} GB of host memory: depth cut from "
+              f"{TRAIN_LAYERS} to {layers} layers, width kept", flush=True)
+    return job, layers, state_bytes(layers)
+
+
+def device_crcs(torch, state) -> list[int]:
+    """CRC-32 of each leaf's bytes, copied off the card through one
+    page-locked buffer (scalars as the int64 the store keeps)."""
+    import zlib
+
+    import numpy as np
+    from polyaxon_tpu_torch.runtime import checkpoint as ck
+
+    buf = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    out = []
+    for _, leaf in ck.flatten(state):
+        if not isinstance(leaf, torch.Tensor):
+            out.append(ck.crc32(np.asarray(leaf, np.int64)))
+            continue
+        flat, crc = leaf.detach().reshape(-1).view(torch.uint8), 0
+        for off in range(0, flat.numel(), buf.numel()):
+            m = min(buf.numel(), flat.numel() - off)
+            buf[:m].copy_(flat[off:off + m])
+            crc = zlib.crc32(buf.numpy()[:m], crc)
+        out.append(crc)
+    return out
+
+
+def checkpoint_drill(torch, flash, paged, llama, train_losses,
+                     train_result):
+    """The launcher checkpoints llama3_1b's training, is SIGKILLed once
+    the store lists a committed step, and is started again on the same
+    directory: it must resume from that step and finish. Then the
+    resumed losses, the restored bytes and the tracking record are held,
+    the checkpoint is served, and a save and restore in this process
+    time tier 0. Returns the launch counts of the resumed run and of the
+    serving engine."""
+    import shutil
+    import signal
+
+    from polyaxon_tpu_torch.runtime import checkpoint as ck
+    from polyaxon_tpu_torch.runtime import tiers
+    from polyaxon_tpu_torch.tracking import events
+
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-drill-")
+    try:
+        return _drill(torch, flash, paged, llama, train_losses, train_result,
+                      tmp, repo, ck, tiers, events, signal)
+    finally:
+        tiers.TIER0.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _drill(torch, flash, paged, llama, train_losses, train_result, tmp,
+           repo, ck, tiers, events, signal):
+    import shutil
+
+    from polyaxon_tpu_torch.tracking.systemmetrics import meminfo
+
+    free_disk = shutil.disk_usage(tmp).free
+    free_host = meminfo()["MemAvailable"]
+    job, layers, nbytes = drill_job(torch, llama, free_disk, free_host)
+    print(f"checkpoint drill: llama3_1b {layers} layers, "
+          f"{nbytes / 1e9:.3f} GB per checkpoint (f32 params, adamw mu "
+          f"and nu), files under {tmp} ({free_disk / 1e9:.1f} GB free "
+          f"disk, budget {DRILL_DISK_BUDGET / 1e9:.1f} GB), "
+          f"{free_host / 1e9:.1f} GB host memory available", flush=True)
+    # Two uninterrupted runs measure the run-to-run spread of the loss
+    # (the embedding's backward accumulates with atomics), at the drill's
+    # depth.
+    ref_job = dict(job, checkpointing={"enabled": False})
+    refs, ref_result = [], train_result
+    if layers == TRAIN_LAYERS:
+        refs.append(train_losses)
+    while len(refs) < 2:
+        _, losses, ref_result = run_training(torch, flash, ref_job, layers)
+        refs.append(losses)
+        torch.cuda.empty_cache()
+    spread = max(abs(refs[0][s] - refs[1][s]) for s in refs[0])
+    print(f"checkpoint drill: two uninterrupted runs differ by at most "
+          f"{spread:.3e} in loss over steps {sorted(refs[0])}", flush=True)
+
+    art = os.path.join(tmp, "run")
+    ckdir = os.path.join(art, "checkpoints")
+    env = dict(os.environ, POLYAXON_JAXJOB_SPEC=json.dumps(job),
+               POLYAXON_RUN_ARTIFACTS_PATH=art, POLYAXON_RUN_UUID="drill")
+    logs = {k: os.path.join(tmp, f"{k}.log") for k in
+            ("first.out", "first.err", "second.out", "second.err")}
+
+    # How far the disk's use grows while the launchers run, sampled.
+    disk0, disk_peak = shutil.disk_usage(tmp).used, [0]
+    watching = threading.Event()
+
+    def watch_disk():
+        while not watching.wait(0.2):
+            disk_peak[0] = max(disk_peak[0],
+                               shutil.disk_usage(tmp).used - disk0)
+
+    watcher = threading.Thread(target=watch_disk, daemon=True)
+    watcher.start()
+
+    # 1. The first run, killed once a step is committed.
+    t0 = time.perf_counter()
+    with open(logs["first.out"], "w") as out, \
+            open(logs["first.err"], "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "polyaxon_tpu_torch.runtime.launch"],
+            cwd=repo, env=env, stdout=out, stderr=err,
+            start_new_session=True)
+        try:
+            while not _store_steps(ckdir):
+                if proc.poll() is not None:
+                    fail(f"checkpoint drill: the launcher exited "
+                         f"({proc.returncode}) before a step was "
+                         f"committed:\n{_tail(logs['first.err'])}")
+                if time.perf_counter() - t0 > 600:
+                    fail("checkpoint drill: no step committed in 600 s")
+                time.sleep(0.02)
+            committed = _store_steps(ckdir)
+            os.killpg(proc.pid, signal.SIGKILL)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    t_kill = time.perf_counter() - t0
+    left = sorted(os.listdir(ckdir))
+    spill_left = sorted(os.listdir(os.path.join(ckdir, tiers.SPILL_DIRNAME))
+                        ) if os.path.isdir(os.path.join(
+                            ckdir, tiers.SPILL_DIRNAME)) else []
+    first_losses = {r["step"]: r["loss"] for r in
+                    _json_lines(logs["first.out"]) if "loss" in r}
+    print(f"checkpoint drill: SIGKILL {t_kill:.1f}s after start, store "
+          f"steps {committed}; left in the store {left}, in the spill "
+          f"{spill_left}; losses before the kill {first_losses}",
+          flush=True)
+
+    # 2. The restart on the same directory.
+    t0 = time.perf_counter()
+    with open(logs["second.out"], "w") as out, \
+            open(logs["second.err"], "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", DRILL_CHILD],
+                                cwd=repo, env=env, stdout=out, stderr=err,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            fail("checkpoint drill: the restarted launcher ran over 900 s")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    t_second = time.perf_counter() - t0
+    watching.set()
+    watcher.join()
+    print(f"checkpoint drill: the disk's use grew by at most "
+          f"{disk_peak[0] / 1e9:.2f} GB while the launchers ran "
+          f"({DRILL_FILE_STATES} checkpoints: "
+          f"{DRILL_FILE_STATES * nbytes / 1e9:.2f} GB; budget "
+          f"{DRILL_DISK_BUDGET / 1e9:.2f} GB)", flush=True)
+    if rc != 0:
+        fail(f"checkpoint drill: the restarted launcher exited {rc}:\n"
+             f"{_tail(logs['second.err'])}")
+    lines = _json_lines(logs["second.out"])
+    outputs = next((r["outputs"] for r in lines if "outputs" in r), None)
+    launches = next((r["launches"] for r in lines if "launches" in r), None)
+    if outputs is None or launches is None:
+        fail(f"checkpoint drill: no result from the restarted launcher:\n"
+             f"{_tail(logs['second.out'])}")
+    restored = outputs["restored_from_step"]
+    if not (restored is not None and 2 <= restored < TRAIN_STEPS
+            and outputs["restore_tier"] in (tiers.TIER_LOCAL,
+                                            tiers.TIER_STORE)
+            and outputs["steps"] == TRAIN_STEPS):
+        fail(f"checkpoint drill: the restart restored step {restored} from "
+             f"tier {outputs['restore_tier']} and reached step "
+             f"{outputs['steps']} (want 2 <= step < {TRAIN_STEPS}, tier 1 or "
+             f"2, {TRAIN_STEPS} steps)")
+    want_bwd = layers * TRAIN_ACCUM * (TRAIN_STEPS - restored)
+    if launches != {"flash_fwd": 2 * want_bwd, "flash_bwd_dkdv": want_bwd,
+                    "flash_bwd_dq": want_bwd}:
+        fail(f"checkpoint drill: the resumed run launched {launches}; each "
+             f"backward kernel must run {want_bwd} times")
+
+    # 3. The resumed losses against the uninterrupted runs.
+    resumed = {r["step"]: r["loss"] for r in lines if "loss" in r}
+    if sorted(resumed) != list(range(restored + 1, TRAIN_STEPS)):
+        fail(f"checkpoint drill: the resumed run emitted steps "
+             f"{sorted(resumed)}")
+    tol = 0.0 if spread == 0.0 else DRILL_SPREAD_FACTOR * spread
+    worst = 0.0
+    for step, loss in {**first_losses, **resumed}.items():
+        diff = abs(loss - refs[0][step])
+        worst = max(worst, diff) if step in resumed else worst
+        if diff > tol:
+            fail(f"checkpoint drill: step {step} loss {loss!r} against the "
+                 f"uninterrupted {refs[0][step]!r}: diff {diff:.3e} (tol "
+                 f"{tol:.3e}: {'bitwise' if tol == 0 else 'run spread'})")
+    print(f"checkpoint drill: restart restored step {restored} from tier "
+          f"{outputs['restore_tier']} in "
+          f"{outputs['checkpoint']['restore_s']} s (reference budget "
+          f"{tiers.RESTORE_BUDGET_P99_SECONDS} s p99), ran to step "
+          f"{outputs['steps']} in {t_second:.1f}s; resumed losses "
+          f"{resumed}, max diff to the uninterrupted run {worst:.3e} (tol "
+          f"{tol:.3e}, {'bitwise' if tol == 0 else 'run spread'}); "
+          f"launches {launches}", flush=True)
+    prep = [line.rsplit(" in ", 1)[-1].strip() for line in
+            open(logs["second.err"], errors="replace")
+            if "snapshot buffer ready" in line]
+    print(f"checkpoint drill: the restarted launcher's snapshot buffer "
+          f"(page locking) took {prep}", flush=True)
+    cp = outputs["checkpoint"]
+    stalls = [w + s for w, s in zip(cp["save_wait_s"], cp["snapshot_s"])]
+    loop_stall = sum(stalls[:-1])  # the last is the final, forced save
+    timed = round(outputs["throughput"] * outputs["wall_time"]
+                  / outputs["units_per_step"])
+    with_stall = (outputs["units_per_step"] * timed
+                  / (outputs["wall_time"] + loop_stall)) if timed else 0.0
+    # The steady state, which the resumed run's few steps cannot show: a
+    # save every intervalSteps steps takes its snapshot, and waits for the
+    # previous commit whenever that outlasts the steps between two saves.
+    n_saves = len(cp["snapshot_s"])
+    commits = [sum(v[k] for v in cp["commit_s"].values() if k < len(v))
+               for k in range(n_saves)]
+    t_between = (DRILL_CKPT["intervalSteps"] * outputs["units_per_step"]
+                 / outputs["throughput"])
+    t_commit = sum(commits) / n_saves
+    t_snap = sum(cp["snapshot_s"]) / n_saves
+    steady = t_between / (t_snap + max(t_between, t_commit))
+    print(f"checkpoint drill: bytes={cp['bytes']} per checkpoint; per "
+          f"save: wait_s={cp['save_wait_s']} snapshot_s={cp['snapshot_s']} "
+          f"commit_s={commits} (by tier {cp['commit_s']}); publish_errors="
+          f"{cp['publish_errors']}", flush=True)
+    print(f"checkpoint drill: tokens_per_s over the resumed run's {timed} "
+          f"timed steps: {outputs['throughput']:.1f} with the saves off the "
+          f"clock, {with_stall:.1f} with the step loop's save stalls (the "
+          f"final save's wait, {cp['save_wait_s'][-1]:.3f}s, falls after "
+          f"the loop), uninterrupted {ref_result.throughput:.1f}; steady "
+          f"state from the measured times (a save every "
+          f"{t_between:.3f}s of steps, snapshot {t_snap:.3f}s, commit "
+          f"{t_commit:.3f}s): {steady:.4f} of the uninterrupted rate, "
+          f"{steady * ref_result.throughput:.1f} tokens/s", flush=True)
+    if cp["publish_errors"]:
+        fail("checkpoint drill: a checkpoint commit failed")
+
+    # 5. The tracking record, through the port's own reader.
+    loss_events = events.read_events(art, "metric", "loss")
+    with open(os.path.join(art, "outputs.json")) as fh:
+        tracked = json.load(fh)
+    statuses = [r["status"] for r in events.read_jsonl(
+        os.path.join(art, "statuses.jsonl"))]
+    hbm = [r["value"] for r in events.read_events(art, "system",
+                                                  "gpu0_hbm_used_gb")]
+    if not (loss_events and tracked["steps"] == TRAIN_STEPS
+            and tracked["restored_from_step"] == restored
+            and statuses[-1] == "succeeded"
+            and hbm and max(hbm) * 2**30 > nbytes):
+        fail(f"checkpoint drill: tracking record: {len(loss_events)} loss "
+             f"events, outputs steps {tracked.get('steps')} restored "
+             f"{tracked.get('restored_from_step')}, statuses {statuses}, "
+             f"gpu0_hbm_used_gb samples {hbm}")
+    print(f"checkpoint drill: tracking record: {len(loss_events)} loss "
+          f"events, outputs steps={tracked['steps']} restored_from_step="
+          f"{tracked['restored_from_step']}, statuses {statuses}, "
+          f"{len(hbm)} gpu0_hbm_used_gb samples (max {max(hbm):.2f} GiB), "
+          f"system metrics {events.list_event_names(art, 'system')}",
+          flush=True)
+
+    # 4. The restored bytes, in this process, against the manifest.
+    from polyaxon_tpu_torch.models import get_model
+    from polyaxon_tpu_torch.runtime.config import RuntimeConfig
+    from polyaxon_tpu_torch.runtime.optim import build_optimizer
+    from polyaxon_tpu_torch.runtime.step import build_init
+
+    rcfg = RuntimeConfig.from_dict(job["runtime"])
+    model_def = get_model("llama3_1b",
+                          **rcfg.model_overrides(llama.LlamaConfig))
+    state = build_init(model_def, build_optimizer(rcfg),
+                       device="cuda")(SEED + 1)
+    mgr = ck.TieredCheckpointManager(ckdir,
+                                     ck.CheckpointSpec.from_dict(DRILL_CKPT))
+    try:
+        state = mgr.restore(state)
+        first_tier = mgr.last_restore_tier
+        step = mgr.latest_step()
+        manifest = ck.read_manifest(ckdir, step)
+        got = device_crcs(torch, state)
+        want = [e["crc32"] for e in manifest["leaves"]]
+        if got != want or state["step"] != TRAIN_STEPS:
+            bad = [e["path"] for e, g in zip(manifest["leaves"], got)
+                   if e["crc32"] != g]
+            fail(f"checkpoint drill: restored leaves differ from the "
+                 f"manifest of step {step}: {bad[:5]}")
+        state = mgr.restore(state, step=step)  # the store, explicitly
+        print(f"checkpoint drill: restored step {step} here from tier "
+              f"{first_tier}, then from the store; {len(want)} leaf "
+              f"CRC-32s equal the manifest's", flush=True)
+
+        serve_counts = serve_checkpoint(torch, flash, paged, llama, ckdir,
+                                        layers)
+
+        # 6. Tier 0, twice. First the replica the spill restore above
+        # promoted (pageable host memory). Then a save's first half: the
+        # snapshot into the page-locked buffer, published as the replica,
+        # and its restore. The save's disk commits are the launcher's,
+        # measured above; none is repeated here.
+        def restore_from_memory(what):
+            restored = mgr.restore(state)
+            if mgr.last_restore_tier != tiers.TIER_MEMORY:
+                fail(f"checkpoint drill: the restore of {what} came from "
+                     f"tier {mgr.last_restore_tier}, not memory")
+            if device_crcs(torch, restored) != want:
+                fail(f"checkpoint drill: the restore of {what} changed the "
+                     f"bytes")
+            return restored
+
+        state = restore_from_memory("the promoted replica")
+        tiers.TIER0.drop(mgr.directory)
+        t0 = time.perf_counter()
+        mgr.prepare(state)
+        t_prep = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arrays, snap_manifest = mgr._snapshot(step, state)
+        t_snap = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tiers.TIER0.publish(mgr.directory, step,
+                            {f"leaf_{i}": a for i, a in enumerate(arrays)},
+                            snap_manifest)
+        t_pub = time.perf_counter() - t0
+        del arrays
+        state = restore_from_memory("the snapshot")
+        print(f"checkpoint drill: here, host buffer {t_prep:.2f}s (page "
+              f"locking, once per manager); snapshot {t_snap:.3f}s; tier-0 "
+              f"publish {t_pub:.6f}s; restore_s by tier "
+              f"{mgr.restore_seconds} (tier 0: the promoted replica, then "
+              f"the page-locked snapshot; reference budget "
+              f"{tiers.RESTORE_BUDGET_P99_SECONDS} s p99)", flush=True)
+    finally:
+        mgr.close()
+    del state
+    torch.cuda.empty_cache()
+    return launches, serve_counts
+
+
+def serve_checkpoint(torch, flash, paged, llama, ckdir, layers):
+    """The paged engine serves the drill's checkpoint: two requests of
+    SERVE_NEW_TOKENS new tokens through the flash forward and paged
+    decode (head_dim 64), then the first admission against the plain
+    path. Returns the engine's launch counts."""
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.server import load_params
+
+    import numpy as np
+
+    name = "llama3_1b"
+    if layers < TRAIN_LAYERS:  # a cut drill: serve the cut model
+        name = f"llama3_1b_{layers}l"
+        llama.CONFIGS[name] = dataclasses.replace(llama.CONFIGS["llama3_1b"],
+                                                  n_layers=layers)
+    t0 = time.perf_counter()
+    cfg, params = load_params(name, checkpoint=ckdir, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in
+               (700, 129)]
+    eng = ContinuousBatchingEngine(name, cfg, params, slots=2, kv="paged",
+                                   page_size=16, max_len=4096,
+                                   device="cuda")
+    try:
+        flash.launches = 0
+        paged.launches = 0
+        reqs = [eng.submit(p, SERVE_NEW_TOKENS) for p in prompts]
+        outs = [r.wait(timeout=600) for r in reqs]
+        counts = {"flash_fwd": flash.launches,
+                  "paged_decode": paged.launches}
+    finally:
+        eng.stop()
+    for o in outs:
+        if len(o) != SERVE_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in o):
+            fail(f"serving the drill's checkpoint: malformed output {o}")
+    for kernel, n in counts.items():
+        if n <= 0:
+            fail(f"serving the drill's checkpoint never launched {kernel}")
+    print(f"serve checkpoint: {name} loaded in {t_load:.1f}s, "
+          f"{len(prompts)} requests x {SERVE_NEW_TOKENS} new tokens, "
+          f"launches {counts}", flush=True)
+    compare_first_admission(torch, llama, cfg, params, prompts[1])
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -1002,6 +1570,7 @@ def main() -> None:
     gen.manual_seed(SEED)
     flash_rec = check_flash(torch, flash, peaks, gen)
     paged_rec = check_paged(torch, paged_attention, peaks, gen)
+    check_decode_streams(torch, paged_attention, gen)
     bwd_recs = check_flash_bwd(torch, flash, peaks, gen)
     torch.cuda.empty_cache()
 
@@ -1021,39 +1590,45 @@ def main() -> None:
 
     run_http(flash, paged_attention)
 
-    train_counts = run_training(torch, flash, TRAIN_JOB, TRAIN_LAYERS)
+    train_counts, train_losses, train_result = run_training(
+        torch, flash, TRAIN_JOB, TRAIN_LAYERS)
     torch.cuda.empty_cache()
     first_step_parity(torch, llama, flash)
     torch.cuda.empty_cache()
-    gemma_counts = run_training(torch, flash, GEMMA_JOB, GEMMA_LAYERS)
+    gemma_counts = run_training(torch, flash, GEMMA_JOB, GEMMA_LAYERS)[0]
     torch.cuda.empty_cache()
 
-    # flash_fwd runs on every path: its launches are the three main-path
-    # runs' sum, the backward kernels' the two training runs' (each
-    # printed above).
+    drill_counts = checkpoint_drill(torch, flash, paged_attention, llama,
+                                    train_losses, train_result)
+    torch.cuda.empty_cache()
+
+    # Each kernel's launches are the sum over the main-path runs that
+    # reach it (each printed above): the engine, the two training runs,
+    # the resumed launcher of the checkpoint drill and the engine serving
+    # its checkpoint.
+    runs = (counts, train_counts, gemma_counts, *drill_counts)
+
+    def total(name):
+        return sum(run.get(name, 0) for run in runs)
+
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="polyaxon_tpu_torch/ops/csrc/flash_fwd.cu",
              replaces="polyaxon_tpu/ops/flash.py:177",
-             launches=counts["flash_fwd"] + train_counts["flash_fwd"]
-             + gemma_counts["flash_fwd"],
-             **_ordered(flash_rec)),
+             launches=total("flash_fwd"), **_ordered(flash_rec)),
         dict(name="paged_decode", route="cuda",
              source="polyaxon_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="polyaxon_tpu/ops/paged_attention.py:39",
-             launches=counts["paged_decode"], **_ordered(paged_rec)),
+             launches=total("paged_decode"), **_ordered(paged_rec)),
         dict(name="flash_bwd_dkdv", route="cuda",
              source="polyaxon_tpu_torch/ops/csrc/flash_bwd.cu",
              replaces="polyaxon_tpu/ops/flash.py:417",
-             launches=train_counts["flash_bwd_dkdv"]
-             + gemma_counts["flash_bwd_dkdv"],
+             launches=total("flash_bwd_dkdv"),
              **_ordered(bwd_recs["dkdv"])),
         dict(name="flash_bwd_dq", route="cuda",
              source="polyaxon_tpu_torch/ops/csrc/flash_bwd.cu",
              replaces="polyaxon_tpu/ops/flash.py:484",
-             launches=train_counts["flash_bwd_dq"]
-             + gemma_counts["flash_bwd_dq"],
-             **_ordered(bwd_recs["dq"])),
+             launches=total("flash_bwd_dq"), **_ordered(bwd_recs["dq"])),
     ]
     print(f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,8 +14,11 @@ device sync; the kernel cuts each row's live tokens into tiles of
 ``TILE_TOKENS`` tokens and split ``s`` of ``n`` takes tiles
 ``[s * ntiles // n, (s + 1) * ntiles // n)``, then merges the splits'
 partials in split order. The wrapper allocates partials with torch and
-keeps one zeroed counter buffer per device (the kernel leaves it zero), so
-a call can be captured in a CUDA graph.
+keeps one zeroed counter buffer per (device, stream), which the kernel
+leaves zero: launches on one stream run in order and share it, launches
+on two streams never do. A call can be captured in a CUDA graph (the
+graph keeps its capture stream's buffer, so graphs captured on one stream
+are replayed one at a time).
 """
 
 from __future__ import annotations
@@ -107,20 +110,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_counters: dict[int, torch.Tensor] = {}
+_counters: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """Zeroed int32 counters for the last-block merge, one buffer per
-    device, reused across calls (every launch leaves them zero). Inside a
-    CUDA-graph capture a buffer too small is allocated afresh (its zeroing
-    is captured with the launch), never cached."""
-    buf = _counters.get(device.index)
+def _counter_buffer(device: torch.device, stream: torch.cuda.Stream,
+                    n: int) -> torch.Tensor:
+    """Zeroed int32 counters for the last-block merge. The kernel's last
+    block of a (row, kv head) is the one whose ``atomicAdd`` returns
+    ``nsplit - 1``, so two launches in flight at once must not share a
+    buffer: one buffer per (device, stream), reused by that stream's
+    launches in order (every launch leaves it zero). Inside a CUDA-graph
+    capture a buffer too small is allocated afresh (its zeroing is
+    captured with the launch), never cached."""
+    key = (device.index, stream.cuda_stream)
+    buf = _counters.get(key)
     if buf is not None and buf.numel() >= n:
         return buf
     if torch.cuda.is_current_stream_capturing():
         return torch.zeros(n, dtype=torch.int32, device=device)
-    buf = _counters[device.index] = torch.zeros(
+    buf = _counters[key] = torch.zeros(
         max(n, 4096), dtype=torch.int32, device=device)
     return buf
 
@@ -157,19 +165,20 @@ def paged_decode_cuda(q, k_pages, v_pages, tables, pos, *,
     tables = tables.to(device=dev, dtype=torch.int32).contiguous()
     pos = pos.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev)
     op = mp = lp = counters = None
     if n > 1:
         op = torch.empty(B * H * n * Hd, dtype=torch.float32, device=dev)
         ml = torch.empty(2, B * H * n, dtype=torch.float32, device=dev)
         mp, lp = ml[0], ml[1]
-        counters = _counter_buffer(dev,
+        counters = _counter_buffer(dev, stream,
                                    B * KV * -(-(H // KV) // GROUP_ROWS))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib, fn = _entry()
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
               tables.data_ptr(), pos.data_ptr(), out.data_ptr(), ptr(op),
               ptr(mp), ptr(lp), ptr(counters), B, H, KV, Hd, page, maxp, n,
-              float(Hd ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
+              float(Hd ** -0.5), stream.cuda_stream)
     _build.check(lib, code, "paged_decode_bf16 launch")
     launches += 1
     return out

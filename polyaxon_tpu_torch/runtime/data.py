@@ -75,7 +75,7 @@ def get_dataset(name: str, **kwargs) -> Iterator[dict[str, np.ndarray]]:
     if name in UNPORTED:
         raise NotImplementedError(
             f"dataset `{name}` is not ported yet: ROADMAP.md, Queue 1 "
-            "item 3")
+            "item 3b")
     if name not in DATASETS:
         raise ValueError(f"Unknown dataset `{name}`. Available: "
                          f"{sorted(DATASETS)}")

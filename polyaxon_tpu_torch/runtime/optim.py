@@ -152,5 +152,5 @@ def build_optimizer(cfg) -> Optimizer:
     if name in ("lion", "adafactor"):
         raise NotImplementedError(
             f"optimizer `{name}` is not ported yet: ROADMAP.md, Queue 1 "
-            "item 3")
+            "item 3b")
     raise ValueError(f"Unknown optimizer `{cfg.optimizer}`")

@@ -10,8 +10,9 @@ API (JSON over HTTP):
                          "top_k": K?, "eos_tokens": [...]?}
                         → {"tokens": [[...]], "request_ids": [...]}
 
-Weights come from a seeded random init; checkpoint loading and SSE
-streaming are not ported yet.
+Weights come from a seeded random init, or from the latest step of a
+checkpoint the port's training wrote (``--checkpoint <artifacts>/
+checkpoints``). SSE streaming is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,21 +38,54 @@ logger = logging.getLogger(__name__)
 
 def load_params(model: str, checkpoint: Optional[str] = None, seed: int = 0,
                 *, device=None):
-    """(cfg, params) for ``model``: random init from ``seed`` on the
-    device, matrices in ``cfg.dtype`` and norm gains in f32. Checkpoints
-    are Orbax trees, which need JAX: they wait for the checkpoint slice."""
-    if checkpoint:
-        raise NotImplementedError(
-            "--checkpoint is not ported yet: Orbax restore needs JAX "
-            "(ROADMAP.md, Queue 1, checkpoint slice)")
+    """(cfg, params) for ``model`` on the device, matrices in
+    ``cfg.dtype`` and norm gains in f32: the latest committed step of the
+    port's checkpoint directory ``checkpoint`` (a saved train state, whose
+    ``params`` are sliced out, or a bare params tree), else a random init
+    from ``seed``. A checkpoint must match the model's tree and shapes.
+    Orbax trees written by the JAX package are not read (ROADMAP.md)."""
     family = _family(model)
     cfg = family.CONFIGS[model]
     dev = resolve_device(device)
+    if checkpoint:
+        from polyaxon_tpu_torch.runtime.checkpoint import load_tree
+
+        step, tree = load_tree(checkpoint, only="params")
+        loaded = tree.get("params", tree)
+        template = family.init(cfg, torch.Generator(), device="meta",
+                               param_dtype=cfg.dtype)["params"]
+        params = _cast_like(template, loaded, dev,
+                            f"checkpoint {checkpoint} step {step}")
+        logger.info("restored %s step=%s", checkpoint, step)
+        return cfg, params
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = family.init(cfg, gen, device=dev,
                          param_dtype=cfg.dtype)["params"]
     return cfg, params
+
+
+def _cast_like(template: dict, loaded: Any, device, what: str,
+               path: str = "") -> dict:
+    """``loaded`` on ``device`` in ``template``'s dtypes; raises unless
+    its tree and shapes are ``template``'s."""
+    if not isinstance(loaded, dict) or set(loaded) != set(template):
+        got = sorted(loaded) if isinstance(loaded, dict) else type(loaded)
+        raise ValueError(f"{what} does not match the model at "
+                         f"'{path or '/'}': keys {got}, expected "
+                         f"{sorted(template)}")
+    out = {}
+    for key, ref in template.items():
+        value, sub = loaded[key], f"{path}/{key}"
+        if isinstance(ref, dict):
+            out[key] = _cast_like(ref, value, device, what, sub)
+            continue
+        if not isinstance(value, torch.Tensor) or value.shape != ref.shape:
+            raise ValueError(f"{what}: {sub} has shape "
+                             f"{getattr(value, 'shape', None)}, the model "
+                             f"expects {tuple(ref.shape)}")
+        out[key] = value.to(device=device, dtype=ref.dtype)
+    return out
 
 
 class _Handler(BaseHTTPRequestHandler):

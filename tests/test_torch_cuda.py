@@ -374,6 +374,77 @@ def test_paged_decode_graph_replay_equals_eager(gen):
     assert torch.equal(out, want)
 
 
+def test_paged_decode_two_streams_do_not_race(gen):
+    """Multi-split launches on two streams at once: each stream has its
+    own merge counters, so every output equals the plain version and
+    its stream's first output, bitwise."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [_paged_inputs(gen, 4, 32, 8, 128, 16, 64),
+             _paged_inputs(gen, 4, 8, 1, 256, 16, 64)]
+    for q, kp, vp, tables, _ in cases:
+        assert paged_attention.decode_splits(
+            q.shape[0], q.shape[1], kp.shape[2], kp.shape[1],
+            tables.shape[1], sms) > 1
+    refs = [paged_attention.paged_decode_plain(*c) for c in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(50):
+        for i, (s, c) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                outs[i].append(paged_attention.paged_decode_attention(*c))
+    torch.cuda.synchronize()
+    for ref, got in zip(refs, outs):
+        torch.testing.assert_close(got[0].float(), ref.float(), atol=1e-2,
+                                   rtol=1e-2)
+        assert all(torch.equal(o, got[0]) for o in got)
+
+
+def test_checkpoint_round_trip_on_the_card(gen, tmp_path):
+    """A state on the card (f32 and bf16 tensors, scalars) saved
+    asynchronously through page-locked host buffers, then restored from
+    memory, from the spill and from the store into zeroed tensors: all
+    bitwise equal, the snapshot taken before ``save`` returned."""
+    from polyaxon_tpu_torch.runtime import tiers
+    from polyaxon_tpu_torch.runtime.checkpoint import (
+        CheckpointSpec, TieredCheckpointManager)
+
+    def make(fill=None):
+        w = torch.randn(1000, 257, generator=gen, device="cuda")
+        h = _rand(gen, 3, 70001)
+        if fill is not None:
+            w.fill_(fill)
+            h.fill_(fill)
+        return {"step": 0 if fill is not None else 5,
+                "params": {"w": w, "h": h},
+                "opt_state": {"count": 0 if fill is not None else 5,
+                              "mu": [w.clone()]}}
+
+    st = make()
+    want = {k: v.clone() for k, v in st["params"].items()}
+    mgr = TieredCheckpointManager(
+        str(tmp_path / "ck"), CheckpointSpec(interval_steps=1))
+    mgr.prepare(st)
+    mgr.save(5, st)
+    st["params"]["w"].add_(1.0)  # after save returned: not in the step
+    mgr.wait()
+    for drop in ((), ("memory",), ("memory", "spill")):
+        if "memory" in drop:
+            tiers.TIER0.drop(mgr.directory)
+        if "spill" in drop:
+            mgr._spill.drop_all()
+        got = mgr.restore(make(fill=0.0))
+        assert mgr.last_restore_tier == str(len(drop))
+        assert got["step"] == 5 and got["opt_state"]["count"] == 5
+        for k, v in want.items():
+            assert torch.equal(got["params"][k], v), (k, drop)
+        assert torch.equal(got["opt_state"]["mu"][0], want["w"])
+    mgr.close()
+    tiers.TIER0.clear()
+
+
 def test_paged_decode_refuses_what_it_cannot_take(gen):
     q, kp = _rand(gen, 2, 4, 96), _rand(gen, 3, 16, 2, 96)
     tables = torch.ones(2, 1, device="cuda", dtype=torch.int32)

@@ -165,5 +165,9 @@ def test_entry_points_need_a_device(monkeypatch):
         ServingServer("llama_tiny")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_params("llama_tiny")
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_params("llama_tiny", checkpoint="/nonexistent")
+    # Checkpoints are read now (tests/test_torch_checkpoint.py); a
+    # directory with no committed step is an error, not a random init.
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         load_params("llama_tiny", checkpoint="/nonexistent", device="cpu")

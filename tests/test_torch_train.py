@@ -474,12 +474,17 @@ class TestRuntime:
         assert result.steps == 1  # the warm-up step only
         for job, exc, match in (
                 (dict(_job(), mesh={"axes": {"dp": 2}}), ValueError, "one"),
-                (_job(lora_rank=4), NotImplementedError, "ROADMAP"),
-                (_job(profile_steps=[1]), NotImplementedError, "ROADMAP"),
-                (dict(_job(), checkpointing={"enabled": True}),
-                 NotImplementedError, "ROADMAP")):
+                (_job(lora_rank=4), NotImplementedError, "ROADMAP")):
             with pytest.raises(exc, match=match):
                 run_torchjob(job, artifacts_dir=str(tmp_path), device="cpu")
+        # Checkpointing and profile_steps are ported: no refusal, and
+        # should_stop still ends the run after the warm-up step.
+        job = dict(_job(steps=10, eval_every=None, profile_steps=[1]),
+                   checkpointing={"enabled": True})
+        result = run_torchjob(job, artifacts_dir=str(tmp_path),
+                              should_stop=lambda: True, device="cpu")
+        assert result.steps == 1 and result.restored_from_step is None
+        assert os.listdir(tmp_path / "checkpoints" / "1")
 
     def test_entry_points_need_a_gpu(self):
         if torch.cuda.is_available():
