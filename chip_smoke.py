@@ -73,6 +73,20 @@ Phases, each of which must pass:
    new tokens (flash forward and paged decode at head_dim 64, counters
    zeroed before and read after), then the first admission against the
    plain path.
+9. Polyaxonfile to launcher: ``examples/packed_pretrain.yaml``, as it is,
+   compiled by the port's ``polyaxonfile`` and ``compiler`` with the gpu
+   preset and H100_PRESET (one process, phase 4's steps and
+   microbatches) on a synthetic text corpus from SEED (``lm_text_packed``,
+   the bytes tokenizer), in a fresh temporary directory. The plan must
+   hold one process that runs the port's launcher; that process is run as
+   the JAX package's executor runs one (its env, the coordinator
+   placeholder replaced, its log under ``<artifacts>/logs``). It must
+   exit 0 with statuses running then succeeded, a finite loss event per
+   trained step, 6 steps in its outputs and a committed step 6, restored
+   here and held against the manifest's CRC-32s; each backward kernel
+   launched once per layer, microbatch and step, the forward twice as
+   often. Its tokens/s and MFU print beside phase 4's. The depth is cut
+   only if one checkpoint does not fit, by the drill's rule.
 
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
@@ -1101,12 +1115,14 @@ def _json_lines(path: str) -> list[dict]:
     return out
 
 
-def drill_job(torch, llama, free_disk: float, free_host: float):
-    """The drill's job and its depth: TRAIN_JOB with DRILL_CKPT at full
-    width, its depth cut only if DRILL_FILE_STATES checkpoints do not fit
-    in the free disk or in DRILL_DISK_BUDGET, or the launcher's snapshot
-    does not fit in the host's available memory less DRILL_HOST_MARGIN.
-    Returns (job, layers, checkpoint bytes)."""
+def fit_depth(torch, llama, free_disk: float, free_host: float,
+              file_states: int, label: str):
+    """llama3_1b's depth for a phase that keeps ``file_states``
+    checkpoints on the disk at once: TRAIN_LAYERS, cut only if those do
+    not fit in the free disk or in DRILL_DISK_BUDGET, or the launcher's
+    snapshot does not fit in the host's available memory less
+    DRILL_HOST_MARGIN (a cut is printed). Returns (layers, checkpoint
+    bytes)."""
     cfg = llama.CONFIGS["llama3_1b"]
     meta = llama.init(cfg, torch.Generator(), device="meta")["params"]
     per_layer = sum(t.numel() for t in meta["layers"].values()) \
@@ -1117,25 +1133,35 @@ def drill_job(torch, llama, free_disk: float, free_host: float):
         return 12 * (other + per_layer * layers)
 
     def fits(layers):
-        files = DRILL_FILE_STATES * state_bytes(layers)
+        files = file_states * state_bytes(layers)
         return (files <= min(free_disk, DRILL_DISK_BUDGET)
                 and state_bytes(layers) <= free_host - DRILL_HOST_MARGIN)
 
     layers = TRAIN_LAYERS
     while layers > 1 and not fits(layers):
         layers -= 1
-    job = json.loads(json.dumps(TRAIN_JOB))
-    job["checkpointing"] = dict(DRILL_CKPT)
     if layers < TRAIN_LAYERS:
-        job["runtime"]["n_layers"] = layers
-        print(f"checkpoint drill: {DRILL_FILE_STATES} checkpoints of "
+        print(f"{label}: {file_states} checkpoints of "
               f"{state_bytes(TRAIN_LAYERS) / 1e9:.2f} GB do not fit in "
               f"{min(free_disk, DRILL_DISK_BUDGET) / 1e9:.1f} GB of disk "
               f"({free_disk / 1e9:.1f} GB free, budget "
               f"{DRILL_DISK_BUDGET / 1e9:.1f} GB), or a snapshot in "
               f"{free_host / 1e9:.1f} GB of host memory: depth cut from "
               f"{TRAIN_LAYERS} to {layers} layers, width kept", flush=True)
-    return job, layers, state_bytes(layers)
+    return layers, state_bytes(layers)
+
+
+def drill_job(torch, llama, free_disk: float, free_host: float):
+    """The drill's job and its depth: TRAIN_JOB with DRILL_CKPT at full
+    width, at ``fit_depth``'s depth for DRILL_FILE_STATES checkpoints.
+    Returns (job, layers, checkpoint bytes)."""
+    layers, nbytes = fit_depth(torch, llama, free_disk, free_host,
+                               DRILL_FILE_STATES, "checkpoint drill")
+    job = json.loads(json.dumps(TRAIN_JOB))
+    job["checkpointing"] = dict(DRILL_CKPT)
+    if layers < TRAIN_LAYERS:
+        job["runtime"]["n_layers"] = layers
+    return job, layers, nbytes
 
 
 def device_crcs(torch, state) -> list[int]:
@@ -1161,6 +1187,43 @@ def device_crcs(torch, state) -> list[int]:
     return out
 
 
+def restore_checked(torch, llama, job, ckdir: str, label: str):
+    """Restore the newest committed step of ``job``'s checkpoints in this
+    process, into a state initialised from another seed, and hold each
+    leaf's CRC-32 against the manifest. Returns (the manager, the state,
+    the step, the CRC-32s, the tier the restore came from); the caller
+    closes the manager."""
+    from polyaxon_tpu_torch.models import get_model
+    from polyaxon_tpu_torch.runtime import checkpoint as ck
+    from polyaxon_tpu_torch.runtime.config import RuntimeConfig
+    from polyaxon_tpu_torch.runtime.optim import build_optimizer
+    from polyaxon_tpu_torch.runtime.step import build_init
+
+    rcfg = RuntimeConfig.from_dict(job["runtime"])
+    model_def = get_model(rcfg.model,
+                          **rcfg.model_overrides(llama.LlamaConfig))
+    state = build_init(model_def, build_optimizer(rcfg),
+                       device="cuda")(SEED + 1)
+    mgr = ck.TieredCheckpointManager(
+        ckdir, ck.CheckpointSpec.from_dict(job["checkpointing"]))
+    try:
+        state = mgr.restore(state)
+        tier = mgr.last_restore_tier
+        step = mgr.latest_step()
+        manifest = ck.read_manifest(ckdir, step)
+        got = device_crcs(torch, state)
+        want = [e["crc32"] for e in manifest["leaves"]]
+        if got != want or state["step"] != TRAIN_STEPS:
+            bad = [e["path"] for e, g in zip(manifest["leaves"], got)
+                   if e["crc32"] != g]
+            fail(f"{label}: restored step {state['step']}; leaves that "
+                 f"differ from the manifest of step {step}: {bad[:5]}")
+    except BaseException:
+        mgr.close()
+        raise
+    return mgr, state, step, want, tier
+
+
 def checkpoint_drill(torch, flash, paged, llama, train_losses,
                      train_result):
     """The launcher checkpoints llama3_1b's training, is SIGKILLed once
@@ -1173,7 +1236,6 @@ def checkpoint_drill(torch, flash, paged, llama, train_losses,
     import shutil
     import signal
 
-    from polyaxon_tpu_torch.runtime import checkpoint as ck
     from polyaxon_tpu_torch.runtime import tiers
     from polyaxon_tpu_torch.tracking import events
 
@@ -1184,14 +1246,14 @@ def checkpoint_drill(torch, flash, paged, llama, train_losses,
     tmp = tempfile.mkdtemp(prefix="chip-smoke-drill-")
     try:
         return _drill(torch, flash, paged, llama, train_losses, train_result,
-                      tmp, repo, ck, tiers, events, signal)
+                      tmp, repo, tiers, events, signal)
     finally:
         tiers.TIER0.clear()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _drill(torch, flash, paged, llama, train_losses, train_result, tmp,
-           repo, ck, tiers, events, signal):
+           repo, tiers, events, signal):
     import shutil
 
     from polyaxon_tpu_torch.tracking.systemmetrics import meminfo
@@ -1405,30 +1467,9 @@ def _drill(torch, flash, paged, llama, train_losses, train_result, tmp,
           flush=True)
 
     # 4. The restored bytes, in this process, against the manifest.
-    from polyaxon_tpu_torch.models import get_model
-    from polyaxon_tpu_torch.runtime.config import RuntimeConfig
-    from polyaxon_tpu_torch.runtime.optim import build_optimizer
-    from polyaxon_tpu_torch.runtime.step import build_init
-
-    rcfg = RuntimeConfig.from_dict(job["runtime"])
-    model_def = get_model("llama3_1b",
-                          **rcfg.model_overrides(llama.LlamaConfig))
-    state = build_init(model_def, build_optimizer(rcfg),
-                       device="cuda")(SEED + 1)
-    mgr = ck.TieredCheckpointManager(ckdir,
-                                     ck.CheckpointSpec.from_dict(DRILL_CKPT))
+    mgr, state, step, want, first_tier = restore_checked(
+        torch, llama, job, ckdir, "checkpoint drill")
     try:
-        state = mgr.restore(state)
-        first_tier = mgr.last_restore_tier
-        step = mgr.latest_step()
-        manifest = ck.read_manifest(ckdir, step)
-        got = device_crcs(torch, state)
-        want = [e["crc32"] for e in manifest["leaves"]]
-        if got != want or state["step"] != TRAIN_STEPS:
-            bad = [e["path"] for e, g in zip(manifest["leaves"], got)
-                   if e["crc32"] != g]
-            fail(f"checkpoint drill: restored leaves differ from the "
-                 f"manifest of step {step}: {bad[:5]}")
         state = mgr.restore(state, step=step)  # the store, explicitly
         print(f"checkpoint drill: restored step {step} here from tier "
               f"{first_tier}, then from the store; {len(want)} leaf "
@@ -1530,6 +1571,245 @@ def serve_checkpoint(torch, flash, paged, llama, ckdir, layers):
     return counts
 
 
+# --------------------------------------- Polyaxonfile → plan → launcher
+PACKED_EXAMPLE = "examples/packed_pretrain.yaml"
+GPU_PRESET = "tests/fixtures/presets/gpu.yaml"
+# chip_smoke's own preset over the example: one process (the example's
+# v5e 2x4 topology compiles to two, and the port trains on one card),
+# phase 4's 6 steps of 4 microbatches, and a loss every step (phase 4's
+# cadence, so that the two phases' tokens/s compare).
+H100_PRESET = {"isPreset": True, "patchStrategy": "post_merge",
+               "runPatch": {"numProcesses": 1, "runtime": {
+                   "steps": TRAIN_STEPS, "grad_accum_steps": TRAIN_ACCUM,
+                   "log_every": 1}}}
+# The corpus: at least this many rows of the example's 4096 tokens (the
+# bytes tokenizer: one token per byte), in documents of CORPUS_DOC_WORDS
+# words drawn from a Zipf-like vocabulary of CORPUS_VOCAB random words.
+CORPUS_ROWS = 1024
+CORPUS_VOCAB = 20_000
+CORPUS_DOC_WORDS = (20, 160)
+
+
+def write_corpus(path: str, min_bytes: int, seed: int) -> tuple[int, int]:
+    """A synthetic text corpus from ``seed``: documents of lowercase words
+    separated by blank lines, at least ``min_bytes`` long. Returns (bytes,
+    documents)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    vocab = np.array([letters[rng.integers(0, 26, n)].tobytes().decode()
+                      for n in rng.integers(1, 11, CORPUS_VOCAB)])
+    weights = 1.0 / np.arange(1, CORPUS_VOCAB + 1)
+    cdf = np.cumsum(weights) / weights.sum()
+    size = docs = 0
+    with open(path, "w") as fh:
+        while size < min_bytes:
+            n = int(rng.integers(*CORPUS_DOC_WORDS))
+            words = vocab[np.searchsorted(cdf, rng.random(n), side="right")]
+            doc = " ".join(words) + "\n\n"
+            fh.write(doc)
+            size += len(doc)
+            docs += 1
+    return size, docs
+
+
+def compiled_launch(torch, llama, train_result):
+    """Phase 9: ``examples/packed_pretrain.yaml`` compiled by the port
+    (the gpu preset and H100_PRESET, a synthetic corpus from SEED) and
+    its plan's process run as the JAX package's executor starts one
+    (``polyaxon_tpu/agent/executor.py:311-343``). Checks the tracking
+    record, the committed checkpoint and the kernels' launches; prints
+    the numbers beside phase 4's. Returns the process's launch counts."""
+    import shutil
+    import tempfile
+
+    from polyaxon_tpu_torch.runtime import tiers
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-plan-")
+    try:
+        return _compiled_launch(torch, llama, train_result, tmp)
+    finally:
+        tiers.TIER0.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _compiled_launch(torch, llama, train_result, tmp):
+    import shutil
+    import signal
+
+    from polyaxon_tpu_torch.compiler import (COORDINATOR_PLACEHOLDER,
+                                             ENV_JAXJOB_SPEC,
+                                             compile_operation)
+    from polyaxon_tpu_torch.polyaxonfile import (check_polyaxonfile,
+                                                 resolve_operation_context)
+    from polyaxon_tpu_torch.runtime.flops import (peak_flops,
+                                                  train_flops_per_token)
+    from polyaxon_tpu_torch.tracking import events
+    from polyaxon_tpu_torch.tracking.systemmetrics import meminfo
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    label = "compiled plan"
+    t_phase = time.perf_counter()
+
+    # 1. The corpus, in this phase's own directory: the token caches are
+    # written beside it.
+    corpus = os.path.join(tmp, "corpus.txt")
+    t0 = time.perf_counter()
+    nbytes, ndocs = write_corpus(corpus, CORPUS_ROWS * 4096, SEED)
+    print(f"{label}: corpus of {nbytes} bytes, {ndocs} documents, written "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # The depth: full unless one checkpoint (the final save; the spill
+    # hard-links the store's files) does not fit, by the drill's rule.
+    layers, ckpt_bytes = fit_depth(torch, llama, shutil.disk_usage(tmp).free,
+                                   meminfo()["MemAvailable"], 1, label)
+    preset = json.loads(json.dumps(H100_PRESET))
+    if layers < TRAIN_LAYERS:
+        preset["runPatch"]["runtime"]["n_layers"] = layers
+
+    # 2. Compile with the port's package alone.
+    t0 = time.perf_counter()
+    op = check_polyaxonfile([os.path.join(repo, PACKED_EXAMPLE)],
+                            params={"corpus": corpus},
+                            presets=[os.path.join(repo, GPU_PRESET), preset])
+    resolved = resolve_operation_context(op, run_uuid="packed",
+                                         project_name="chip-smoke")
+    plan = compile_operation(resolved, run_uuid="packed",
+                             artifacts_root=os.path.join(tmp, "runs"),
+                             project="chip-smoke")
+    t_compile = time.perf_counter() - t0
+
+    # 3. What compilation produced.
+    launcher = [sys.executable, "-m", "polyaxon_tpu_torch.runtime.launch"]
+    if plan.num_processes != 1 or len(plan.processes) != 1:
+        fail(f"{label}: {plan.num_processes} processes, want 1")
+    proc = plan.processes[0]
+    if list(proc.command) + list(proc.args) != launcher:
+        fail(f"{label}: the process runs {proc.command + proc.args}, not "
+             f"the port's launcher {launcher}")
+    job = json.loads(proc.env[ENV_JAXJOB_SPEC])
+    print(f"{label}: {PACKED_EXAMPLE} + {GPU_PRESET} + H100_PRESET compiled "
+          f"in {t_compile * 1e3:.1f} ms: kind {plan.run_kind}, "
+          f"{plan.num_processes} process, command {proc.command[1:]}, "
+          f"resources {plan.resources.to_dict()}, init "
+          f"{[p.kind for p in plan.init]}, sidecars "
+          f"{[c.kind for c in plan.sidecars]}; runtime {job['runtime']}; "
+          f"mesh {job.get('mesh')}; checkpointing {job['checkpointing']}",
+          flush=True)
+
+    # 4. The plan's process, as the executor starts it: its env over this
+    # process's, the coordinator placeholder at 127.0.0.1, its working
+    # directory (the checkout when it names none, as this script runs
+    # from one), output to <artifacts>/logs/main-0.log. Only the main
+    # process runs: the plan's init phases (here `auth`) are the agent's
+    # (ROADMAP.md, Queue 1 item 4b). ``launch.main()`` runs through
+    # DRILL_CHILD, which prints the process's kernel launches.
+    env = dict(os.environ)
+    env.update(proc.env)
+    for key, value in env.items():
+        if COORDINATOR_PLACEHOLDER in value:
+            env[key] = value.replace(COORDINATOR_PLACEHOLDER, "127.0.0.1")
+    art = plan.artifacts_dir
+    os.makedirs(os.path.join(art, "logs"), exist_ok=True)
+    log = os.path.join(art, "logs", f"main-{proc.index}.log")
+    t0 = time.perf_counter()
+    with open(log, "ab") as out:
+        child = subprocess.Popen([sys.executable, "-c", DRILL_CHILD],
+                                 cwd=proc.working_dir or repo, env=env,
+                                 stdout=out, stderr=subprocess.STDOUT,
+                                 start_new_session=True)
+        try:
+            rc = child.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            fail(f"{label}: the launcher ran over 900 s")
+        finally:
+            if child.poll() is None:
+                os.killpg(child.pid, signal.SIGKILL)
+                child.wait()
+    wall = time.perf_counter() - t0
+
+    # 5. The result.
+    if rc != 0:
+        fail(f"{label}: the launcher exited {rc}:\n{_tail(log)}")
+    lines = _json_lines(log)
+    outputs = next((r["outputs"] for r in lines if "outputs" in r), None)
+    launches = next((r["launches"] for r in lines if "launches" in r), None)
+    if outputs is None or launches is None:
+        fail(f"{label}: no result from the launcher:\n{_tail(log)}")
+    statuses = [r["status"] for r in events.read_jsonl(
+        os.path.join(art, "statuses.jsonl"))]
+    losses = {r["step"]: r["value"] for r in
+              events.read_events(art, "metric", "loss")}
+    with open(os.path.join(art, "outputs.json")) as fh:
+        tracked = json.load(fh)
+    if (statuses != ["running", "succeeded"]
+            or sorted(losses) != list(range(1, TRAIN_STEPS))
+            or not all(math.isfinite(v) for v in losses.values())
+            or tracked["steps"] != TRAIN_STEPS):
+        fail(f"{label}: tracking record: statuses {statuses}, loss events "
+             f"{losses}, outputs steps {tracked.get('steps')}")
+    ckdir = os.path.join(art, "checkpoints")
+    if TRAIN_STEPS not in _store_steps(ckdir):
+        fail(f"{label}: no committed step {TRAIN_STEPS} in {ckdir}: "
+             f"{_store_steps(ckdir)}")
+    want_bwd = layers * TRAIN_ACCUM * TRAIN_STEPS
+    if launches != {"flash_fwd": 2 * want_bwd, "flash_bwd_dkdv": want_bwd,
+                    "flash_bwd_dq": want_bwd}:
+        fail(f"{label}: the launcher launched {launches}; each backward "
+             f"kernel must run {want_bwd} times (layers x microbatches x "
+             f"steps), the forward twice as often")
+    t0 = time.perf_counter()
+    mgr, state, step, want, tier = restore_checked(torch, llama, job, ckdir,
+                                                   label)
+    t_check = time.perf_counter() - t0
+    restore_s = mgr.restore_seconds
+    mgr.close()
+    del state
+    torch.cuda.empty_cache()
+    print(f"{label}: exit 0, statuses {statuses}, loss events "
+          f"{ {s: round(v, 5) for s, v in sorted(losses.items())} }, "
+          f"outputs steps={tracked['steps']}; step {step} restored here "
+          f"from tier {tier} (restore_s {restore_s}; with the state's "
+          f"init and the CRC check {t_check:.1f}s), {len(want)} leaf "
+          f"CRC-32s equal the manifest's; launches {launches}", flush=True)
+    # The launcher's own log lines, timestamped: where its start-up goes.
+    for line in open(log, errors="replace"):
+        if " INFO " in line or " WARNING " in line:
+            print(f"  {label} log: {line.rstrip()}", flush=True)
+
+    # 6. The numbers, beside phase 4's on synthetic packed data. MFU over
+    # the timed steps, for both: tokens/s x training FLOPs per token over
+    # the card's bf16 peak.
+    seq = job["runtime"]["seq_len"]
+    peak = peak_flops(torch.cuda.get_device_name(0))
+
+    def mfu(result_throughput, n_params):
+        return (result_throughput * train_flops_per_token(
+            "llama3_1b", seq, n_params) / peak) if peak else float("nan")
+
+    cp = outputs["checkpoint"]
+    prep = [line.rsplit(" in ", 1)[-1].strip() for line in
+            open(log, errors="replace") if "snapshot buffer ready" in line]
+    print(f"{label}: llama3_1b {layers} layers on {ndocs} text documents: "
+          f"tokens_per_s={outputs['throughput']:.1f} mfu="
+          f"{mfu(outputs['throughput'], outputs['param_count']):.4f} over "
+          f"the timed steps (phase 4, synthetic packed rows: "
+          f"tokens_per_s={train_result.throughput:.1f} mfu="
+          f"{mfu(train_result.throughput, train_result.param_count):.4f}); "
+          f"first_step_s={outputs['compile_time_s']:.1f} process wall_s="
+          f"{wall:.1f}; checkpoint bytes={cp['bytes']} (predicted "
+          f"{ckpt_bytes}); page locking {prep}; save wait_s="
+          f"{cp['save_wait_s']} snapshot_s={cp['snapshot_s']} commit_s="
+          f"{cp['commit_s']}; final_loss="
+          f"{outputs['final_metrics']['loss']:.5f}; phase_s="
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    if cp["publish_errors"]:
+        fail(f"{label}: a checkpoint commit failed")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1601,12 +1881,13 @@ def main() -> None:
     drill_counts = checkpoint_drill(torch, flash, paged_attention, llama,
                                     train_losses, train_result)
     torch.cuda.empty_cache()
+    plan_counts = compiled_launch(torch, llama, train_result)
 
     # Each kernel's launches are the sum over the main-path runs that
     # reach it (each printed above): the engine, the two training runs,
-    # the resumed launcher of the checkpoint drill and the engine serving
-    # its checkpoint.
-    runs = (counts, train_counts, gemma_counts, *drill_counts)
+    # the resumed launcher of the checkpoint drill, the engine serving
+    # its checkpoint and the compiled plan's launcher.
+    runs = (counts, train_counts, gemma_counts, *drill_counts, plan_counts)
 
     def total(name):
         return sum(run.get(name, 0) for run in runs)

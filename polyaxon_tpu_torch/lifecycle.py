@@ -1,7 +1,7 @@
 """Run statuses (the part of ``polyaxon_tpu/lifecycle.py`` that tracking
 needs): the same status values, as a stdlib ``str`` enum, and ``now()``.
 The transition graph and the condition models stay with the control
-plane (ROADMAP.md, Queue 1 item 4)."""
+plane (ROADMAP.md, Queue 1 item 4b)."""
 
 from __future__ import annotations
 

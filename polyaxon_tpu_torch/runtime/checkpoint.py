@@ -39,6 +39,7 @@ import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as wait_all
 from typing import Any, Optional
 
 import numpy as np
@@ -594,7 +595,10 @@ class CheckpointManager:
     def _map_leaves(self, fn, like: list[tuple[str, Any]]) -> list[Any]:
         """``fn(i, stager)`` for every leaf index, on the IO threads, each
         thread with its own page-locked stager when the state is on a
-        GPU; every copy has landed when this returns."""
+        GPU; every copy has landed when this returns or raises. A leaf
+        that fails raises only once every other leaf's call has ended:
+        a restore that falls back to another step fills the same tensors,
+        and no copy of the failed step may land after it."""
         on_gpu = _on_gpu(like)
         local = threading.local()
 
@@ -611,10 +615,11 @@ class CheckpointManager:
                 if stager is not None:
                     stager.drain()
 
-        values = list(self._pool.map(run, range(len(like))))
+        futures = [self._pool.submit(run, i) for i in range(len(like))]
+        wait_all(futures)
         if on_gpu:
             torch.cuda.synchronize()  # the unstaged copies too
-        return values
+        return [f.result() for f in futures]
 
     def _cull_store(self, step: int, exc: Exception) -> None:
         logger.warning("checkpoint step %s under %s failed to restore (%s: "

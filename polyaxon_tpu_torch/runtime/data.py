@@ -1,17 +1,21 @@
-"""Synthetic LM streams and the input pipeline (port of
+"""LM streams and the input pipeline (port of
 ``polyaxon_tpu/runtime/data.py``).
 
 The generators are the JAX package's, copied: batch ``i`` is a pure
-function of ``(seed, i)`` and byte-identical to JAX's. Batches leave the
-generator as numpy arrays; ``host_batches`` turns them into torch
-tensors (pinned when they go to the card), ``PrefetchIterator`` keeps a
-few of those ready on a background thread, and ``device_batches`` copies
-each to the device with ``non_blocking`` on the consumer's current
-stream.
+function of ``(seed, i)`` and byte-identical to JAX's. The text streams
+(``lm_file``, ``lm_text``, ``lm_text_packed``) keep the JAX package's
+token caches beside the corpus, under the same names and in the same
+format (``.npy`` of int32 ids), so either package reads a cache the
+other wrote as its own. Batches leave the generator as numpy arrays;
+``host_batches`` turns them into torch tensors (pinned when they go to
+the card), ``PrefetchIterator`` keeps a few of those ready on a
+background thread, and ``device_batches`` copies each to the device with
+``non_blocking`` on the consumer's current stream.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Any, Callable, Iterator, Optional
@@ -33,6 +37,232 @@ def lm_synthetic(batch_size: int, seq_len: int = 2048, vocab_size: int = 32_000,
         rng = np.random.default_rng((seed, i))
         u = rng.random((batch_size, seq_len))
         yield {"tokens": np.searchsorted(cdf, u, side="right").astype(np.int32)}
+        i += 1
+
+
+def _crop_stream(tokens: np.ndarray, batch_size: int, seq_len: int,
+                 seed: int, start_batch: int,
+                 source: str) -> Iterator[dict[str, np.ndarray]]:
+    """Resume-exact random crops over a flat token array — the one
+    place the (seed, i) keying and crop bound live (lm_file + lm_text)."""
+    n = tokens.shape[0] - seq_len - 1
+    if n <= 0:
+        raise ValueError(
+            f"{source} holds {tokens.shape[0]} token ids — needs more "
+            f"than seq_len + 1 = {seq_len + 1}; lower seq_len or grow "
+            "the corpus")
+    i = start_batch
+    while True:
+        rng = np.random.default_rng((seed, i))
+        starts = rng.integers(0, n, size=(batch_size,))
+        yield {"tokens": np.stack(
+            [tokens[s:s + seq_len] for s in starts]).astype(np.int32)}
+        i += 1
+
+
+def lm_file(batch_size: int, seq_len: int = 2048, path: str = "", seed: int = 0,
+            start_batch: int = 0, **_) -> Iterator[dict[str, np.ndarray]]:
+    """Memory-mapped token file: flat int32/int16 .npy of token ids.
+    Batch ``i`` is a pure function of ``(seed, i)`` (resume-exact)."""
+    if not path:
+        raise ValueError("lm_file dataset requires `path`")
+    tokens = np.load(path, mmap_mode="r")
+    return _crop_stream(tokens, batch_size, seq_len, seed, start_batch,
+                        source=f"token file {path!r}")
+
+
+def _cache_path(path: str, tokenizer: str, kind: str) -> str:
+    import hashlib
+    import re as _re
+
+    # Slug carries a hash of the raw tokenizer string (two strings must
+    # never share a cache through sanitization collisions).
+    digest = hashlib.sha256(tokenizer.encode()).hexdigest()[:8]
+    slug = _re.sub(r"[^A-Za-z0-9_.-]+", "-", tokenizer).strip("-")[:40]
+    return f"{path}.{slug}.{digest}.{kind}"
+
+
+def _source_mtime(path: str, tokenizer: str) -> float:
+    """Freshness covers the corpus AND the tokenizer assets: swapping
+    tokenizer.json inside the same dir must invalidate the cache."""
+    source_mtime = os.path.getmtime(path)
+    if os.path.isdir(tokenizer):
+        # Recursive walk, directories included: HF tokenizer dirs can
+        # nest assets, and a swap inside a subdirectory must invalidate
+        # the cache too. Entries that vanish mid-walk are skipped —
+        # missing files can't be what the cache was built from.
+        for root, dirs, files in os.walk(tokenizer):
+            for name in dirs + files:
+                try:
+                    source_mtime = max(source_mtime, os.path.getmtime(
+                        os.path.join(root, name)))
+                except OSError:
+                    continue
+    return source_mtime
+
+
+def _tokenizer_fn(tokenizer: str):
+    """One loaded tokenizer → a str/bytes → int32-ids callable; the
+    (expensive) HF load happens ONCE, not per call site."""
+    if tokenizer == "bytes":
+        def run(text_or_bytes):
+            data = (text_or_bytes.encode()
+                    if isinstance(text_or_bytes, str) else text_or_bytes)
+            return np.frombuffer(data, dtype=np.uint8).astype(np.int32)
+
+        return run
+    from transformers import AutoTokenizer
+
+    tok = AutoTokenizer.from_pretrained(tokenizer)
+    return lambda text: np.asarray(tok(text)["input_ids"], np.int32)
+
+
+def _tokenize_text_file(path: str, tokenizer: str) -> np.ndarray:
+    """Raw text → int32 token ids, cached next to the source as
+    ``<path>.<slug>.tokens.npy`` (stale caches — source newer than
+    cache — are rebuilt). ``tokenizer='bytes'`` is the dependency-free
+    path: utf-8 bytes as ids (vocab 256); anything else is passed to
+    ``transformers.AutoTokenizer.from_pretrained`` (offline, that means a
+    local tokenizer directory; without transformers the ImportError
+    stands)."""
+    cache = _cache_path(path, tokenizer, "tokens.npy")
+    if (os.path.exists(cache)
+            and os.path.getmtime(cache) >= _source_mtime(path, tokenizer)):
+        return np.load(cache, mmap_mode="r")
+    tokenize = _tokenizer_fn(tokenizer)
+    if tokenizer == "bytes":
+        with open(path, "rb") as fh:
+            ids = tokenize(fh.read())
+    else:
+        with open(path, encoding="utf-8") as fh:
+            ids = tokenize(fh.read())
+    # Atomic publish: a killed run (or a concurrent host on a shared
+    # corpus) must never leave a truncated cache that mtime-wins over
+    # the source forever.
+    tmp = f"{cache}.{os.getpid()}.tmp.npy"  # .npy suffix: np.save keeps it
+    np.save(tmp, ids)
+    os.replace(tmp, cache)
+    return np.load(cache, mmap_mode="r")
+
+
+def _tokenize_docs(path: str, tokenizer: str,
+                   doc_sep: str) -> tuple[np.ndarray, np.ndarray]:
+    """Corpus → (flat token ids, parallel per-token document index):
+    the source splits on ``doc_sep`` (empty docs dropped), each
+    document tokenizes independently — no separator tokens leak into
+    the stream — and the doc index is monotone non-decreasing. Cached
+    as an mmap-able ``.packed-*.{ids,doc}.npy`` pair next to the
+    source (mirroring the flat-token cache's memory story); the
+    separator is part of the cache key — changing it must rebuild, not
+    silently reuse boundaries cut on the old one."""
+    import hashlib
+
+    sep_digest = hashlib.sha256(doc_sep.encode()).hexdigest()[:8]
+    base = _cache_path(path, tokenizer, f"packed-{sep_digest}")
+    ids_cache, doc_cache = f"{base}.ids.npy", f"{base}.doc.npy"
+    fresh = _source_mtime(path, tokenizer)
+    if (os.path.exists(ids_cache) and os.path.exists(doc_cache)
+            and os.path.getmtime(ids_cache) >= fresh
+            and os.path.getmtime(doc_cache) >= fresh):
+        return (np.load(ids_cache, mmap_mode="r"),
+                np.load(doc_cache, mmap_mode="r"))
+    with open(path, encoding="utf-8") as fh:
+        docs = [d for d in fh.read().split(doc_sep) if d.strip()]
+    if not docs:
+        raise ValueError(f"corpus {path!r} holds no documents "
+                         f"(separator {doc_sep!r})")
+    tokenize = _tokenizer_fn(tokenizer)  # HF load once, outside the loop
+    pieces, doc_idx = [], []
+    for i, doc in enumerate(docs):
+        ids = tokenize(doc)
+        if not ids.size:
+            continue
+        pieces.append(ids)
+        doc_idx.append(np.full(ids.size, i, np.int32))
+    if not pieces:
+        raise ValueError(
+            f"corpus {path!r}: every document tokenized to zero ids "
+            f"with tokenizer {tokenizer!r}")
+    ids = np.concatenate(pieces)
+    doc = np.concatenate(doc_idx)
+    # Atomic publish, doc first: a reader requires BOTH files fresh,
+    # and ids (published last) carries the newest mtime.
+    for arr, cache in ((doc, doc_cache), (ids, ids_cache)):
+        tmp = f"{cache}.{os.getpid()}.tmp.npy"
+        np.save(tmp, arr)
+        os.replace(tmp, cache)
+    return (np.load(ids_cache, mmap_mode="r"),
+            np.load(doc_cache, mmap_mode="r"))
+
+
+def lm_text(batch_size: int, seq_len: int = 2048, path: str = "",
+            tokenizer: str = "bytes", seed: int = 0, start_batch: int = 0,
+            vocab_size: Optional[int] = None,
+            **_) -> Iterator[dict[str, np.ndarray]]:
+    """Real-text LM stream: tokenize ``path`` once (cached), then
+    resume-exact random crops like ``lm_file``. The practical input for
+    LoRA fine-tunes: point ``dataset: lm_text`` at a corpus file and a
+    local tokenizer dir (or ``bytes`` for tokenizer-free runs)."""
+    if not path:
+        raise ValueError("lm_text dataset requires `path`")
+    tokens = _tokenize_text_file(path, tokenizer)
+    # The runtime forwards the model's vocab here: an oversized
+    # tokenizer would otherwise flow out-of-range ids into the embed
+    # gather (which JAX silently clamps, and which on the card is a
+    # device-side assert).
+    if vocab_size is not None and tokens.size:
+        top = int(tokens.max())
+        if top >= vocab_size:
+            raise ValueError(
+                f"tokenizer {tokenizer!r} produced id {top} but the "
+                f"model's vocab_size is {vocab_size} — the tokenizer "
+                "and model do not share a token space")
+    return _crop_stream(tokens, batch_size, seq_len, seed, start_batch,
+                        source=f"text file {path!r} ({tokenizer})")
+
+
+def lm_text_packed(batch_size: int, seq_len: int = 2048, path: str = "",
+                   tokenizer: str = "bytes", seed: int = 0,
+                   start_batch: int = 0, vocab_size: Optional[int] = None,
+                   doc_sep: str = "\n\n",
+                   **_) -> Iterator[dict[str, np.ndarray]]:
+    """Packed REAL-text LM stream: the corpus splits into documents on
+    ``doc_sep``, tokenizes per document, and the continuous stream is
+    cut into [seq_len] rows carrying per-token ``segments`` ids — the
+    model restricts attention and restarts RoPE at every boundary
+    (models/llama.py packed support), so no token ever attends across
+    documents and no padding is wasted. A document spanning a row cut
+    continues as its own segment in the next row (stream packing, the
+    zero-waste tradeoff). Batch ``i`` samples rows as a pure function
+    of ``(seed, i)`` — resume-exact like every other stream."""
+    if not path:
+        raise ValueError("lm_text_packed dataset requires `path`")
+    ids, doc = _tokenize_docs(path, tokenizer, doc_sep)
+    if vocab_size is not None and ids.size:
+        top = int(ids.max())
+        if top >= vocab_size:
+            raise ValueError(
+                f"tokenizer {tokenizer!r} produced id {top} but the "
+                f"model's vocab_size is {vocab_size} — the tokenizer "
+                "and model do not share a token space")
+    R = ids.size // seq_len
+    if R < 1:
+        raise ValueError(
+            f"corpus {path!r} holds {ids.size} token ids — needs at "
+            f"least seq_len = {seq_len}; lower seq_len or grow the "
+            "corpus")
+    tok_rows = ids[:R * seq_len].reshape(R, seq_len)
+    # Per-row segment ids relative to the row's first document (doc
+    # index is monotone, so subtraction keeps equality structure —
+    # the model only reads boundaries/equality, not absolute ids).
+    doc_rows = doc[:R * seq_len].reshape(R, seq_len)
+    seg_rows = doc_rows - doc_rows[:, :1]
+    i = start_batch
+    while True:
+        rng = np.random.default_rng((seed, i))
+        idx = rng.integers(0, R, size=(batch_size,))
+        yield {"tokens": tok_rows[idx].astype(np.int32),
+               "segments": seg_rows[idx].astype(np.int32)}
         i += 1
 
 
@@ -63,12 +293,14 @@ def lm_packed_synthetic(batch_size: int, seq_len: int = 2048,
 
 DATASETS: dict[str, Callable[..., Iterator[dict[str, np.ndarray]]]] = {
     "lm_synthetic": lm_synthetic,
+    "lm_file": lm_file,
+    "lm_text": lm_text,
+    "lm_text_packed": lm_text_packed,
     "lm_packed_synthetic": lm_packed_synthetic,
 }
 # The JAX package's other datasets; each raises until it is ported.
-UNPORTED = ("lm_file", "lm_text", "lm_text_packed", "seq2seq_synthetic",
-            "mlm_synthetic", "imagenet_synthetic", "image_synthetic",
-            "mnist_synthetic")
+UNPORTED = ("seq2seq_synthetic", "mlm_synthetic", "imagenet_synthetic",
+            "image_synthetic", "mnist_synthetic")
 
 
 def get_dataset(name: str, **kwargs) -> Iterator[dict[str, np.ndarray]]:

@@ -14,9 +14,11 @@ metrics, and the outputs (steps, throughput, restore audit, final
 metrics). Each emission and then the run's result are also printed as
 one JSON line on stdout. With ``checkpointing`` in the spec the run
 saves under ``<artifacts>/checkpoints`` and, started again on the same
-directory, resumes from the newest committed step. Exit codes: 2
-without a spec, 0 on success, 1 on a failure (after printing the
-traceback).
+directory, resumes from the newest committed step. A plan of more than
+one process (``POLYAXON_TPU_NUM_PROCESSES`` > 1) fails: the port trains
+on one device, and each process would otherwise train its own copy into
+the same directory. Exit codes: 2 without a spec, 0 on success, 1 on a
+failure (after printing the traceback).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import traceback
 ENV_JAXJOB_SPEC = "POLYAXON_JAXJOB_SPEC"
 ENV_ARTIFACTS_PATH = "POLYAXON_RUN_ARTIFACTS_PATH"
 ENV_RUN_UUID = "POLYAXON_RUN_UUID"
+ENV_NUM_PROCESSES = "POLYAXON_TPU_NUM_PROCESSES"
 
 
 def _emit(step: int, vals: dict) -> None:
@@ -65,6 +68,12 @@ def main(device=None) -> int:
     try:
         from polyaxon_tpu_torch.runtime.loop import run_torchjob
 
+        n_proc = int(os.environ.get(ENV_NUM_PROCESSES) or 1)
+        if n_proc > 1:
+            raise RuntimeError(
+                f"the plan starts {n_proc} processes ({ENV_NUM_PROCESSES}); "
+                "the port trains on one device in one process (the "
+                "multi-process bootstrap is ROADMAP.md, Queue 1 item 7)")
         job = json.loads(spec_json)
         result = run_torchjob(job, artifacts_dir=artifacts_dir,
                               on_metrics=on_metrics, device=device)

@@ -259,6 +259,8 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
         if cfg.eval_every:
             eval_step = build_eval_step(model_def)
             eval_kwargs = dict(ds_kwargs, seed=cfg.seed + 104_729)
+            if cfg.extras.get("eval_path"):  # a held-out corpus
+                eval_kwargs["path"] = cfg.extras["eval_path"]
             n_eval = max(cfg.eval_steps, 1)
             eval_iter = data_lib.device_batches(data_lib.host_batches(
                 data_lib.get_dataset(dataset_name, start_batch=0,

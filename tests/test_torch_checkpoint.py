@@ -27,6 +27,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import zlib
 
 import numpy as np
@@ -143,6 +144,40 @@ class TestCrossTierFallback:
         assert_state(restored, 4)
         assert mgr.last_restore_tier == tiers.TIER_STORE
         assert mgr.last_restore_skipped == []
+        mgr.close()
+
+    def test_a_failed_step_leaves_no_copy_in_flight(self, tmp_path,
+                                                    monkeypatch):
+        """A store step with a corrupt leaf while another of its leaves is
+        still being read: the fallback to the older step starts only once
+        that read has ended, so no copy of the failed step lands in the
+        restored tensors after the older step's."""
+        mgr = manager(tmp_path)
+        mgr.save(2, state(2), force=True)
+        mgr.wait()
+        mgr.save(4, state(4), force=True)
+        mgr.wait()
+        tiers.TIER0.drop(mgr.directory)
+        mgr._spill.cull(4)  # step 4 in the store only, step 2 in the spill
+        flip_byte(os.path.join(mgr.directory, "4", "leaf_1.npy"))
+        slow = os.path.join(mgr.directory, "4", "leaf_2.npy")  # params/h
+        read = ck._read_npy_into
+
+        def read_slowly(path, entry, dst, stager):
+            if path != slow:
+                return read(path, entry, dst, stager)
+            late = torch.empty_like(dst)
+            out = read(path, entry, late, stager)  # before the step's cull
+            time.sleep(0.5)
+            dst.copy_(late)  # the copy lands late
+            return out
+
+        monkeypatch.setattr(ck, "_read_npy_into", read_slowly)
+        restored = mgr.restore(state(0))
+        time.sleep(0.7)  # past the slow read
+        assert_state(restored, 2)
+        assert mgr.last_restore_skipped == [4]
+        assert mgr.last_restore_tier == tiers.TIER_LOCAL
         mgr.close()
 
     def test_all_tiers_corrupt_at_latest_falls_to_older_clean_step(

@@ -135,7 +135,7 @@ class TestData:
 
     def test_unported_and_unknown(self):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdata.get_dataset("lm_text_packed", batch_size=1)
+            tdata.get_dataset("seq2seq_synthetic", batch_size=1)
         with pytest.raises(ValueError, match="Unknown"):
             tdata.get_dataset("nope", batch_size=1)
         assert tdata.dataset_for_model("llama_tiny") == \
