@@ -73,20 +73,41 @@ Phases, each of which must pass:
    new tokens (flash forward and paged decode at head_dim 64, counters
    zeroed before and read after), then the first admission against the
    plain path.
-9. Polyaxonfile to launcher: ``examples/packed_pretrain.yaml``, as it is,
-   compiled by the port's ``polyaxonfile`` and ``compiler`` with the gpu
-   preset and H100_PRESET (one process, phase 4's steps and
-   microbatches) on a synthetic text corpus from SEED (``lm_text_packed``,
-   the bytes tokenizer), in a fresh temporary directory. The plan must
-   hold one process that runs the port's launcher; that process is run as
-   the JAX package's executor runs one (its env, the coordinator
-   placeholder replaced, its log under ``<artifacts>/logs``). It must
-   exit 0 with statuses running then succeeded, a finite loss event per
-   trained step, 6 steps in its outputs and a committed step 6, restored
-   here and held against the manifest's CRC-32s; each backward kernel
-   launched once per layer, microbatch and step, the forward twice as
-   often. Its tokens/s and MFU print beside phase 4's. The depth is cut
-   only if one checkpoint does not fit, by the drill's rule.
+9. Polyaxonfile through the plane and the agent:
+   ``examples/packed_pretrain.yaml``, as it is, submitted to the port's
+   ``ControlPlane`` in a fresh temporary home with the gpu preset and
+   H100_PRESET (one process, phase 4's steps and microbatches) on a
+   synthetic text corpus from SEED (``lm_text_packed``, the bytes
+   tokenizer). The port's ``Agent`` compiles it, starts it as a
+   subprocess gang (the plan's one process, the port's launcher, after
+   the plan's ``auth`` init phase) and drives it to SUCCEEDED. The
+   record's status history must be SUBPROCESS_HISTORY, each hop legal;
+   ``plane.streams`` must return a finite loss per trained step, 6 steps
+   in the outputs and a ``checkpoints`` artifact; ``<artifacts>/.auth``
+   must exist; the trace must hold the gang's ``execute`` span with the
+   launcher's ``runtime`` span under it and its spans under that; the
+   committed step 6 is restored here and held against the manifest's
+   CRC-32s; the launcher's log ends with its kernel launches: each
+   backward kernel once per layer, microbatch and step, the forward
+   twice as often. Prints submit to compiled, the compile span, queued to
+   the process's start, the process's wall, submit to SUCCEEDED and the
+   plane's overhead (the last less the process), and tokens/s and MFU
+   beside phase 4's. The depth is cut only if one checkpoint does not
+   fit, by the drill's rule.
+10. The acceptance sweep on the card: SWEEP, a copy of
+   ``tests/test_acceptance.py``'s HYPERBAND_SWEEP whose trials are
+   llama_200m at full width and depth (flash attention, seq 2048, global
+   batch 8, one device) with one checkpoint each, run by
+   ``Agent(plane, max_concurrent=2, in_process=True)`` in a fresh
+   temporary directory (phase 9's removed) to SUCCEEDED. The acceptance
+   test's asserts must hold (at least 3 trials, a promoted rung, more
+   steps at the top rung); each trial's losses must be finite and each
+   flash kernel must launch layers x steps times summed over the trials.
+   The best trial's checkpoint is then served by ``ServingServer``: one
+   ``POST /v1/generate`` of 5 tokens, the forward and paged-decode
+   counters moving. The depth is cut only if every trial's checkpoint
+   does not fit in DRILL_DISK_BUDGET, or its tier-0 replica in host
+   memory (a cut is printed).
 
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
@@ -1070,17 +1091,9 @@ DRILL_DISK_BUDGET = 44 * 2**30
 # Host memory left free beside the launcher's page-locked snapshot
 # buffer (one checkpoint).
 DRILL_HOST_MARGIN = 10e9
-# The launcher's restart: ``launch.main()``, as ``python -m`` runs it,
-# then the process's kernel launch counts on one JSON line.
-DRILL_CHILD = (
-    "import json, sys\n"
-    "from polyaxon_tpu_torch.ops import flash\n"
-    "from polyaxon_tpu_torch.runtime import launch\n"
-    "rc = launch.main()\n"
-    "print(json.dumps({'launches': {'flash_fwd': flash.launches, "
-    "'flash_bwd_dkdv': flash.bwd_dkdv_launches, "
-    "'flash_bwd_dq': flash.bwd_dq_launches}}), flush=True)\n"
-    "sys.exit(rc)\n")
+# The launcher as a plan runs it. Its last stdout line is the process's
+# kernel launch counts (``runtime/launch.py``).
+LAUNCHER = [sys.executable, "-m", "polyaxon_tpu_torch.runtime.launch"]
 # The tolerance on a resumed loss when two uninterrupted runs differ:
 # this many times their largest difference (the resumed run is one more
 # sample of the same spread).
@@ -1116,14 +1129,17 @@ def _json_lines(path: str) -> list[dict]:
 
 
 def fit_depth(torch, llama, free_disk: float, free_host: float,
-              file_states: int, label: str):
-    """llama3_1b's depth for a phase that keeps ``file_states``
-    checkpoints on the disk at once: TRAIN_LAYERS, cut only if those do
-    not fit in the free disk or in DRILL_DISK_BUDGET, or the launcher's
-    snapshot does not fit in the host's available memory less
+              file_states: int, label: str, model: str = "llama3_1b",
+              host_states: int = 1):
+    """``model``'s depth for a phase that keeps ``file_states``
+    checkpoints on the disk at once: its full depth, cut only if those do
+    not fit in the free disk or in DRILL_DISK_BUDGET, or ``host_states``
+    host copies of one (the launcher's snapshot; an in-process sweep's
+    tier-0 replicas) do not fit in the host's available memory less
     DRILL_HOST_MARGIN (a cut is printed). Returns (layers, checkpoint
     bytes)."""
-    cfg = llama.CONFIGS["llama3_1b"]
+    cfg = llama.CONFIGS[model]
+    full = cfg.n_layers
     meta = llama.init(cfg, torch.Generator(), device="meta")["params"]
     per_layer = sum(t.numel() for t in meta["layers"].values()) \
         // cfg.n_layers
@@ -1135,19 +1151,20 @@ def fit_depth(torch, llama, free_disk: float, free_host: float,
     def fits(layers):
         files = file_states * state_bytes(layers)
         return (files <= min(free_disk, DRILL_DISK_BUDGET)
-                and state_bytes(layers) <= free_host - DRILL_HOST_MARGIN)
+                and host_states * state_bytes(layers)
+                <= free_host - DRILL_HOST_MARGIN)
 
-    layers = TRAIN_LAYERS
+    layers = full
     while layers > 1 and not fits(layers):
         layers -= 1
-    if layers < TRAIN_LAYERS:
+    if layers < full:
         print(f"{label}: {file_states} checkpoints of "
-              f"{state_bytes(TRAIN_LAYERS) / 1e9:.2f} GB do not fit in "
+              f"{state_bytes(full) / 1e9:.2f} GB do not fit in "
               f"{min(free_disk, DRILL_DISK_BUDGET) / 1e9:.1f} GB of disk "
               f"({free_disk / 1e9:.1f} GB free, budget "
-              f"{DRILL_DISK_BUDGET / 1e9:.1f} GB), or a snapshot in "
-              f"{free_host / 1e9:.1f} GB of host memory: depth cut from "
-              f"{TRAIN_LAYERS} to {layers} layers, width kept", flush=True)
+              f"{DRILL_DISK_BUDGET / 1e9:.1f} GB), or {host_states} in "
+              f"{free_host / 1e9:.1f} GB of host memory: {model}'s depth "
+              f"cut from {full} to {layers} layers, width kept", flush=True)
     return layers, state_bytes(layers)
 
 
@@ -1304,10 +1321,8 @@ def _drill(torch, flash, paged, llama, train_losses, train_result, tmp,
     t0 = time.perf_counter()
     with open(logs["first.out"], "w") as out, \
             open(logs["first.err"], "w") as err:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "polyaxon_tpu_torch.runtime.launch"],
-            cwd=repo, env=env, stdout=out, stderr=err,
-            start_new_session=True)
+        proc = subprocess.Popen(LAUNCHER, cwd=repo, env=env, stdout=out,
+                                stderr=err, start_new_session=True)
         try:
             while not _store_steps(ckdir):
                 if proc.poll() is not None:
@@ -1339,9 +1354,8 @@ def _drill(torch, flash, paged, llama, train_losses, train_result, tmp,
     t0 = time.perf_counter()
     with open(logs["second.out"], "w") as out, \
             open(logs["second.err"], "w") as err:
-        proc = subprocess.Popen([sys.executable, "-c", DRILL_CHILD],
-                                cwd=repo, env=env, stdout=out, stderr=err,
-                                start_new_session=True)
+        proc = subprocess.Popen(LAUNCHER, cwd=repo, env=env, stdout=out,
+                                stderr=err, start_new_session=True)
         try:
             rc = proc.wait(timeout=900)
         except subprocess.TimeoutExpired:
@@ -1378,7 +1392,7 @@ def _drill(torch, flash, paged, llama, train_losses, train_result, tmp,
              f"2, {TRAIN_STEPS} steps)")
     want_bwd = layers * TRAIN_ACCUM * (TRAIN_STEPS - restored)
     if launches != {"flash_fwd": 2 * want_bwd, "flash_bwd_dkdv": want_bwd,
-                    "flash_bwd_dq": want_bwd}:
+                    "flash_bwd_dq": want_bwd, "paged_decode": 0}:
         fail(f"checkpoint drill: the resumed run launched {launches}; each "
              f"backward kernel must run {want_bwd} times")
 
@@ -1615,12 +1629,14 @@ def write_corpus(path: str, min_bytes: int, seed: int) -> tuple[int, int]:
 
 
 def compiled_launch(torch, llama, train_result):
-    """Phase 9: ``examples/packed_pretrain.yaml`` compiled by the port
-    (the gpu preset and H100_PRESET, a synthetic corpus from SEED) and
-    its plan's process run as the JAX package's executor starts one
-    (``polyaxon_tpu/agent/executor.py:311-343``). Checks the tracking
-    record, the committed checkpoint and the kernels' launches; prints
-    the numbers beside phase 4's. Returns the process's launch counts."""
+    """Phase 9: ``examples/packed_pretrain.yaml`` submitted to the port's
+    ``ControlPlane`` (the gpu preset and H100_PRESET, a synthetic corpus
+    from SEED) in a fresh home, and run by the port's ``Agent`` as a
+    subprocess gang to SUCCEEDED. Checks the record's status history, the
+    tracking record through ``plane.streams``, the `auth` init phase, the
+    trace, the committed checkpoint and the kernels' launches (from the
+    gang's log); prints the plane's timings and the numbers beside phase
+    4's. Returns the process's launch counts."""
     import shutil
     import tempfile
 
@@ -1635,15 +1651,102 @@ def compiled_launch(torch, llama, train_result):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The status history of a subprocess jaxjob that succeeds, as
+# tests/test_torch_agent.py establishes it on the CPU.
+SUBPROCESS_HISTORY = ["created", "compiled", "queued", "scheduled",
+                      "starting", "running", "succeeded"]
+
+
+def _iso_s(stamp: str) -> float:
+    import datetime as dt
+
+    return dt.datetime.fromisoformat(stamp).timestamp()
+
+
+def _watch_exit(agent, run_uuid: str, out: dict, stop: threading.Event):
+    """Record when the gang's process has exited (a zombie, or gone),
+    before the agent's next poll reaps it: the process's own end, apart
+    from the agent's poll interval; and the host's dirty page cache then
+    (the checkpoint's bytes not yet written back)."""
+    from polyaxon_tpu_torch.tracking.systemmetrics import meminfo
+
+    pid = None
+    while not stop.wait(0.005):
+        gang = agent.executor._gangs.get(run_uuid)
+        if pid is None and gang is not None and gang.procs:
+            pid = gang.procs[0].pid
+        if pid is None:
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                state = fh.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            state = "X"
+        if state in ("Z", "X"):
+            out["exit"] = time.time()
+            out["dirty"] = meminfo().get("Dirty", 0)
+            return
+
+
+class _ReconcileClock:
+    """Seconds spent in each of the agent's reconcile passes, in the
+    executor's poll within it, and in Python's garbage collector while
+    it ran: what the caller waits for between the run's SUCCEEDED
+    condition and ``run_until_done``'s return."""
+
+    def __init__(self, agent):
+        import gc
+
+        self.passes: list[tuple[float, float, float]] = []
+        self._gc = self._gc_start = 0.0
+        reconcile, poll = agent.reconcile_once, agent.executor.poll
+        self._poll = 0.0
+
+        def timed_poll():
+            t0 = time.perf_counter()
+            try:
+                return poll()
+            finally:
+                self._poll += time.perf_counter() - t0
+
+        def timed_reconcile():
+            self._poll, gc0 = 0.0, self._gc
+            t0 = time.perf_counter()
+            try:
+                return reconcile()
+            finally:
+                self.passes.append((time.perf_counter() - t0, self._poll,
+                                    self._gc - gc0))
+
+        def on_gc(phase, info):
+            if phase == "start":
+                self._gc_start = time.perf_counter()
+            else:
+                self._gc += time.perf_counter() - self._gc_start
+
+        agent.executor.poll = timed_poll
+        agent.reconcile_once = timed_reconcile
+        gc.callbacks.append(on_gc)
+        self._remove = lambda: gc.callbacks.remove(on_gc)
+
+    def close(self) -> str:
+        self._remove()
+        total, poll, gc_s = self.passes[-1]
+        return (f"{len(self.passes)} reconcile passes; the last (the reap) "
+                f"{total:.3f}s, of which the executor's poll {poll:.3f}s "
+                f"and garbage collection {gc_s:.3f}s; the slowest "
+                f"{max(p[0] for p in self.passes):.3f}s; garbage collection "
+                f"{self._gc:.3f}s in all")
+
+
 def _compiled_launch(torch, llama, train_result, tmp):
     import shutil
-    import signal
 
-    from polyaxon_tpu_torch.compiler import (COORDINATOR_PLACEHOLDER,
-                                             ENV_JAXJOB_SPEC,
-                                             compile_operation)
-    from polyaxon_tpu_torch.polyaxonfile import (check_polyaxonfile,
-                                                 resolve_operation_context)
+    from polyaxon_tpu_torch.agent import Agent
+    from polyaxon_tpu_torch.compiler import ENV_JAXJOB_SPEC
+    from polyaxon_tpu_torch.controlplane import ControlPlane
+    from polyaxon_tpu_torch.lifecycle import V1Statuses, can_transition
+    from polyaxon_tpu_torch.obs.trace import read_trace
     from polyaxon_tpu_torch.runtime.flops import (peak_flops,
                                                   train_flops_per_token)
     from polyaxon_tpu_torch.tracking import events
@@ -1669,94 +1772,116 @@ def _compiled_launch(torch, llama, train_result, tmp):
     if layers < TRAIN_LAYERS:
         preset["runPatch"]["runtime"]["n_layers"] = layers
 
-    # 2. Compile with the port's package alone.
-    t0 = time.perf_counter()
-    op = check_polyaxonfile([os.path.join(repo, PACKED_EXAMPLE)],
-                            params={"corpus": corpus},
-                            presets=[os.path.join(repo, GPU_PRESET), preset])
-    resolved = resolve_operation_context(op, run_uuid="packed",
-                                         project_name="chip-smoke")
-    plan = compile_operation(resolved, run_uuid="packed",
-                             artifacts_root=os.path.join(tmp, "runs"),
-                             project="chip-smoke")
-    t_compile = time.perf_counter() - t0
+    # 2. Submitted to the port's plane, in a fresh home; the agent's
+    # scheduler compiles it, its admission starts it as a subprocess gang
+    # (the path a deployment takes) and its executor reaps it.
+    plane = ControlPlane(os.path.join(tmp, "home"))
+    agent = Agent(plane)
+    t_submit = time.time()
+    record = plane.submit(os.path.join(repo, PACKED_EXAMPLE),
+                          params={"corpus": corpus},
+                          presets=[os.path.join(repo, GPU_PRESET), preset],
+                          project="chip-smoke")
+    clock = _ReconcileClock(agent)
+    exited: dict = {}
+    stop = threading.Event()
+    watcher = threading.Thread(target=_watch_exit,
+                               args=(agent, record.uuid, exited, stop),
+                               daemon=True)
+    watcher.start()
+    try:
+        status = agent.run_until_done(record.uuid, timeout=900)
+    finally:
+        stop.set()
+        watcher.join()
+    t_done = time.time()
+    reconciles = clock.close()
+    dirty_done = meminfo().get("Dirty", 0)
+    record = plane.get_run(record.uuid)
+    art = plane.run_artifacts_dir(record.uuid)
+    log = os.path.join(art, "logs", "main-0.log")
+    conditions = plane.get_statuses(record.uuid)
+    history = [c["type"] for c in conditions]
+    if status != V1Statuses.SUCCEEDED:
+        fail(f"{label}: the run ended {status.value}: "
+             f"{conditions[-1].get('message')}\n{_tail(log)}")
 
     # 3. What compilation produced.
-    launcher = [sys.executable, "-m", "polyaxon_tpu_torch.runtime.launch"]
-    if plan.num_processes != 1 or len(plan.processes) != 1:
-        fail(f"{label}: {plan.num_processes} processes, want 1")
-    proc = plan.processes[0]
-    if list(proc.command) + list(proc.args) != launcher:
-        fail(f"{label}: the process runs {proc.command + proc.args}, not "
-             f"the port's launcher {launcher}")
-    job = json.loads(proc.env[ENV_JAXJOB_SPEC])
-    print(f"{label}: {PACKED_EXAMPLE} + {GPU_PRESET} + H100_PRESET compiled "
-          f"in {t_compile * 1e3:.1f} ms: kind {plan.run_kind}, "
-          f"{plan.num_processes} process, command {proc.command[1:]}, "
-          f"resources {plan.resources.to_dict()}, init "
-          f"{[p.kind for p in plan.init]}, sidecars "
-          f"{[c.kind for c in plan.sidecars]}; runtime {job['runtime']}; "
-          f"mesh {job.get('mesh')}; checkpointing {job['checkpointing']}",
-          flush=True)
+    plan = record.launch_plan
+    procs = plan["processes"]
+    if plan["numProcesses"] != 1 or len(procs) != 1:
+        fail(f"{label}: {plan['numProcesses']} processes, want 1")
+    if list(procs[0]["command"]) + list(procs[0]["args"]) != LAUNCHER:
+        fail(f"{label}: the process runs {procs[0]['command']}, not the "
+             f"port's launcher {LAUNCHER}")
+    job = json.loads(procs[0]["env"][ENV_JAXJOB_SPEC])
+    init_kinds = [p["kind"] for p in plan["init"]]
+    print(f"{label}: {PACKED_EXAMPLE} + {GPU_PRESET} + H100_PRESET "
+          f"submitted and compiled by the port's plane: kind "
+          f"{plan['runKind']}, {plan['numProcesses']} process, command "
+          f"{procs[0]['command'][1:]}, resources {plan['resources']}, init "
+          f"{init_kinds}, sidecars "
+          f"{[c['kind'] for c in plan['sidecars']]}; runtime "
+          f"{job['runtime']}; mesh {job.get('mesh')}; checkpointing "
+          f"{job['checkpointing']}", flush=True)
 
-    # 4. The plan's process, as the executor starts it: its env over this
-    # process's, the coordinator placeholder at 127.0.0.1, its working
-    # directory (the checkout when it names none, as this script runs
-    # from one), output to <artifacts>/logs/main-0.log. Only the main
-    # process runs: the plan's init phases (here `auth`) are the agent's
-    # (ROADMAP.md, Queue 1 item 4b). ``launch.main()`` runs through
-    # DRILL_CHILD, which prints the process's kernel launches.
-    env = dict(os.environ)
-    env.update(proc.env)
-    for key, value in env.items():
-        if COORDINATOR_PLACEHOLDER in value:
-            env[key] = value.replace(COORDINATOR_PLACEHOLDER, "127.0.0.1")
-    art = plan.artifacts_dir
-    os.makedirs(os.path.join(art, "logs"), exist_ok=True)
-    log = os.path.join(art, "logs", f"main-{proc.index}.log")
-    t0 = time.perf_counter()
-    with open(log, "ab") as out:
-        child = subprocess.Popen([sys.executable, "-c", DRILL_CHILD],
-                                 cwd=proc.working_dir or repo, env=env,
-                                 stdout=out, stderr=subprocess.STDOUT,
-                                 start_new_session=True)
-        try:
-            rc = child.wait(timeout=900)
-        except subprocess.TimeoutExpired:
-            fail(f"{label}: the launcher ran over 900 s")
-        finally:
-            if child.poll() is None:
-                os.killpg(child.pid, signal.SIGKILL)
-                child.wait()
-    wall = time.perf_counter() - t0
+    # 4. The record and the tracking record, through the plane.
+    if history != SUBPROCESS_HISTORY or not all(
+            can_transition(V1Statuses(a), V1Statuses(b))
+            for a, b in zip(history, history[1:])):
+        fail(f"{label}: status history {history}, want "
+             f"{SUBPROCESS_HISTORY}, each hop legal")
+    statuses = [r["status"] for r in events.read_jsonl(
+        os.path.join(art, "statuses.jsonl"))]
+    losses = {r["step"]: r["value"] for r in
+              plane.streams.get_metrics(record.uuid, ["loss"])["loss"]}
+    tracked = plane.streams.get_outputs(record.uuid)
+    artifacts = plane.streams.list_artifacts(record.uuid)
+    if (statuses != ["running", "succeeded"]
+            or sorted(losses) != list(range(1, TRAIN_STEPS))
+            or not all(math.isfinite(v) for v in losses.values())
+            or tracked.get("steps") != TRAIN_STEPS
+            or not any("checkpoints" in a for a in artifacts)):
+        fail(f"{label}: tracking record: statuses {statuses}, loss events "
+             f"{losses}, outputs steps {tracked.get('steps')}, checkpoint "
+             f"artifacts {[a for a in artifacts if 'checkpoints' in a][:3]}")
+    if "auth" not in init_kinds or not os.path.exists(
+            os.path.join(art, ".auth")):
+        fail(f"{label}: the auth init phase wrote no {art}/.auth "
+             f"(init {init_kinds})")
 
-    # 5. The result.
-    if rc != 0:
-        fail(f"{label}: the launcher exited {rc}:\n{_tail(log)}")
+    # 5. The trace: the gang's `execute` span, the launcher's spans under
+    # it (the executor passes POLYAXON_TRACE_PARENT).
+    spans = [r for r in read_trace(art) if r.get("type") == "span"]
+    names = {}
+    for span in spans:
+        names.setdefault(span["name"], []).append(span)
+    execute = (names.get("execute") or [None])[0]
+    runtime = (names.get("runtime") or [None])[0]
+    if (execute is None or runtime is None
+            or runtime["parent_id"] != execute["span_id"]
+            or not all(s["parent_id"] == runtime["span_id"]
+                       for n in ("jit_compile", "step", "checkpoint")
+                       for s in names.get(n, [None]) if s)
+            or not all(names.get(n) for n in ("jit_compile", "step",
+                                              "checkpoint"))):
+        fail(f"{label}: trace: spans "
+             f"{[(s['name'], s['span_id'], s['parent_id']) for s in spans]}")
+    compile_ms = names["compile"][0]["duration_ms"]
+
+    # 6. The checkpoint and the launches.
+    ckdir = os.path.join(art, "checkpoints")
+    if TRAIN_STEPS not in _store_steps(ckdir):
+        fail(f"{label}: no committed step {TRAIN_STEPS} in {ckdir}: "
+             f"{_store_steps(ckdir)}")
     lines = _json_lines(log)
     outputs = next((r["outputs"] for r in lines if "outputs" in r), None)
     launches = next((r["launches"] for r in lines if "launches" in r), None)
     if outputs is None or launches is None:
         fail(f"{label}: no result from the launcher:\n{_tail(log)}")
-    statuses = [r["status"] for r in events.read_jsonl(
-        os.path.join(art, "statuses.jsonl"))]
-    losses = {r["step"]: r["value"] for r in
-              events.read_events(art, "metric", "loss")}
-    with open(os.path.join(art, "outputs.json")) as fh:
-        tracked = json.load(fh)
-    if (statuses != ["running", "succeeded"]
-            or sorted(losses) != list(range(1, TRAIN_STEPS))
-            or not all(math.isfinite(v) for v in losses.values())
-            or tracked["steps"] != TRAIN_STEPS):
-        fail(f"{label}: tracking record: statuses {statuses}, loss events "
-             f"{losses}, outputs steps {tracked.get('steps')}")
-    ckdir = os.path.join(art, "checkpoints")
-    if TRAIN_STEPS not in _store_steps(ckdir):
-        fail(f"{label}: no committed step {TRAIN_STEPS} in {ckdir}: "
-             f"{_store_steps(ckdir)}")
     want_bwd = layers * TRAIN_ACCUM * TRAIN_STEPS
     if launches != {"flash_fwd": 2 * want_bwd, "flash_bwd_dkdv": want_bwd,
-                    "flash_bwd_dq": want_bwd}:
+                    "flash_bwd_dq": want_bwd, "paged_decode": 0}:
         fail(f"{label}: the launcher launched {launches}; each backward "
              f"kernel must run {want_bwd} times (layers x microbatches x "
              f"steps), the forward twice as often")
@@ -1768,10 +1893,12 @@ def _compiled_launch(torch, llama, train_result, tmp):
     mgr.close()
     del state
     torch.cuda.empty_cache()
-    print(f"{label}: exit 0, statuses {statuses}, loss events "
+    print(f"{label}: {status.value}, history {history}, launcher statuses "
+          f"{statuses}, loss events "
           f"{ {s: round(v, 5) for s, v in sorted(losses.items())} }, "
-          f"outputs steps={tracked['steps']}; step {step} restored here "
-          f"from tier {tier} (restore_s {restore_s}; with the state's "
+          f"outputs steps={tracked['steps']}, .auth written, spans "
+          f"{sorted(names)} (runtime under execute); step {step} restored "
+          f"here from tier {tier} (restore_s {restore_s}; with the state's "
           f"init and the CRC check {t_check:.1f}s), {len(want)} leaf "
           f"CRC-32s equal the manifest's; launches {launches}", flush=True)
     # The launcher's own log lines, timestamped: where its start-up goes.
@@ -1779,7 +1906,36 @@ def _compiled_launch(torch, llama, train_result, tmp):
         if " INFO " in line or " WARNING " in line:
             print(f"  {label} log: {line.rstrip()}", flush=True)
 
-    # 6. The numbers, beside phase 4's on synthetic packed data. MFU over
+    # 7. The plane's timings, from the record's conditions (wall clock),
+    # the compile span, and the process's exit as the watcher saw it.
+    at = {c["type"]: _iso_s(c["created_at"]) for c in conditions}
+    proc_wall = exited["exit"] - at["running"] if "exit" in exited \
+        else float("nan")
+    # The launcher's first log line (its local time), against the start.
+    first_log = next((line[:23] for line in open(log, errors="replace")
+                      if " INFO " in line), None)
+    startup = (time.mktime(time.strptime(first_log[:19],
+                                         "%Y-%m-%d %H:%M:%S"))
+               + int(first_log[20:23]) / 1e3 - at["running"]
+               if first_log else float("nan"))
+    submit_to_done = at["succeeded"] - t_submit
+    print(f"{label}: plane: submit_to_compiled_ms="
+          f"{1e3 * (at['compiled'] - t_submit):.1f} compile_ms="
+          f"{compile_ms:.1f} queued_to_process_start_s="
+          f"{at['running'] - at['queued']:.3f} process_wall_s="
+          f"{proc_wall:.2f} (start to the loop's first log line "
+          f"{startup:.2f}) process_exit_to_succeeded_s="
+          f"{at['succeeded'] - exited.get('exit', float('nan')):.3f} "
+          f"submit_to_succeeded_s={submit_to_done:.2f} "
+          f"plane_overhead_s={submit_to_done - proc_wall:.2f} (agent poll "
+          f"0.2 s); run_until_done returned "
+          f"{t_done - at['succeeded']:.3f}s after the succeeded condition "
+          f"(submit to return {t_done - t_submit:.2f}s); host dirty page "
+          f"cache {exited.get('dirty', 0) / 1e9:.2f} GB at the process's "
+          f"exit, {dirty_done / 1e9:.2f} GB at the return; {reconciles}",
+          flush=True)
+
+    # 8. The numbers, beside phase 4's on synthetic packed data. MFU over
     # the timed steps, for both: tokens/s x training FLOPs per token over
     # the card's bf16 peak.
     seq = job["runtime"]["seq_len"]
@@ -1798,16 +1954,216 @@ def _compiled_launch(torch, llama, train_result, tmp):
           f"the timed steps (phase 4, synthetic packed rows: "
           f"tokens_per_s={train_result.throughput:.1f} mfu="
           f"{mfu(train_result.throughput, train_result.param_count):.4f}); "
-          f"first_step_s={outputs['compile_time_s']:.1f} process wall_s="
-          f"{wall:.1f}; checkpoint bytes={cp['bytes']} (predicted "
-          f"{ckpt_bytes}); page locking {prep}; save wait_s="
-          f"{cp['save_wait_s']} snapshot_s={cp['snapshot_s']} commit_s="
-          f"{cp['commit_s']}; final_loss="
+          f"first_step_s={outputs['compile_time_s']:.1f}; checkpoint "
+          f"bytes={cp['bytes']} (predicted {ckpt_bytes}); page locking "
+          f"{prep}; save wait_s={cp['save_wait_s']} snapshot_s="
+          f"{cp['snapshot_s']} commit_s={cp['commit_s']}; final_loss="
           f"{outputs['final_metrics']['loss']:.5f}; phase_s="
           f"{time.perf_counter() - t_phase:.1f}", flush=True)
     if cp["publish_errors"]:
         fail(f"{label}: a checkpoint commit failed")
     return launches
+
+
+# ------------------------------------------- the acceptance sweep on the card
+# A copy of tests/test_acceptance.py's HYPERBAND_SWEEP: Hyperband over the
+# learning rate (maxIterations 4, eta 2, seed 7; `steps` is the resource),
+# every trial llama_200m at full width and depth (12 layers, dim 1024,
+# head_dim 64: the flash kernels) on one device, with checkpoints as the
+# composed-loop test has them. The trials save once, at their end
+# (intervalSteps = maxIterations, one kept): 14 trials of 2.49 GB must fit
+# in DRILL_DISK_BUDGET, where a save every step would leave up to two
+# checkpoints per trial (the store's and the spill's older link).
+SWEEP_MODEL = "llama_200m"
+SWEEP_MAX_STEPS = 4
+SWEEP = {
+    "kind": "operation",
+    "name": "lr-sweep-h100",
+    "matrix": {
+        "kind": "hyperband", "maxIterations": SWEEP_MAX_STEPS, "eta": 2,
+        "resource": {"name": "steps", "type": "int"},
+        "metric": {"name": "loss", "optimization": "minimize"},
+        "resume": False, "seed": 7,
+        "params": {"lr": {"kind": "loguniform",
+                          "value": {"low": -9.2, "high": -2.3}}},
+    },
+    "component": {
+        "inputs": [
+            {"name": "lr", "type": "float"},
+            {"name": "steps", "type": "int", "value": 2, "isOptional": True},
+        ],
+        "run": {
+            "kind": "jaxjob",
+            "mesh": {"axes": {"dp": 1}},
+            "checkpointing": {"enabled": True,
+                              "intervalSteps": SWEEP_MAX_STEPS,
+                              "maxToKeep": 1, "asyncSave": False},
+            "runtime": {
+                "model": SWEEP_MODEL, "dataset": "lm_synthetic",
+                "steps": "{{ params.steps }}", "seq_len": 2048,
+                "global_batch_size": 8, "learning_rate": "{{ params.lr }}",
+                "attention_impl": "flash", "log_every": 1,
+            },
+        },
+    },
+}
+SWEEP_NEW_TOKENS = 5
+
+
+def sweep(torch, flash, paged):
+    """Phase 10: the acceptance sweep on the card, in a fresh temporary
+    directory. Returns the launch counts of the sweep and of serving its
+    best trial."""
+    import shutil
+    import tempfile
+
+    from polyaxon_tpu_torch.runtime import tiers
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-sweep-")
+    try:
+        return _sweep(torch, flash, paged, tmp)
+    finally:
+        tiers.TIER0.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _sweep(torch, flash, paged, tmp):
+    import shutil
+
+    from polyaxon_tpu_torch.agent import Agent
+    from polyaxon_tpu_torch.controlplane import ControlPlane
+    from polyaxon_tpu_torch.lifecycle import V1Statuses
+    from polyaxon_tpu_torch.models import llama
+    from polyaxon_tpu_torch.polyflow.matrix import V1Hyperband
+    from polyaxon_tpu_torch.serving.server import ServingServer
+    from polyaxon_tpu_torch.tracking.systemmetrics import meminfo
+    from polyaxon_tpu_torch.tune import HyperbandManager
+
+    label = "sweep"
+    t_phase = time.perf_counter()
+    # The most trials the sweep can spawn, each leaving one checkpoint on
+    # the disk and, in-process, one tier-0 replica in host memory.
+    hb = HyperbandManager(V1Hyperband.from_dict(SWEEP["matrix"]))
+    most = sum(hb.rung_shape(s, i)[0] for s in hb.brackets()
+               for i in range(hb.rungs_in_bracket(s)))
+    free_disk = shutil.disk_usage(tmp).free
+    free_host = meminfo()["MemAvailable"]
+    layers, ckpt_bytes = fit_depth(torch, llama, free_disk, free_host, most,
+                                   label, model=SWEEP_MODEL, host_states=most)
+    spec = json.loads(json.dumps(SWEEP))
+    model = SWEEP_MODEL
+    if layers < llama.CONFIGS[SWEEP_MODEL].n_layers:
+        spec["component"]["run"]["runtime"]["n_layers"] = layers
+        model = f"{SWEEP_MODEL}_{layers}l"
+        llama.CONFIGS[model] = dataclasses.replace(
+            llama.CONFIGS[SWEEP_MODEL], n_layers=layers)
+    print(f"{label}: {SWEEP_MODEL} {layers} layers, at most {most} trials "
+          f"of {ckpt_bytes / 1e9:.3f} GB per checkpoint ("
+          f"{most * ckpt_bytes / 1e9:.2f} GB of disk, budget "
+          f"{DRILL_DISK_BUDGET / 1e9:.1f} GB, {free_disk / 1e9:.1f} GB free; "
+          f"as many tier-0 replicas in {free_host / 1e9:.1f} GB of host "
+          f"memory)", flush=True)
+
+    plane = ControlPlane(os.path.join(tmp, "home"))
+    agent = Agent(plane, max_concurrent=2, in_process=True)
+    flash.launches = flash.bwd_dkdv_launches = flash.bwd_dq_launches = 0
+    paged.launches = 0
+    t0 = time.perf_counter()
+    record = plane.submit(spec, project="chip-smoke")
+    status = agent.run_until_done(record.uuid, timeout=900)
+    wall = time.perf_counter() - t0
+    counts = {"flash_fwd": flash.launches,
+              "flash_bwd_dkdv": flash.bwd_dkdv_launches,
+              "flash_bwd_dq": flash.bwd_dq_launches,
+              "paged_decode": paged.launches}
+    trials = plane.list_runs(pipeline_uuid=record.uuid)
+    if status != V1Statuses.SUCCEEDED:
+        fail(f"{label}: the sweep ended {status.value}; trials "
+             f"{[(t.name, t.status.value, (plane.get_statuses(t.uuid) or [{}])[-1].get('message')) for t in trials]}")
+
+    # The asserts of tests/test_acceptance.py:115-132.
+    rungs = {(t.meta or {}).get("rung", 0) for t in trials}
+    steps_by_rung: dict = {}
+    for t in trials:
+        steps_by_rung.setdefault((t.meta or {}).get("rung", 0), set()).add(
+            t.meta["trial_params"]["steps"])
+    if not (len(trials) >= 3
+            and any(t.status == V1Statuses.SUCCEEDED for t in trials)
+            and max(rungs) >= 1
+            and min(steps_by_rung[max(rungs)]) > min(steps_by_rung[0])):
+        fail(f"{label}: {len(trials)} trials, rungs {sorted(rungs)}, steps "
+             f"by rung {steps_by_rung}")
+
+    # Each trial: its steps, a finite loss at every emission and at the
+    # end, its wall time in the plane (running to succeeded).
+    total_steps = 0
+    for t in trials:
+        params = t.meta["trial_params"]
+        out = plane.streams.get_outputs(t.uuid)
+        losses = [r["value"] for r in plane.streams.get_metrics(
+            t.uuid, ["loss"])["loss"]]
+        final = out.get("final_loss")
+        first = [r["value"] for r in plane.streams.get_metrics(
+            t.uuid, ["compile_time_s"])["compile_time_s"]]
+        at = {c["type"]: _iso_s(c["created_at"])
+              for c in plane.get_statuses(t.uuid)}
+        if (t.status != V1Statuses.SUCCEEDED
+                or out.get("steps") != params["steps"]
+                or len(losses) != params["steps"] - 1
+                or not all(math.isfinite(v) for v in losses + [final])):
+            fail(f"{label}: trial {t.name} ({t.status.value}): outputs "
+                 f"{out}, loss events {losses}")
+        total_steps += params["steps"]
+        print(f"{label}: trial {t.name} bracket {t.meta['bracket']} rung "
+              f"{t.meta['rung']} lr={params['lr']:.6g} steps="
+              f"{params['steps']} wall_s="
+              f"{at['succeeded'] - at['running']:.2f} first_step_s="
+              f"{first[0] if first else float('nan'):.2f} final_loss="
+              f"{final:.5f} tokens_per_s={out.get('throughput', 0.0):.1f}",
+              flush=True)
+    want_bwd = layers * total_steps  # one microbatch per step
+    if counts != {"flash_fwd": want_bwd, "flash_bwd_dkdv": want_bwd,
+                  "flash_bwd_dq": want_bwd, "paged_decode": 0}:
+        fail(f"{label}: the trials launched {counts}; each flash kernel "
+             f"must run {want_bwd} times ({layers} layers x "
+             f"{total_steps} steps summed over the trials, remat none)")
+    print(f"{label}: {status.value}: {len(trials)} trials, "
+          f"{total_steps} trial steps, wall_s={wall:.1f}, launches "
+          f"{counts}", flush=True)
+
+    # The best trial's checkpoint, served.
+    scored = [(plane.get_metric(t.uuid, "loss"), t) for t in trials]
+    best = min(((v, t) for v, t in scored if v is not None),
+               key=lambda vt: vt[0])[1]
+    ckpt = os.path.join(plane.run_artifacts_dir(best.uuid), "checkpoints")
+    flash.launches = paged.launches = 0
+    t0 = time.perf_counter()
+    with ServingServer(model, ckpt) as server:
+        t_load = time.perf_counter() - t0
+        req = urllib.request.Request(
+            server.url + "/v1/generate", method="POST",
+            data=json.dumps({"tokens": [[5, 6, 7]],
+                             "max_new_tokens": SWEEP_NEW_TOKENS}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            served = json.load(resp)
+    serve_counts = {"flash_fwd": flash.launches,
+                    "paged_decode": paged.launches}
+    tokens = served["tokens"][0]
+    if len(tokens) != SWEEP_NEW_TOKENS or not all(
+            0 <= x < llama.CONFIGS[model].vocab_size for x in tokens) or \
+            not all(n > 0 for n in serve_counts.values()):
+        fail(f"{label}: serving the best trial's checkpoint returned "
+             f"{served} with launches {serve_counts}")
+    print(f"{label}: best trial {best.name} (loss "
+          f"{plane.get_metric(best.uuid, 'loss'):.5f}) served from {ckpt}: "
+          f"loaded in {t_load:.1f}s, tokens {tokens}, launches "
+          f"{serve_counts}; phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    del server
+    torch.cuda.empty_cache()
+    return counts, serve_counts
 
 
 def main() -> None:
@@ -1819,6 +2175,10 @@ def main() -> None:
     if not os.path.isdir(os.path.join(repo, "polyaxon_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, repo)
+    # The agent's gangs run `python -m polyaxon_tpu_torch...` from the
+    # plan's working directory; the checkout must be importable there.
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p)
     from polyaxon_tpu_torch.models import llama
     from polyaxon_tpu_torch.ops import _build, flash, paged_attention
     from polyaxon_tpu_torch.serving.server import load_params
@@ -1882,12 +2242,16 @@ def main() -> None:
                                     train_losses, train_result)
     torch.cuda.empty_cache()
     plan_counts = compiled_launch(torch, llama, train_result)
+    torch.cuda.empty_cache()
+    sweep_counts = sweep(torch, flash, paged_attention)
 
     # Each kernel's launches are the sum over the main-path runs that
     # reach it (each printed above): the engine, the two training runs,
     # the resumed launcher of the checkpoint drill, the engine serving
-    # its checkpoint and the compiled plan's launcher.
-    runs = (counts, train_counts, gemma_counts, *drill_counts, plan_counts)
+    # its checkpoint, the launcher the agent ran from the compiled plan,
+    # the sweep's trials and the engine serving its best trial.
+    runs = (counts, train_counts, gemma_counts, *drill_counts, plan_counts,
+            *sweep_counts)
 
     def total(name):
         return sum(run.get(name, 0) for run in runs)

@@ -84,9 +84,9 @@ def builtin_runtime_command() -> list[str]:
     return [sys.executable, "-m", "polyaxon_tpu_torch.runtime.launch"]
 
 
-# The sidecar module (and compile.py's watchloop) are named as the JAX
-# package names its own; the executor that runs them is ROADMAP.md,
-# Queue 1 item 4b.
+# The port's sidecar (``polyaxon_tpu_torch.sidecar``) and compile.py's
+# watch loop (``polyaxon_tpu_torch.utils.watchloop``), named as the JAX
+# package names its own.
 def sidecar_sync_command(run_dir: str, store_dir: str) -> list[str]:
     return [
         sys.executable, "-m", "polyaxon_tpu_torch.sidecar",

@@ -12,7 +12,11 @@ package writes it (``tracking/run.py``): statuses (``running``, then
 ``succeeded`` or ``failed``), a metric event per emitted value, system
 metrics, and the outputs (steps, throughput, restore audit, final
 metrics). Each emission and then the run's result are also printed as
-one JSON line on stdout. With ``checkpointing`` in the spec the run
+one JSON line on stdout, and last the process's kernel launches,
+``{"launches": {"flash_fwd": n, "flash_bwd_dkdv": n, "flash_bwd_dq": n,
+"paged_decode": n}}`` (the counters of ``ops/flash.py`` and
+``ops/paged_attention.py``; the executor writes stdout to
+``<artifacts>/logs/main-<i>.log``). With ``checkpointing`` in the spec the run
 saves under ``<artifacts>/checkpoints`` and, started again on the same
 directory, resumes from the newest committed step. A plan of more than
 one process (``POLYAXON_TPU_NUM_PROCESSES`` > 1) fails: the port trains
@@ -38,6 +42,16 @@ ENV_NUM_PROCESSES = "POLYAXON_TPU_NUM_PROCESSES"
 
 def _emit(step: int, vals: dict) -> None:
     print(json.dumps({"step": step, **vals}), flush=True)
+
+
+def _emit_launches() -> None:
+    from polyaxon_tpu_torch.ops import flash, paged_attention
+
+    print(json.dumps({"launches": {
+        "flash_fwd": flash.launches,
+        "flash_bwd_dkdv": flash.bwd_dkdv_launches,
+        "flash_bwd_dq": flash.bwd_dq_launches,
+        "paged_decode": paged_attention.launches}}), flush=True)
 
 
 def main(device=None) -> int:
@@ -101,6 +115,7 @@ def main(device=None) -> int:
         return 1
     finally:
         tracking.close()
+        _emit_launches()
 
 
 if __name__ == "__main__":

@@ -10,10 +10,18 @@ builds included), emissions every ``log_every`` steps, periodic eval
 over a fixed batch set, checkpoints every ``intervalSteps`` and at the
 end, ``profile_steps`` traced by ``torch.profiler``, and
 ``should_stop``.
+
+With an artifacts dir it writes the lifecycle spans ``run_jaxjob``
+writes, under the same names (``obs/trace.py``): ``runtime`` over the
+run, ``restore``, ``jit_compile`` (the warm-up step), one ``step`` per
+metrics-emission window, ``eval`` and ``checkpoint``. The port's windows
+hold only timed steps (the warm-up step is ``jit_compile``'s), so its
+first ``step`` span starts one step after the JAX loop's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -25,6 +33,9 @@ import torch
 
 from polyaxon_tpu_torch.device import resolve_device
 from polyaxon_tpu_torch.models import get_model, llama
+from polyaxon_tpu_torch.obs import flight as obs_flight
+from polyaxon_tpu_torch.obs import metrics as obs_metrics
+from polyaxon_tpu_torch.obs import trace as obs_trace
 from polyaxon_tpu_torch.runtime import data as data_lib
 from polyaxon_tpu_torch.runtime.checkpoint import (CheckpointSpec,
                                                    TieredCheckpointManager)
@@ -161,17 +172,33 @@ class _StepProfiler:
         logger.info("profile of one step written to %s", self.path)
 
 
+def _span(tracer: Optional[obs_trace.RunTracer], name: str, **attrs):
+    """Span when tracing is on, nullcontext (yielding None) when off."""
+    if tracer is None:
+        return contextlib.nullcontext()
+    return tracer.span(name, attributes=attrs or None)
+
+
 def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
                  on_metrics: Optional[MetricsCallback] = None,
                  should_stop: Optional[Callable[[], bool]] = None,
-                 device=None) -> TrainResult:
+                 device=None,
+                 tracer: Optional[obs_trace.RunTracer] = None
+                 ) -> TrainResult:
     """Train the job's ``runtime`` section on one device (``cuda`` unless
     the caller names another; raises without a GPU). The mesh must
     resolve to one device. With an artifacts dir, ``checkpointing``
     saves to and restores from ``<artifacts>/checkpoints`` and
     ``profile_steps`` traces to ``<artifacts>/profile``. ``lora_rank >
     0`` raises NotImplementedError; ``compile_cache_dir`` is accepted
-    and means nothing without XLA."""
+    and means nothing without XLA.
+
+    Tracing follows ``run_jaxjob``: an explicit ``tracer`` (the
+    in-process executor passes one parented under its ``execute`` span)
+    is used as it is and left open for its owner; without one, and with
+    an artifacts dir, a tracer is built from the env contract
+    (``RunTracer.from_env``: the subprocess path, where the executor
+    sets ``POLYAXON_TRACE_PARENT``) and closed here."""
     if job.get("kind", "jaxjob") != "jaxjob" or not job.get("runtime"):
         raise ValueError("run_torchjob requires a jaxjob with a `runtime` "
                          "section")
@@ -183,6 +210,30 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
                  else CheckpointSpec(enabled=False))
     device = resolve_device(device)
 
+    close_tracer = False
+    if tracer is None and artifacts_dir:
+        tracer = obs_trace.RunTracer.from_env(artifacts_dir,
+                                              component="runtime")
+        close_tracer = True
+    try:
+        with _span(tracer, "runtime", model=cfg.model, steps=cfg.steps,
+                   devices=1) as run_span:
+            return _run_torchjob(job, cfg, ckpt_spec, device,
+                                 artifacts_dir=artifacts_dir,
+                                 on_metrics=on_metrics,
+                                 should_stop=should_stop, tracer=tracer,
+                                 run_span=run_span)
+    finally:
+        if close_tracer:
+            tracer.close()
+
+
+def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
+                  device: torch.device, *, artifacts_dir: Optional[str],
+                  on_metrics: Optional[MetricsCallback],
+                  should_stop: Optional[Callable[[], bool]],
+                  tracer: Optional[obs_trace.RunTracer],
+                  run_span: Optional[obs_trace.Span]) -> TrainResult:
     # Only the llama family is ported: get_model refuses any other name.
     overrides = cfg.model_overrides(llama.LlamaConfig)
     if isinstance(overrides.get("dtype"), str):  # "float32", "bfloat16"
@@ -222,10 +273,15 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
             os.path.join(artifacts_dir, "checkpoints"), ckpt_spec)
         ckpt_bytes = _log_checkpoint_budget(ckpt, state)
         if ckpt_spec.restore_on_start and ckpt.latest_step() is not None:
-            state = ckpt.restore(state)
-            restored_from = int(state["step"])
-            restore_skipped = list(ckpt.last_restore_skipped)
-            restore_tier = ckpt.last_restore_tier
+            with _span(tracer, "restore") as sp:
+                state = ckpt.restore(state)
+                restored_from = int(state["step"])
+                restore_skipped = list(ckpt.last_restore_skipped)
+                restore_tier = ckpt.last_restore_tier
+                if sp is not None:
+                    sp.set(restored_from_step=restored_from,
+                           skipped_steps=restore_skipped,
+                           restore_tier=restore_tier)
     start_step = int(state["step"])
     if start_step >= cfg.steps:
         if ckpt:
@@ -276,10 +332,13 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
 
         # Warm-up outside the timed window: the first step builds the
         # kernels and fills PyTorch's caches. It is a real training step.
-        t_first = time.perf_counter()
-        state, metrics = train_step(state, next(batches))
-        _sync(device)
-        compile_time_s = time.perf_counter() - t_first
+        with _span(tracer, "jit_compile") as sp:
+            t_first = time.perf_counter()
+            state, metrics = train_step(state, next(batches))
+            _sync(device)
+            compile_time_s = time.perf_counter() - t_first
+            if sp is not None:
+                sp.set(compile_time_s=round(compile_time_s, 3))
 
         flops_unit = (train_flops_per_token(cfg.model, seq, n_params)
                       if model_def.unit == "tokens" else None)
@@ -297,6 +356,7 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
         timed_steps = 0
         off_clock = 0.0  # eval, checkpoint stalls and profiled steps
         t0 = t_emit = time.perf_counter()
+        t_emit_wall = time.time()  # wall twin of t_emit for step spans
         for step in range(start_step + 1, cfg.steps):
             if should_stop is not None and should_stop():
                 logger.info("stop requested at step %d", step)
@@ -317,6 +377,7 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
                 profiler.stop()
                 dt_prof = time.perf_counter() - t_prof
                 t_emit += dt_prof
+                t_emit_wall = time.time()
                 off_clock += dt_prof
             else:
                 wait_window += dt_wait
@@ -341,27 +402,56 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
                 if not emitted_compile:
                     vals["compile_time_s"] = compile_time_s
                     emitted_compile = True
+                # The emission window is one `step` span and one
+                # histogram sample, as in the JAX loop.
+                if steps_since_emit and window > 0:
+                    obs_metrics.training_step_hist().observe(
+                        window / steps_since_emit)
+                if tracer is not None and steps_since_emit:
+                    tracer.record_completed(
+                        "step", start=t_emit_wall, end=time.time(),
+                        parent_id=(run_span.span_id if run_span is not None
+                                   else None),
+                        attributes={
+                            "from_step": step - steps_since_emit + 1,
+                            "to_step": step,
+                            "steps": steps_since_emit,
+                            **{k: round(vals[k], 3) for k in
+                               ("step_time_ms", "input_wait_ms", "loss")
+                               if k in vals},
+                        })
                 steps_since_emit = 0
                 wait_window = 0.0
+                if tracer is not None:
+                    # The flight ring keeps the last emissions a dying
+                    # run saw.
+                    obs_flight.RECORDER.note(
+                        tracer.trace_id, "metrics", step=step,
+                        **{k: round(float(v), 5) for k, v in vals.items()})
                 on_metrics(step, vals)
                 t_emit = time.perf_counter()
+                t_emit_wall = time.time()
             if run_eval is not None and step % cfg.eval_every == 0:
                 _sync(device)
                 t_eval = time.perf_counter()
-                last_eval = run_eval(state)
+                with _span(tracer, "eval", step=step):
+                    last_eval = run_eval(state)
                 evaled_at = state["step"]
                 if on_metrics:
                     on_metrics(step, last_eval)
                 dt_eval = time.perf_counter() - t_eval
                 t_emit += dt_eval
+                t_emit_wall = time.time()
                 off_clock += dt_eval
             if ckpt and ckpt.should_save(step):
                 # The save's stall (the previous commit, then the host
                 # copy) is kept off the training clock, as eval is.
                 t_save = time.perf_counter()
-                ckpt.save(step, state)
+                with _span(tracer, "checkpoint", step=step):
+                    ckpt.save(step, state)
                 dt_save = time.perf_counter() - t_save
                 t_emit += dt_save
+                t_emit_wall = time.time()
                 off_clock += dt_save
         _sync(device)
         wall = time.perf_counter() - t0 - off_clock
@@ -372,8 +462,31 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
                 if on_metrics:
                     on_metrics(max(state["step"] - 1, 0), last_eval)
             final_metrics.update(last_eval)
+        final_step = state["step"]
+        # Flush the un-emitted window (an early stop lands between
+        # emissions), so the step spans cover every timed step.
+        if tracer is not None and steps_since_emit:
+            window = time.perf_counter() - t_emit
+            flush_to = final_step - 1
+            attrs = {"from_step": flush_to - steps_since_emit + 1,
+                     "to_step": flush_to, "steps": steps_since_emit}
+            if window > 0:
+                attrs["step_time_ms"] = round(
+                    1e3 * window / steps_since_emit, 3)
+                attrs["input_wait_ms"] = round(
+                    1e3 * wait_window / steps_since_emit, 3)
+                obs_metrics.training_step_hist().observe(
+                    window / steps_since_emit)
+            if "loss" in final_metrics:
+                attrs["loss"] = round(final_metrics["loss"], 3)
+            tracer.record_completed(
+                "step", start=t_emit_wall, end=time.time(),
+                parent_id=(run_span.span_id if run_span is not None
+                           else None),
+                attributes=attrs)
         if ckpt:
-            ckpt.save(state["step"], state, force=True)
+            with _span(tracer, "checkpoint", step=final_step, final=True):
+                ckpt.save(final_step, state, force=True)
     finally:
         if prefetcher is not None:
             prefetcher.close()

@@ -161,7 +161,8 @@ def hold_against_jax(port_lines, jax_losses, jax_result):
     assert sorted(port_losses) == sorted(jax_losses)
     for step, loss in jax_losses.items():
         assert port_losses[step] == pytest.approx(loss, abs=LOSS_ABS_TOL), step
-    outputs = port_lines[-1]["outputs"]
+    outputs = port_lines[-2]["outputs"]
+    assert set(port_lines[-1]) == {"launches"}
     assert outputs["steps"] == jax_result.steps
     assert outputs["final_metrics"]["loss"] == pytest.approx(
         jax_result.final_metrics["loss"], abs=LOSS_ABS_TOL)

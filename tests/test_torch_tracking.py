@@ -270,7 +270,10 @@ def test_launcher_writes_the_tracking_record(tmp_path, monkeypatch, capsys):
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
              if x.startswith("{")]
     assert [x["step"] for x in lines if "loss" in x] == [1, 2, 3]
-    assert lines[-1]["outputs"]["steps"] == 4
+    assert lines[-2]["outputs"]["steps"] == 4
+    # Last, the process's kernel launches: none on the CPU.
+    assert lines[-1] == {"launches": {"flash_fwd": 0, "flash_bwd_dkdv": 0,
+                                      "flash_bwd_dq": 0, "paged_decode": 0}}
     svc = StreamsService(str(tmp_path))
     assert [s["status"] for s in svc.get_statuses("run")] == [
         "running", "succeeded"]
@@ -284,7 +287,7 @@ def test_launcher_writes_the_tracking_record(tmp_path, monkeypatch, capsys):
                         *(k for k in out if k.startswith("final_"))}
     assert out["steps"] == 4 and out["restored_from_step"] is None
     assert out["throughput_unit"] == "tokens/sec"
-    assert out["final_loss"] == pytest.approx(lines[-2]["loss"], rel=0)
+    assert out["final_loss"] == pytest.approx(lines[-3]["loss"], rel=0)
     assert sorted(n for n in os.listdir(art / "checkpoints")
                   if n.isdigit()) == ["2", "4"]
     assert any(a.startswith("checkpoints/4/") for a in
@@ -295,7 +298,7 @@ def test_launcher_writes_the_tracking_record(tmp_path, monkeypatch, capsys):
     assert launch.main(device="cpu") == 0
     again = [json.loads(x) for x in capsys.readouterr().out.splitlines()
              if x.startswith("{")]
-    assert again[-1]["outputs"]["restored_from_step"] == 4
+    assert again[-2]["outputs"]["restored_from_step"] == 4
     assert svc.get_outputs("run")["restored_from_step"] == 4
     assert [s["status"] for s in svc.get_statuses("run")][-2:] == [
         "running", "succeeded"]
