@@ -32,6 +32,48 @@ Phases, each of which must pass:
    zeroed just before and read just after; both must have moved, and the
    page pool's invariants must hold. The first admission's prefill KV
    and first decode logits are then held against the plain path.
+   Then the rest of serving, at full width and depth over the same
+   weights (then mistral_7b's and llama3_1b's), each with its launches:
+
+   a. The dense engine (``kv="dense"``) serves the 16-request mix and the
+      static ``_Engine`` 4 of its prompts; the dense first admission's
+      logits are held against the paged path's and the dense plain path's
+      (einsum prefill), and chunked prefill (512) of the 2,047-token
+      prompt against the unchunked prefill (MODEL_REL_TOL); the chunked
+      engine then serves it.
+   c. Speculation: llama3_draft_200m drafts k=4 for llama3_8b, greedy,
+      through the dense engine and the static engine; each row equals the
+      plain dense engine's tokens, or first diverges at a near-tie
+      (NEAR_TIE_ULPS), and every emitted token is the target's greedy
+      choice given its own prefix up to a near-tie (as are the dense and
+      static engines' rows); the acceptance rate is printed. Then
+      llama3_8b drafts for itself through both engines under the same
+      rule: with random weights the small draft's proposals are all
+      rejected, while a self-draft's must be accepted (rate > 0.5), so
+      the accepted-token path runs at full width.
+   e. Prefill lanes (2 rows, 256-token chunks), request classes and
+      preemption on the paged engine with KV pages for four long requests
+      (no request needs a page after admission, see LANE_PROMPT):
+      a burst of long best-effort requests (the preemptible class) and two
+      batch ones, then interactive ones; handoffs and preemptions must
+      fire, every request finish, the invariants hold, and the preempted
+      request's tokens equal its solo run's (near-tie rule); TTFT per
+      class from the request timelines.
+   f. ``ServingServer("llama3_8b")`` with no engine arguments serves the
+      static engine; a streamed answer equals the non-streamed one; with
+      ``batching="continuous"`` over a dense cache its
+      ``/requests/<id>/timeline`` has the reference's span names.
+   d. int8: the weights quantized (bytes before and after), the paged
+      engine serves the mix, the first admission's logits are held
+      against bf16's (INT8_REL_TOL), and the decode-step time printed
+      beside phase 2's.
+   b. mistral_7b: a 4,000-token prompt and 256 new tokens over its
+      4,096-slot ring (it wraps); the last decode step's logits against
+      one windowed forward over the 4,256 tokens (MODEL_REL_TOL), and the
+      dense engine serving the same request.
+   g. A ``ServingFleet`` of two llama3_1b replicas: 16 requests, 8 sharing
+      a 256-token prefix; the shared ones land on one replica, both
+      replicas serve, and ``/v1/fleet`` has both replicas' series.
 3. ``ServingServer`` answers two concurrent ``POST /v1/generate``.
 4. The training path: ``run_torchjob`` trains llama3_1b at full width
    and depth (f32 master weights from a seed, bf16 compute) on packed
@@ -865,7 +907,7 @@ def run_engine(flash, paged, cfg, params):
           f"skipped={stats['prefill_tokens_skipped']} "
           f"cow_forks={stats['kv_cow_forks']} launches={counts}",
           flush=True)
-    return counts, prompts[0]
+    return counts, prompts, stats
 
 
 def run_http(flash, paged):
@@ -887,6 +929,7 @@ def run_http(flash, paged):
 
     before = (flash.launches, paged.launches)
     with ServingServer("llama3_8b", seed=SEED, slots=4,
+                       batching="continuous", kv="paged",
                        device="cuda") as srv:
         threads = [threading.Thread(target=post, args=(i, srv.url))
                    for i in range(2)]
@@ -908,6 +951,773 @@ def run_http(flash, paged):
         fail("HTTP path did not launch both kernels")
     print(f"http: 2 POST /v1/generate answered, served={served}",
           flush=True)
+
+
+# ------------------------------------------- the rest of serving (a-g)
+# Greedy output is checked up to near-ties. The logits leave the lm_head
+# product in bf16, so two computations of them (a decode step and a
+# verify chunk, a row batched with 7 others and alone, a decode step and
+# a prompt pass) differ in steps of the bf16 spacing at the largest
+# logit's magnitude; phase a measures 1.4-1.6e-2 of the largest logit
+# between paths, about 2.5 such steps. A near-tie is a gap within
+# NEAR_TIE_ULPS of them: an argmax may differ there and nowhere else.
+NEAR_TIE_ULPS = 8
+# int8 logits against bf16's: the JAX package's own bound
+# (tests/test_serving.py::TestQuantize::test_logit_parity_bounded), the
+# largest error within 5% of the largest bf16 logit.
+INT8_REL_TOL = 5e-2
+DENSE_MAX_LEN = 4096
+DENSE_NEW_TOKENS = 32
+CHUNK_PROMPT = 2047
+PREFILL_CHUNK = 512
+MISTRAL_PROMPT = 4000
+MISTRAL_NEW = 256
+SPEC_K = 4
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _counts(flash, paged) -> dict:
+    return {"flash_fwd": flash.launches, "paged_decode": paged.launches}
+
+
+def _zero(flash, paged) -> None:
+    flash.launches = 0
+    paged.launches = 0
+
+
+def _run_engine_mix(eng, prompts, new_tokens, **submit_kw):
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, new_tokens, **submit_kw) for p in prompts]
+    outs = [r.wait(timeout=900) for r in reqs]
+    wall = time.perf_counter() - t0
+    return reqs, outs, wall
+
+
+def _check_outs(label, prompts, outs, new_tokens, vocab):
+    for p, o in zip(prompts, outs):
+        if len(o) != new_tokens or not all(0 <= t < vocab for t in o):
+            fail(f"{label}: malformed output for a prompt of {len(p)}: {o}")
+
+
+def _teacher_logits(torch, llama, cfg, params, prompt, toks):
+    """The target's f32 logits predicting each of ``toks`` after
+    ``prompt`` ([len(toks), V]): one prompt pass over prompt + toks
+    through the kernel path, only the predicting rows projected."""
+    row = torch.tensor([prompt + toks[:-1]], dtype=torch.long,
+                       device="cuda")
+    x = llama.hidden_states(cfg, params, row)[0, len(prompt) - 1:]
+    return (x @ llama.lm_head(cfg, params).to(cfg.dtype)).float()
+
+
+def _tie_tol(torch, logits):
+    """NEAR_TIE_ULPS bf16 spacings at each row's largest |logit|."""
+    top = logits.abs().amax(dim=-1).clamp(min=2.0 ** -100)
+    return NEAR_TIE_ULPS * torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+def near_tie_check(torch, llama, cfg, params, label, prompt, got, want):
+    """Greedy ``got`` against the reference greedy ``want`` after
+    ``prompt``: equal up to their first divergence, which must sit at a
+    near-tie of the target's logits (teacher-forced on ``want``); and
+    every token of ``got`` must be the target's argmax given its own
+    prefix, or within a near-tie of it. Returns the divergence index
+    (None when equal) and the share of ``want``'s positions that are
+    near-ties (how often the rule could excuse a divergence)."""
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} tokens against {len(want)}")
+    lw = _teacher_logits(torch, llama, cfg, params, prompt, want)
+    top2 = torch.topk(lw, 2, dim=-1).values
+    gaps = top2[:, 0] - top2[:, 1]
+    tol = _tie_tol(torch, lw)
+    share = (gaps < tol).float().mean().item()
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             None)
+    if j is not None and gaps[j] >= tol[j]:
+        fail(f"{label}: diverged at token {j} ({got[j]} vs {want[j]}) "
+             f"where the top-2 gap {gaps[j].item():.4f} is not a near-tie "
+             f"(tol {tol[j].item():.4f})")
+    lg = lw if j is None else _teacher_logits(torch, llama, cfg, params,
+                                              prompt, got)
+    picked = lg.gather(1, torch.tensor(got, device="cuda")[:, None])[:, 0]
+    short = lg.amax(dim=-1) - picked
+    bad = (short >= _tie_tol(torch, lg)).nonzero().flatten().tolist()
+    if bad:
+        i = bad[0]
+        fail(f"{label}: token {i} ({got[i]}) is {short[i].item():.4f} below "
+             f"the target's argmax given its own prefix (tol "
+             f"{_tie_tol(torch, lg)[i].item():.4f})")
+    if j is not None:
+        print(f"  {label}: near-tie divergence at token {j}: gap "
+              f"{gaps[j].item():.4f} < tol {tol[j].item():.4f}; "
+              f"near-tie share {share:.3f}", flush=True)
+    return j, share
+
+
+def dense_static(torch, llama, flash, paged, cfg, params, prompts,
+                 paged_stats):
+    """Phase a: the dense and static engines over llama3_8b. Returns
+    (launch counts, the dense engine's greedy outputs)."""
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.server import _Engine
+
+    t_phase = time.perf_counter()
+    eng = ContinuousBatchingEngine("llama3_8b", cfg, params, slots=8,
+                                   max_len=DENSE_MAX_LEN, kv="dense",
+                                   device="cuda")
+    try:
+        _zero(flash, paged)
+        _, outs, wall = _run_engine_mix(eng, prompts, DENSE_NEW_TOKENS)
+        torch.cuda.synchronize()
+        dense_counts = _counts(flash, paged)
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    _check_outs("dense engine", prompts, outs, DENSE_NEW_TOKENS,
+                cfg.vocab_size)
+    if dense_counts["flash_fwd"] <= 0:
+        fail("the dense engine never launched the flash forward kernel")
+    tokens = sum(len(o) for o in outs)
+    print(f"a. dense engine llama3_8b: requests={len(prompts)} "
+          f"tokens={tokens} wall_s={wall:.3f} "
+          f"tokens_per_s={tokens / wall:.1f} "
+          f"decode_step_ms_median={stats['decode_step_ms_median']:.3f} "
+          f"decode_steps={stats['decode_steps']} "
+          f"avg_occupancy={stats['avg_occupancy']} launches={dense_counts} "
+          f"(paged, phase 2: decode_step_ms_median="
+          f"{paged_stats['decode_step_ms_median']:.3f})", flush=True)
+
+    static = _Engine("llama3_8b", cfg, params, device="cuda")
+    rows = [prompts[i] for i in (1, 3, 5, 7)]
+    _zero(flash, paged)
+    t0 = time.perf_counter()
+    souts = static.generate(rows, DENSE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    static_counts = _counts(flash, paged)
+    _check_outs("static engine", rows, souts, DENSE_NEW_TOKENS,
+                cfg.vocab_size)
+    if static_counts["flash_fwd"] <= 0:
+        fail("the static engine never launched the flash forward kernel")
+    same = sum(o == outs[i] for o, i in zip(souts, (1, 3, 5, 7)))
+    # Every greedy row is the target's argmax given its own prefix, up to
+    # near-ties; the static rows equal the dense engine's up to the rule.
+    shares = [near_tie_check(torch, llama, cfg, params, f"dense row {i}",
+                             p, o, o)[1] for i, (p, o) in
+              enumerate(zip(prompts, outs))]
+    for o, i in zip(souts, (1, 3, 5, 7)):
+        near_tie_check(torch, llama, cfg, params, f"static row {i}",
+                       prompts[i], o, outs[i])
+    print(f"a. static engine llama3_8b: requests={len(rows)} "
+          f"tokens={sum(map(len, souts))} wall_s={swall:.3f} "
+          f"tokens_per_s={sum(map(len, souts)) / swall:.1f} "
+          f"rows_equal_to_dense={same}/{len(rows)}; every dense and "
+          f"static token the target's greedy choice up to near-ties "
+          f"(NEAR_TIE_ULPS={NEAR_TIE_ULPS}, near-tie share of positions "
+          f"{min(shares):.3f}-{max(shares):.3f}); "
+          f"launches={static_counts}", flush=True)
+
+    # First admission: dense kernel path vs the paged engine's path and
+    # vs the dense plain path (einsum prefill).
+    prompt = prompts[0]
+    row = torch.tensor([prompt[:-1]], dtype=torch.long, device="cuda")
+    tok = torch.tensor([prompt[-1]], dtype=torch.long, device="cuda")
+    pos = torch.tensor([len(prompt) - 1], dtype=torch.long, device="cuda")
+    plain = dataclasses.replace(cfg, attention_impl="xla")
+    dense = {}
+    for name, c in (("kernel", cfg), ("plain", plain)):
+        cache = llama.cb_prefill(c, params, row, DENSE_MAX_LEN)
+        dense[name] = llama.decode_step_ragged(c, params, cache, tok,
+                                               pos)[0][0]
+        del cache
+    page = 16
+    n_pages = -(-len(prompt) // page) + 1
+    tables = torch.full((1, n_pages), -1, dtype=torch.long, device="cuda")
+    tables[0, :n_pages - 1] = torch.arange(1, n_pages, device="cuda")
+    pcache = llama.paged_init_cache(cfg, n_pages, page, device="cuda")
+    k, v = llama.paged_prefill_kv(cfg, params, row)
+    llama.paged_insert_prefill(pcache, k, v, tables[0], page)
+    paged_logits = llama.decode_step_paged(cfg, params, pcache, tok, pos,
+                                           tables)[0][0]
+    del pcache, k, v
+    rel_paged = _rel(dense["kernel"], paged_logits)
+    rel_plain = _rel(dense["kernel"], dense["plain"])
+    for what, rel in (("paged engine", rel_paged), ("plain path", rel_plain)):
+        if not torch.isfinite(dense["kernel"]).all() or rel > MODEL_REL_TOL:
+            fail(f"dense first admission vs the {what}: relative max err "
+                 f"{rel} (tol {MODEL_REL_TOL})")
+
+    # Chunked prefill of a 2,047-token prompt vs the unchunked prefill.
+    cprompt = prompts[4]
+    assert len(cprompt) == CHUNK_PROMPT
+    pre = cprompt[:-1]
+    tok = torch.tensor([cprompt[-1]], dtype=torch.long, device="cuda")
+    pos = torch.tensor([len(pre)], dtype=torch.long, device="cuda")
+    mono = llama.cb_prefill(cfg, params, torch.tensor(
+        [pre], dtype=torch.long, device="cuda"), DENSE_MAX_LEN)
+    mono_logits = llama.decode_step_ragged(cfg, params, mono, tok, pos)[0][0]
+    del mono
+    chunked = llama.cb_init_cache(cfg, 1, DENSE_MAX_LEN, device="cuda")
+    for i in range(0, len(pre), PREFILL_CHUNK):
+        part = pre[i:i + PREFILL_CHUNK]
+        part = part + [0] * (PREFILL_CHUNK - len(part))
+        llama.decode_chunk(cfg, params, chunked, torch.tensor(
+            [part], dtype=torch.long, device="cuda"),
+            torch.tensor([i], dtype=torch.long, device="cuda"))
+    chunk_logits = llama.decode_step_ragged(cfg, params, chunked, tok,
+                                            pos)[0][0]
+    del chunked
+    rel_chunk = _rel(chunk_logits, mono_logits)
+    if rel_chunk > MODEL_REL_TOL:
+        fail(f"chunked prefill ({PREFILL_CHUNK}) vs unchunked: relative "
+             f"max err {rel_chunk} (tol {MODEL_REL_TOL})")
+    ceng = ContinuousBatchingEngine("llama3_8b", cfg, params, slots=2,
+                                    max_len=DENSE_MAX_LEN,
+                                    prefill_chunk=PREFILL_CHUNK,
+                                    device="cuda")
+    try:
+        _zero(flash, paged)
+        _, couts, cwall = _run_engine_mix(ceng, [cprompt, prompts[1]],
+                                          DENSE_NEW_TOKENS)
+        chunk_counts = _counts(flash, paged)
+    finally:
+        ceng.stop()
+    _check_outs("chunked engine", [cprompt, prompts[1]], couts,
+                DENSE_NEW_TOKENS, cfg.vocab_size)
+    near_tie_check(torch, llama, cfg, params, "chunked engine", cprompt,
+                   couts[0], outs[4])
+    print(f"a. first admission (prompt {len(prompt)}): dense vs paged rel "
+          f"err {rel_paged:.3e}, dense kernel vs plain {rel_plain:.3e}; "
+          f"chunked prefill {PREFILL_CHUNK} vs unchunked "
+          f"({CHUNK_PROMPT}-token prompt) {rel_chunk:.3e}; chunked engine "
+          f"wall_s={cwall:.3f} launches={chunk_counts}; "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    counts = {k: dense_counts[k] + static_counts[k] + chunk_counts[k]
+              for k in dense_counts}
+    return counts, outs
+
+
+def speculation(torch, llama, flash, paged, cfg, params, prompts, want):
+    """Phase c: llama3_8b with llama3_draft_200m drafting k=4 tokens,
+    greedy, through the dense engine and the static engine; each row's
+    tokens equal the non-speculative dense engine's (``want``) up to the
+    near-tie rule. Random weights make the small draft's proposals all
+    rejected, so a second run has llama3_8b draft for itself: its
+    proposals are the target's own decode-step argmaxes, most of them
+    accepted, which drives the accepted-token path (multi-token commits,
+    draft and target caches advancing together) under the same rule."""
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.server import _Engine, load_params
+
+    t_phase = time.perf_counter()
+    dcfg, dparams = load_params("llama3_draft_200m", seed=SEED,
+                                device="cuda")
+    draft = ("llama3_draft_200m", dcfg, dparams, SPEC_K)
+    idx = (1, 3, 5, 7)
+    rows = [prompts[i] for i in idx]
+    eng = ContinuousBatchingEngine("llama3_8b", cfg, params, slots=8,
+                                   max_len=DENSE_MAX_LEN, draft=draft,
+                                   device="cuda")
+    try:
+        _zero(flash, paged)
+        _, souts, wall = _run_engine_mix(eng, rows, DENSE_NEW_TOKENS)
+        engine_counts = _counts(flash, paged)
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    _zero(flash, paged)
+    t0 = time.perf_counter()
+    static = _Engine("llama3_8b", cfg, params, draft=draft, device="cuda")
+    touts = static.generate(rows, DENSE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    static_counts = _counts(flash, paged)
+    del dparams, static
+    torch.cuda.empty_cache()
+    self_draft = ("llama3_8b", cfg, params, SPEC_K)
+    eng = ContinuousBatchingEngine("llama3_8b", cfg, params, slots=4,
+                                   max_len=DENSE_MAX_LEN, draft=self_draft,
+                                   device="cuda")
+    try:
+        _zero(flash, paged)
+        _, aouts, awall = _run_engine_mix(eng, rows, DENSE_NEW_TOKENS)
+        self_counts = _counts(flash, paged)
+        astats = eng.stats()
+    finally:
+        eng.stop()
+    _zero(flash, paged)
+    t0 = time.perf_counter()
+    static = _Engine("llama3_8b", cfg, params, draft=self_draft,
+                     device="cuda")
+    atouts = static.generate(rows, DENSE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    aswall = time.perf_counter() - t0
+    self_static_counts = _counts(flash, paged)
+    del static
+    torch.cuda.empty_cache()
+    if not (astats["spec_tokens_accepted_rate"] or 0) > 0.5:
+        fail(f"self-draft speculation accepted "
+             f"{astats['spec_tokens_accepted_rate']} of its proposals "
+             f"(want > 0.5): the accepted-token path barely ran")
+    diverged, shares = 0, []
+    for label, outs in (("spec dense engine", souts),
+                        ("spec static engine", touts),
+                        ("self-draft dense engine", aouts),
+                        ("self-draft static engine", atouts)):
+        _check_outs(label, rows, outs, DENSE_NEW_TOKENS, cfg.vocab_size)
+        for i, row, out in zip(idx, rows, outs):
+            j, share = near_tie_check(torch, llama, cfg, params,
+                                      f"{label} row {i}", row, out, want[i])
+            diverged += j is not None
+            shares.append(share)
+    runs = (("engine", engine_counts), ("static", static_counts),
+            ("self-draft engine", self_counts),
+            ("self-draft static", self_static_counts))
+    for label, c in runs:
+        if c["flash_fwd"] <= 0:
+            fail(f"speculation ({label}) never launched the flash forward")
+    print(f"c. speculation llama3_8b + llama3_draft_200m k={SPEC_K}: "
+          f"dense engine wall_s={wall:.3f} rounds={stats['spec_rounds']} "
+          f"tokens_per_round={stats['spec_tokens_per_round']} "
+          f"acceptance_rate={stats['spec_tokens_accepted_rate']} "
+          f"step_ms_median={stats['decode_step_ms_median']:.3f}; static "
+          f"wall_s={swall:.3f}; self-draft (llama3_8b k={SPEC_K}) dense "
+          f"engine wall_s={awall:.3f} rounds={astats['spec_rounds']} "
+          f"tokens_per_round={astats['spec_tokens_per_round']} "
+          f"acceptance_rate={astats['spec_tokens_accepted_rate']} "
+          f"step_ms_median={astats['decode_step_ms_median']:.3f}, static "
+          f"wall_s={aswall:.3f}; rows equal to the plain greedy tokens "
+          f"{4 * len(rows) - diverged}/{4 * len(rows)} (the rest first "
+          f"diverge at a near-tie: NEAR_TIE_ULPS={NEAR_TIE_ULPS}, near-tie "
+          f"share of positions {min(shares):.3f}-{max(shares):.3f}); every "
+          f"token the target's greedy choice given its prefix, up to "
+          f"near-ties; launches {dict(runs)}; random weights: the "
+          f"acceptance rates say nothing of speed; phase_s="
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    return {k: sum(c[k] for _, c in runs) for k in engine_counts}
+
+
+def int8_serving(torch, llama, flash, paged, cfg, params, prompts,
+                 paged_stats):
+    """Phase d: llama3_8b quantized to int8, served by the paged engine;
+    first-admission logits against bf16's."""
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.quantize import quantize_tree, tree_bytes
+
+    t_phase = time.perf_counter()
+    full = tree_bytes(params)
+    qparams = quantize_tree(params)
+    torch.cuda.synchronize()
+    qbytes = tree_bytes(qparams)
+    eng = ContinuousBatchingEngine("llama3_8b", cfg, qparams, slots=8,
+                                   kv="paged", page_size=16, device="cuda")
+    try:
+        _zero(flash, paged)
+        _, outs, wall = _run_engine_mix(eng, prompts, DENSE_NEW_TOKENS)
+        counts = _counts(flash, paged)
+        stats = eng.stats()
+        bad = eng.check_invariants()
+    finally:
+        eng.stop()
+    if bad:
+        fail(f"int8 engine: page pool invariants broken: {bad[:5]}")
+    _check_outs("int8 engine", prompts, outs, DENSE_NEW_TOKENS,
+                cfg.vocab_size)
+    for kernel, n in counts.items():
+        if n <= 0:
+            fail(f"the int8 engine never launched {kernel}")
+    prompt = prompts[0]
+    page = 16
+    n_pages = -(-len(prompt) // page) + 1
+    tables = torch.full((1, n_pages), -1, dtype=torch.long, device="cuda")
+    tables[0, :n_pages - 1] = torch.arange(1, n_pages, device="cuda")
+    row = torch.tensor([prompt[:-1]], dtype=torch.long, device="cuda")
+    tok = torch.tensor([prompt[-1]], dtype=torch.long, device="cuda")
+    pos = torch.tensor([len(prompt) - 1], dtype=torch.long, device="cuda")
+    logits = {}
+    for name, p in (("bf16", params), ("int8", qparams)):
+        cache = llama.paged_init_cache(cfg, n_pages, page, device="cuda")
+        k, v = llama.paged_prefill_kv(cfg, p, row)
+        llama.paged_insert_prefill(cache, k, v, tables[0], page)
+        logits[name] = llama.decode_step_paged(cfg, p, cache, tok, pos,
+                                               tables)[0][0]
+        del cache, k, v
+    rel = _rel(logits["int8"], logits["bf16"])
+    if not torch.isfinite(logits["int8"]).all() or rel > INT8_REL_TOL:
+        fail(f"int8 first admission vs bf16: relative max err {rel} "
+             f"(tol {INT8_REL_TOL})")
+    tokens = sum(len(o) for o in outs)
+    print(f"d. int8 llama3_8b: weights {full / 2**30:.2f} GiB bf16 -> "
+          f"{qbytes / 2**30:.2f} GiB int8; paged engine requests="
+          f"{len(prompts)} tokens={tokens} wall_s={wall:.3f} "
+          f"tokens_per_s={tokens / wall:.1f} decode_step_ms_median int8="
+          f"{stats['decode_step_ms_median']:.3f} bf16 (phase 2)="
+          f"{paged_stats['decode_step_ms_median']:.3f}; first admission "
+          f"vs bf16 rel err {rel:.3e} (tol {INT8_REL_TOL}) same_argmax="
+          f"{bool(logits['int8'].argmax() == logits['bf16'].argmax())}; "
+          f"launches={counts}; phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    del qparams
+    torch.cuda.empty_cache()
+    return counts
+
+
+# Phase e's pool is run full on purpose. Admission reserves a prompt's
+# pages and decode takes more as it goes, so every prompt here is one
+# token past a page boundary and asks for LANE_NEW tokens: no request
+# needs a page after admission, and no row can run the pool dry
+# mid-generation whatever the timing. KV pages hold four long requests
+# and a little more, so interactive arrivals must preempt.
+LANE_BURST = 6           # long best-effort prompts
+LANE_PROMPT = 1505
+LANE_NEW = 16
+LANE_INTERACTIVE = 3
+LANE_KV_PAGES = 400
+LANE_BATCH_PROMPT = 193
+LANE_INTERACTIVE_PROMPT = 289
+
+
+def lanes_classes(torch, llama, flash, paged, cfg, params):
+    """Phase e: prefill lanes, request classes and preemption over the
+    paged llama3_8b engine. A burst of long best-effort requests holds
+    the pool (only best-effort is preemptible in the catalog), then
+    interactive requests arrive and must preempt."""
+    import numpy as np
+
+    from polyaxon_tpu_torch.obs.analyze import request_phases
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 5)
+    burst = [rng.integers(0, cfg.vocab_size, LANE_PROMPT).tolist()
+             for _ in range(LANE_BURST)]
+    batch_rows = [rng.integers(0, cfg.vocab_size, LANE_BATCH_PROMPT).tolist()
+                  for _ in range(2)]
+    inter = [rng.integers(0, cfg.vocab_size,
+                          LANE_INTERACTIVE_PROMPT).tolist()
+             for _ in range(LANE_INTERACTIVE)]
+    eng = ContinuousBatchingEngine(
+        "llama3_8b", cfg, params, slots=4, kv="paged", page_size=16,
+        kv_pages=LANE_KV_PAGES, prefill_slots=2, prefill_chunk=256,
+        max_len=DENSE_MAX_LEN, device="cuda")
+    try:
+        _zero(flash, paged)
+        be = [eng.submit(p, LANE_NEW, klass="best-effort") for p in burst]
+        ba = [eng.submit(p, LANE_NEW, klass="batch") for p in batch_rows]
+        deadline = time.monotonic() + 300
+        while (eng.health()["decode_active"] < 3
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        ia = [eng.submit(p, LANE_NEW, klass="interactive") for p in inter]
+        outs = {"best-effort": [r.wait(timeout=900) for r in be],
+                "batch": [r.wait(timeout=900) for r in ba],
+                "interactive": [r.wait(timeout=900) for r in ia]}
+        counts = _counts(flash, paged)
+        stats = eng.stats()
+        bad = eng.check_invariants() + eng._pool.check_invariants()
+        ttft = {}
+        for reqs in (be, ba, ia):
+            for r in reqs:
+                summary = request_phases(eng.request_timeline(r.id))
+                ttft.setdefault(r.klass, []).append(summary["ttft_ms"])
+        victim = next((r for r in be if r.preemptions), None)
+    finally:
+        eng.stop()
+    if bad:
+        fail(f"lanes: invariants broken: {bad[:5]}")
+    for klass, rows in (("best-effort", burst), ("batch", batch_rows),
+                        ("interactive", inter)):
+        _check_outs(f"lanes {klass}", rows, outs[klass], LANE_NEW,
+                    cfg.vocab_size)
+    if stats["handoffs"] <= 0:
+        fail("lanes: no prefill-lane handoff happened")
+    if sum(stats["preemptions"].values()) <= 0 or victim is None:
+        fail(f"lanes: no preemption fired: {stats['preemptions']}")
+    if counts["paged_decode"] <= 0:
+        fail("lanes: the paged decode kernel never launched")
+    # The preempted request against its solo run.
+    solo = ContinuousBatchingEngine("llama3_8b", cfg, params, slots=1,
+                                    kv="paged", page_size=16,
+                                    max_len=DENSE_MAX_LEN, device="cuda")
+    try:
+        want = solo.submit(victim.tokens, LANE_NEW).wait(timeout=900)
+    finally:
+        solo.stop()
+    near_tie_check(torch, llama, cfg, params, "preempted request",
+                   victim.tokens, victim.out, want)
+    per_class = {k: (f"median={float(np.median(v)):.1f}ms "
+                     f"max={max(v):.1f}ms n={len(v)}")
+                 for k, v in ttft.items()}
+    print(f"e. lanes/classes/preemption llama3_8b: handoffs="
+          f"{stats['handoffs']} handoff_pages={stats['handoff_pages']} "
+          f"preemptions={stats['preemptions']} readmit_suffix_tokens="
+          f"{stats['readmit_suffix_tokens']} victim_preemptions="
+          f"{victim.preemptions}; TTFT {per_class}; launches={counts}; "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return counts
+
+
+def _sse(url, payload):
+    req = urllib.request.Request(
+        url + "/v1/generate", method="POST",
+        data=json.dumps(dict(payload, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    events, name = [], None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                name = line[len("event: "):]
+            elif line.startswith("data: "):
+                events.append((name or "token",
+                               json.loads(line[len("data: "):])))
+                name = None
+    return events
+
+
+def _post_json(url, payload):
+    req = urllib.request.Request(
+        url + "/v1/generate", method="POST",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.load(resp)
+
+
+def _get_json(url):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.load(resp)
+
+
+def _bound_http(engine):
+    """The server's HTTP front (its handler and routes) over a fleet
+    built here: ``ServingServer`` builds one engine, and a fleet has no
+    server entry of its own."""
+    from http.server import ThreadingHTTPServer
+
+    from polyaxon_tpu_torch.serving.server import _Handler
+
+    handler = type("BoundHandler", (_Handler,), {"engine": engine})
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, thread, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def http_defaults(torch, flash, paged):
+    """Phase f: ``ServingServer("llama3_8b")`` with no engine arguments
+    serves static/dense; a streamed answer equals the non-streamed one;
+    a continuous engine's request timeline has the reference's span
+    names."""
+    from polyaxon_tpu_torch.serving.server import ServingServer, _Engine
+
+    t_phase = time.perf_counter()
+    body = {"tokens": [[11, 12, 13, 14] * 16], "max_new_tokens": 16}
+    _zero(flash, paged)
+    with ServingServer("llama3_8b", seed=SEED) as srv:
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t_phase
+        if not isinstance(srv.engine, _Engine):
+            fail(f"ServingServer defaults built {type(srv.engine)}")
+        stats = _get_json(srv.url + "/v1/stats")
+        plain = _post_json(srv.url, body)["tokens"]
+        events = _sse(srv.url, body)
+    static_counts = _counts(flash, paged)
+    done = [p for n, p in events if n == "done"]
+    streamed = [p["token"] for n, p in events if n == "token"]
+    if stats["engine"] != "static" or not done or \
+            done[0]["tokens"] != plain or streamed != plain[0] or \
+            len(plain[0]) != 16:
+        fail(f"HTTP defaults: stats {stats}, plain {plain}, "
+             f"streamed {streamed}, done {done}")
+    with ServingServer("llama3_8b", seed=SEED, batching="continuous",
+                       kv="dense", slots=2) as srv:
+        _zero(flash, paged)
+        events = _sse(srv.url, dict(body, **{"class": "interactive"}))
+        cont_counts = _counts(flash, paged)
+        (rid,) = [p for n, p in events if n == "done"][0]["request_ids"]
+        timeline = _get_json(f"{srv.url}/requests/{rid}/timeline")
+    names = {c["name"] for c in timeline["spans"][0]["children"]}
+    names.add(timeline["spans"][0]["name"])
+    want = {"request", "queue_wait", "prefill", "decode"}
+    if not want <= names or timeline["summary"]["ttft_ms"] is None:
+        fail(f"HTTP timeline spans {sorted(names)} lack {sorted(want)}")
+    print(f"f. HTTP defaults: ServingServer('llama3_8b') built the static "
+          f"engine (dense) in {t_load:.1f}s; streamed == non-streamed "
+          f"({len(streamed)} tokens); continuous timeline spans "
+          f"{sorted(names)} ttft_ms={timeline['summary']['ttft_ms']:.1f}; "
+          f"launches static={static_counts} continuous={cont_counts}; "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return {k: static_counts[k] + cont_counts[k] for k in static_counts}
+
+
+def mistral_ring(torch, llama, flash, paged):
+    """Phase b: mistral_7b at full width and depth, one 4,000-token
+    prompt and 256 new tokens over a 4,096-slot ring (so it wraps);
+    the last decode step's logits against one windowed forward over the
+    whole 4,256-token sequence, and the dense engine serving the same
+    request."""
+    import numpy as np
+
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.server import load_params
+
+    t_phase = time.perf_counter()
+    cfg, params = load_params("mistral_7b", seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t_phase
+    max_len = MISTRAL_PROMPT + MISTRAL_NEW
+    ring = llama.cache_len(cfg, max_len)
+    if ring != cfg.sliding_window or ring >= max_len:
+        fail(f"mistral: ring {ring} does not wrap within {max_len}")
+    rng = np.random.default_rng(SEED + 7)
+    prompt = rng.integers(0, cfg.vocab_size, MISTRAL_PROMPT).tolist()
+    _zero(flash, paged)
+    t0 = time.perf_counter()
+    logits, cache = llama.prefill(cfg, params, torch.tensor(
+        [prompt], dtype=torch.long, device="cuda"), max_len)
+    toks = []
+    for i in range(MISTRAL_NEW):
+        tok = logits.argmax(dim=-1)
+        toks.append(int(tok[0]))
+        logits, cache = llama.decode_step(cfg, params, cache, tok,
+                                          MISTRAL_PROMPT + i)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    fn_counts = _counts(flash, paged)
+    del cache
+    seq = prompt + toks
+    full = _teacher_logits(torch, llama, cfg, params, prompt,
+                           toks + [0])[-1]
+    rel = _rel(logits[0], full)
+    if not torch.isfinite(logits).all() or rel > MODEL_REL_TOL:
+        fail(f"mistral: last decode-step logits vs the windowed forward "
+             f"over {len(seq)} tokens: relative max err {rel} "
+             f"(tol {MODEL_REL_TOL})")
+    eng = ContinuousBatchingEngine("mistral_7b", cfg, params, slots=1,
+                                   max_len=max_len, device="cuda")
+    try:
+        _zero(flash, paged)
+        _, outs, wall = _run_engine_mix(eng, [prompt], MISTRAL_NEW)
+        eng_counts = _counts(flash, paged)
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    _check_outs("mistral engine", [prompt], outs, MISTRAL_NEW,
+                cfg.vocab_size)
+    near_tie_check(torch, llama, cfg, params, "mistral engine", prompt,
+                   outs[0], toks)
+    for label, c in (("function", fn_counts), ("engine", eng_counts)):
+        if c["flash_fwd"] <= 0:
+            fail(f"mistral ({label}) never launched the flash forward")
+    print(f"b. mistral_7b ring: loaded in {t_load:.1f}s; prompt "
+          f"{MISTRAL_PROMPT} + {MISTRAL_NEW} new over a {ring}-slot ring; "
+          f"last decode-step logits vs windowed forward ({len(seq)} tokens) "
+          f"rel err {rel:.3e}; prefill+decode loop {loop_s:.2f}s; engine "
+          f"wall_s={wall:.3f} decode_step_ms_median="
+          f"{stats['decode_step_ms_median']:.3f}; launches function="
+          f"{fn_counts} engine={eng_counts}; phase_s="
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {k: fn_counts[k] + eng_counts[k] for k in fn_counts}
+
+
+def fleet(torch, flash, paged):
+    """Phase g: two llama3_1b replicas behind the fleet router on the
+    card; 16 requests, 8 sharing a 256-token prefix."""
+    import numpy as np
+
+    from polyaxon_tpu_torch.models import llama
+    from polyaxon_tpu_torch.obs import metrics as obs_metrics
+    from polyaxon_tpu_torch.serving.fleet import ServingFleet, engine_factory
+    from polyaxon_tpu_torch.serving.router import FleetRouter
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    vocab = llama.CONFIGS["llama3_1b"].vocab_size
+    prefix = rng.integers(0, vocab, 256).tolist()
+    shared = [prefix + rng.integers(0, vocab, n).tolist()
+              for n in (5, 40, 90, 130, 17, 64, 200, 8)]
+    other = [rng.integers(0, vocab, n).tolist()
+             for n in (300, 77, 512, 45, 260, 128, 600, 33)]
+    reg = obs_metrics.MetricsRegistry()
+    fl = ServingFleet(
+        engine_factory("llama3_1b", slots=4, kv="paged", page_size=16,
+                       max_len=4096, device="cuda"),
+        replicas=2, standby=0, max_replicas=2, prewarm=False,
+        router=FleetRouter(seed=SEED), registry=reg)
+    fl.start()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter() - t_phase
+    httpd = None
+    try:
+        _zero(flash, paged)
+        t0 = time.perf_counter()
+        order = [x for pair in zip(shared, other) for x in pair]
+        reqs = [fl.submit(p, DENSE_NEW_TOKENS) for p in order]
+        outs = [r.wait(timeout=900) for r, _ in reqs]
+        wall = time.perf_counter() - t0
+        counts = _counts(flash, paged)
+        httpd, thread, url = _bound_http(fl)
+        snap = _get_json(url + "/v1/fleet")
+        stats = fl.stats()
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        fl.stop()
+    _check_outs("fleet", order, outs, DENSE_NEW_TOKENS, vocab)
+    decisions = [d for _, d in reqs]
+    shared_homes = {d.replica for p, d in zip(order, decisions)
+                    if p[:256] == prefix}
+    served = {d.replica for d in decisions}
+    if len(shared_homes) != 1:
+        fail(f"fleet: the shared prefix went to {shared_homes}")
+    if served != {"r0", "r1"}:
+        fail(f"fleet: only {served} served")
+    if set(snap["per_replica"]) != {"r0", "r1"} or \
+            snap["components"] != ["r0", "r1"]:
+        fail(f"fleet: /v1/fleet lacks per-replica series: {snap}")
+    if stats["kv_invariant_violations"]:
+        fail("fleet: page pool invariants broken")
+    for kernel, n in counts.items():
+        if n <= 0:
+            fail(f"fleet never launched {kernel}")
+    tokens = sum(map(len, outs))
+    reasons = {}
+    for d in decisions:
+        reasons[d.reason] = reasons.get(d.reason, 0) + 1
+    print(f"g. fleet 2 x llama3_1b: built in {t_start:.1f}s; requests="
+          f"{len(order)} tokens={tokens} wall_s={wall:.3f} "
+          f"tokens_per_s={tokens / wall:.1f}; shared prefix on "
+          f"{shared_homes.pop()}, served by {sorted(served)}, reasons "
+          f"{reasons}; prefix_hit_rate={stats['prefix_hit_rate']}; "
+          f"per_replica={snap['per_replica']}; launches={counts}; "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_the_rest(torch, llama, flash, paged, cfg, params, prompts,
+                   paged_stats) -> tuple:
+    """Phases a, c, e, f and d over phase 2's llama3_8b weights; returns
+    each phase's launch counts."""
+    dense_counts, dense_outs = dense_static(torch, llama, flash, paged, cfg,
+                                            params, prompts, paged_stats)
+    torch.cuda.empty_cache()
+    spec_counts = speculation(torch, llama, flash, paged, cfg, params,
+                              prompts, dense_outs)
+    lane_counts = lanes_classes(torch, llama, flash, paged, cfg, params)
+    torch.cuda.empty_cache()
+    http_counts = http_defaults(torch, flash, paged)
+    torch.cuda.empty_cache()
+    int8_counts = int8_serving(torch, llama, flash, paged, cfg, params,
+                               prompts, paged_stats)
+    return dense_counts, spec_counts, lane_counts, http_counts, int8_counts
 
 
 def run_training(torch, flash, job, layers):
@@ -2139,7 +2949,8 @@ def _sweep(torch, flash, paged, tmp):
     ckpt = os.path.join(plane.run_artifacts_dir(best.uuid), "checkpoints")
     flash.launches = paged.launches = 0
     t0 = time.perf_counter()
-    with ServingServer(model, ckpt) as server:
+    with ServingServer(model, ckpt, batching="continuous",
+                       kv="paged") as server:
         t_load = time.perf_counter() - t0
         req = urllib.request.Request(
             server.url + "/v1/generate", method="POST",
@@ -2222,11 +3033,16 @@ def main() -> None:
           f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.1f}s, "
           f"attention_impl={cfg.attention_impl} "
           f"paged_attention_impl={cfg.paged_attention_impl}", flush=True)
-    counts, first_prompt = run_engine(flash, paged_attention, cfg, params)
-    compare_first_admission(torch, llama, cfg, params, first_prompt)
+    counts, prompts, paged_stats = run_engine(flash, paged_attention, cfg,
+                                              params)
+    compare_first_admission(torch, llama, cfg, params, prompts[0])
     time_prefill(torch, llama, flash, cfg, params)
+    serve_counts = serve_the_rest(torch, llama, flash, paged_attention, cfg,
+                                  params, prompts, paged_stats)
     del params
     torch.cuda.empty_cache()
+    serve_counts += (mistral_ring(torch, llama, flash, paged_attention),
+                     fleet(torch, flash, paged_attention))
 
     run_http(flash, paged_attention)
 
@@ -2246,12 +3062,13 @@ def main() -> None:
     sweep_counts = sweep(torch, flash, paged_attention)
 
     # Each kernel's launches are the sum over the main-path runs that
-    # reach it (each printed above): the engine, the two training runs,
+    # reach it (each printed above): the engine, phases a-g, the two
+    # training runs,
     # the resumed launcher of the checkpoint drill, the engine serving
     # its checkpoint, the launcher the agent ran from the compiled plan,
     # the sweep's trials and the engine serving its best trial.
-    runs = (counts, train_counts, gemma_counts, *drill_counts, plan_counts,
-            *sweep_counts)
+    runs = (counts, *serve_counts, train_counts, gemma_counts, *drill_counts,
+            plan_counts, *sweep_counts)
 
     def total(name):
         return sum(run.get(name, 0) for run in runs)

@@ -1,8 +1,8 @@
 """Shared model numerics (port of ``polyaxon_tpu/models/common.py``).
 
 The pieces the serving and training slices run: the ``ModelDef``
-convention, RoPE, RMSNorm, the weight read at consumption, the
-unquantized logits projection, the embedding gather, one-row sampling,
+convention, RoPE, RMSNorm, the weight read at consumption (plain or
+int8), the logits projection, the embedding gather, sampling,
 the random initializers, and the training losses (cross entropy, the
 chunked LM loss, ``shift_right``). Parameters keep the JAX pytree's
 names and layouts (``x @ w`` with ``[in, out]`` weights), so weights
@@ -104,25 +104,68 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
     return (normed * (offset + weight.to(torch.float32))).to(x.dtype)
 
 
-def _w(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+def is_quantized(w) -> bool:
+    """An int8 ``QuantizedTensor`` (duck-typed on ``.dequantize``; a
+    plain torch tensor has a method of that name too)."""
+    return not isinstance(w, torch.Tensor) and hasattr(w, "dequantize")
+
+
+def _w(w, dt: torch.dtype) -> torch.Tensor:
     """Weight read at the point of consumption: cast to the compute
-    dtype (a no-op when serving already stores ``cfg.dtype``)."""
+    dtype (a no-op when serving already stores ``cfg.dtype``). An int8
+    ``QuantizedTensor`` (``serving/quantize.py``, duck-typed on
+    ``.dequantize``) is dequantized here, one weight at a time, and
+    never as a whole tree."""
+    if is_quantized(w):
+        return w.dequantize().to(dt)
     return w.to(dt)
 
 
-def lm_logits(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype, *,
-              transpose: bool = False) -> torch.Tensor:
+def _lm_chunk_len(V: int, chunk: int) -> Optional[int]:
+    """Largest power-of-two chunk <= min(chunk, V // 2), or None when V
+    is too small to split."""
+    cap = min(chunk, V // 2)
+    if cap < 1:
+        return None
+    return 1 << (cap.bit_length() - 1)
+
+
+def lm_logits(x: torch.Tensor, w, dt: torch.dtype, *,
+              transpose: bool = False, chunk: int = 4096) -> torch.Tensor:
     """``x [..., D] @ head → [..., V]``: the product in ``dt``, cast to
-    f32, exactly as the JAX package computes its unquantized branch.
-    ``transpose`` reads a tied [V, D] embedding table."""
-    tab = (w.T if transpose else w).to(dt)
-    return (x.to(dt) @ tab).to(torch.float32)
+    f32, exactly as the JAX package computes it. ``transpose`` reads a
+    tied [V, D] embedding table. A quantized head is dequantized one
+    vocab chunk at a time (the JAX package's loop over V-chunks); the
+    column chunking does not reorder the contraction, so each column is
+    the one-product value."""
+    if not is_quantized(w):
+        tab = (w.T if transpose else w).to(dt)
+        return (x.to(dt) @ tab).to(torch.float32)
+    q, scale = w.q, w.scale
+    V = q.shape[0] if transpose else q.shape[1]
+    c = _lm_chunk_len(V, chunk)
+    if c is None:
+        tab = w.dequantize().to(dt)
+        return (x @ (tab.T if transpose else tab)).to(torch.float32)
+    outs = []
+    for start in range(0, V, c):
+        if transpose:  # q [V, D], scale [1, D]
+            tab = (q[start:start + c].to(torch.float32) * scale).to(dt).T
+        else:  # q [D, V], scale [1, V]
+            tab = (q[:, start:start + c].to(torch.float32)
+                   * scale[:, start:start + c]).to(dt)
+        outs.append((x @ tab).to(torch.float32))
+    return torch.cat(outs, dim=-1)
 
 
-def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor,
+def _embed_rows(embed, tokens: torch.Tensor,
                 dt: torch.dtype) -> torch.Tensor:
     """Embedding gather in the compute dtype (gathering first, then
-    casting, reads the same values as casting the table first)."""
+    casting, reads the same values as casting the table first). A
+    quantized table gathers its int8 rows first and dequantizes only
+    those."""
+    if is_quantized(embed):
+        return (embed.q[tokens].to(torch.float32) * embed.scale).to(dt)
     return embed[tokens].to(dt)
 
 
@@ -149,6 +192,23 @@ def sample_row(logits: torch.Tensor, generator: torch.Generator,
     draw = torch.multinomial(torch.softmax(masked, dim=-1), 1,
                              generator=generator)
     return sort_idx[draw[0]].to(torch.int32)
+
+
+def sample_logits(logits: torch.Tensor, generator: torch.Generator,
+                  temperature: float, top_p: float = 1.0,
+                  top_k: int = 0) -> torch.Tensor:
+    """Batch sampling [B, V] → [B] int32 with shared knobs (the family
+    ``generate`` path): one categorical draw per row from the
+    temperature-scaled softmax, or ``sample_row`` per row when top-p or
+    top-k filter. The draws come from ``generator``, so they differ from
+    the JAX package's key stream; greedy is the caller's branch."""
+    if top_p >= 1.0 and top_k <= 0:
+        probs = torch.softmax(
+            logits.to(torch.float32) / max(float(temperature), 1e-6), dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+            torch.int32)
+    return torch.stack([sample_row(row, generator, temperature, top_p, top_k)
+                        for row in logits])
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

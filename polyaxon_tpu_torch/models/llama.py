@@ -1,6 +1,8 @@
 """Llama-3-style decoder (port of ``polyaxon_tpu/models/llama.py``): the
 training surface (``apply``, packed sequences, remat) and the serving
-subset (the paged KV and suffix-prefill surfaces).
+surfaces: the dense ring-buffer cache (``prefill``, ``decode_step``,
+``decode_step_ragged``, the continuous-batching hooks, ``decode_chunk``
+and ``generate``), the paged KV cache and the suffix prefill.
 
 Parameters are a plain dict of tensors with the JAX pytree's names and
 layouts: ``embed [V, D]``, ``lm_head [D, V]``, ``final_norm [D]`` and
@@ -9,11 +11,19 @@ the stacked ``layers`` tensors ``[L, ...]`` with ``[in, out]`` matrices
 f32; the JAX package casts every matrix to ``cfg.dtype`` at use, so the
 numbers are the same.
 
-The paged KV cache (``{"k", "v"}: [L, P, page, KV, Hd]``) is updated
-IN PLACE (``index_put_``) rather than rebuilt per step as the JAX
-functions do; every function that writes it still returns it so the
-call shapes match. Page 0 is scratch: idle rows and unallocated
-coordinates write there and masks keep it unread.
+The dense cache (``{"k", "v"}: [L, B, C, KV, Hd]``, C = ``cache_len``)
+and the paged cache (``[L, P, page, KV, Hd]``) are updated IN PLACE
+(``index_put_``) rather than rebuilt per step as the JAX functions do;
+every function that writes one still returns it so the call shapes
+match. In the paged pool page 0 is scratch: idle rows and unallocated
+coordinates write there and masks keep it unread. The attention of a
+dense decode step (and of ``decode_chunk``) is plain PyTorch, as the JAX
+package computes it in XLA outside any Pallas kernel; every prompt pass
+goes through ``dot_product_attention``, i.e. the flash kernel on CUDA.
+
+Serving weights may be int8 ``QuantizedTensor`` leaves
+(``serving/quantize.py``): ``_w``, ``_embed_rows``, ``lm_head`` and
+``decode_logits`` dequantize each at its use.
 
 Training keeps f32 master weights and computes in ``cfg.dtype``; the
 layers run as a Python loop over per-layer views of the stacked tensors
@@ -44,6 +54,7 @@ from polyaxon_tpu_torch.models.common import (
     _embed_rows,
     _w,
     chunked_lm_loss,
+    is_quantized,
     lm_logits,
     rms_norm,
     rope,
@@ -98,6 +109,11 @@ class LlamaConfig:
     flash_bwd_impl: Optional[str] = None
     # Chunked lm-head loss slab length (peak memory holds [B, chunk, V]).
     loss_chunk: int = 256
+    # Vocab-chunk length for quantized decode logits (common.lm_logits):
+    # bounds the bf16 copy of the int8 head that a decode step makes. A
+    # field, not a constant, so that the reference's configs and
+    # model_overrides are taken as they are.
+    lm_logits_chunk: int = 4096
     # Pipeline parallelism is not ported; >1 raises.
     pipeline_stages: int = 1
 
@@ -377,15 +393,21 @@ def hidden_states(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
 
 
 def lm_head(cfg: LlamaConfig, params: dict) -> torch.Tensor:
-    """The [D, V] head table (the transposed embedding when tied)."""
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """The [D, V] head table (the transposed embedding when tied),
+    dequantized whole if it is int8: for a prompt pass or training, not
+    a decode step (``decode_logits`` reads it in vocab chunks)."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if is_quantized(w):
+        w = w.dequantize()
+    return w.T if cfg.tie_embeddings else w
 
 
 def decode_logits(cfg: LlamaConfig, params: dict,
                   x: torch.Tensor) -> torch.Tensor:
     """Hidden states [..., D] → f32 logits [..., V]."""
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return lm_logits(x, w, cfg.dtype, transpose=cfg.tie_embeddings)
+    return lm_logits(x, w, cfg.dtype, transpose=cfg.tie_embeddings,
+                     chunk=cfg.lm_logits_chunk)
 
 
 def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
@@ -461,13 +483,237 @@ def cb_admission(prompt: list) -> tuple:
             list(prompt[:-1]) if len(prompt) > 1 else None)
 
 
+# ------------------------------------------------------------ dense decode
+def cache_len(cfg: LlamaConfig, max_len: int) -> int:
+    """KV-cache length: with a sliding window the cache is a ring buffer
+    of ``sliding_window`` slots; otherwise the full sequence length."""
+    if cfg.sliding_window is not None:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int, *,
+               device) -> dict:
+    """Dense KV cache [L, B, C, KV, Hd] per tensor (C = cache_len)."""
+    shape = (cfg.n_layers, batch, cache_len(cfg, max_len), cfg.n_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def ragged_cache_coords(pos: torch.Tensor, C: int):
+    """Per-row ring-buffer addressing: for rows at positions ``pos`` [B]
+    (-1 = idle) over a C-slot ring, (positions [B, 1] for RoPE, slot [B]
+    to write, valid [B, 1, 1, C]). Slot s holds position
+    pos - ((pos - s) mod C) after this write; negative = never written.
+    A sliding window needs no extra mask: C <= window by ``cache_len``."""
+    pos_safe = pos.clamp(min=0)
+    slot = pos_safe % C
+    delta = (pos_safe[:, None]
+             - torch.arange(C, device=pos.device)[None, :]) % C
+    stored = pos_safe[:, None] - delta
+    valid = ((stored >= 0) & (pos[:, None] >= 0))[:, None, None, :]
+    return pos_safe[:, None], slot, valid
+
+
+def _cached_attention(cfg, q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Masked softmax attention of q [B, c, H, Hd] over a dense cache row
+    [B, C, KV, Hd] (``valid`` [B, 1, c, C]), f32 logits and softmax, the
+    products in the compute dtype: the JAX package's einsums, with each
+    query head's group read from its KV head instead of repeating the
+    cache. Returns [B, c, H * Hd]."""
+    dt = cfg.dtype
+    B, c, H, Hd = q.shape
+    KV = k_cache.shape[2]
+    C = k_cache.shape[1]
+    qg = q.reshape(B, c, KV, H // KV, Hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache).to(torch.float32)
+    s = s.reshape(B, H, c, C) * (Hd ** -0.5)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1).to(dt).reshape(B, KV, H // KV, c, C)
+    attn = torch.einsum("bgrqk,bkgd->bqgrd", probs, v_cache)
+    return attn.reshape(B, c, H * Hd)
+
+
+def cached_attn_step(cfg, layer: dict, x: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     positions: torch.Tensor, slot: torch.Tensor,
+                     valid: torch.Tensor):
+    """One cached-attention sublayer for ragged decode: q/k/v of x
+    [B, 1, D], this step's K/V written into each row's ``slot`` (in
+    place), masked softmax over the row's cache. Returns (x after the
+    attention residual, k_cache, v_cache)."""
+    B = x.shape[0]
+    rows = torch.arange(B, device=x.device)
+    q, k, v = _qkv(cfg, layer, x, positions)
+    k_cache[rows, slot] = k[:, 0]
+    v_cache[rows, slot] = v[:, 0]
+    attn = _cached_attention(cfg, q, k_cache, v_cache, valid)
+    return x + attn @ _w(layer["wo"], cfg.dtype), k_cache, v_cache
+
+
+def decode_step_ragged(cfg: LlamaConfig, params: dict, cache: dict,
+                       tokens: torch.Tensor,
+                       pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One autoregressive step with per-row positions (the step under
+    continuous batching): tokens [B], pos [B] (-1 = idle; an idle row
+    writes only its own slot 0, which the next admission's insert
+    replaces). Returns (logits [B, V] f32, cache), the cache updated in
+    place. A row at position p matches ``decode_step`` at p exactly."""
+    C = cache["k"].shape[2]
+    positions, slot, valid = ragged_cache_coords(pos, C)
+    x = _embed(cfg, params, tokens, cfg.dtype)[:, None, :]
+    for i, layer in enumerate(_layers(params)):
+        x, _, _ = cached_attn_step(cfg, layer, x, cache["k"][i],
+                                   cache["v"][i], positions, slot, valid)
+        x = _mlp(cfg, x, layer)
+    x = _norm(cfg, x, params["final_norm"])
+    return decode_logits(cfg, params, x[:, 0]), cache
+
+
+def decode_step(cfg: LlamaConfig, params: dict, cache: dict,
+                tokens: torch.Tensor, pos: int) -> tuple[torch.Tensor, dict]:
+    """One step with every row at the scalar position ``pos`` (slot
+    ``pos % C``: a plain index with a full-length cache, a ring with a
+    sliding window)."""
+    B = tokens.shape[0]
+    return decode_step_ragged(
+        cfg, params, cache, tokens,
+        torch.full((B,), int(pos), dtype=torch.long, device=tokens.device))
+
+
+def prefill(cfg: LlamaConfig, params: dict, prompt: torch.Tensor,
+            max_len: int) -> tuple[torch.Tensor, dict]:
+    """One batched causal pass over the prompt [B, P], filling a dense
+    cache: returns (last-position logits [B, V] f32, cache). Position p
+    lands in slot p % C; with a sliding-window ring only the last C
+    prompt positions are kept (older ones can never be attended
+    again)."""
+    dt = cfg.dtype
+    B, P = prompt.shape
+    x, k_all, v_all = _prompt_pass(cfg, params, prompt)
+    C = cache_len(cfg, max_len)
+    if cfg.sliding_window is None and P > max_len:
+        raise ValueError(
+            f"prompt length {P} exceeds cache length {max_len} "
+            "(full attention cannot drop prompt positions)")
+    if cfg.sliding_window is not None and C < min(P, cfg.sliding_window):
+        raise ValueError(
+            f"cache length {C} (max_len {max_len}) cannot hold the last "
+            f"min(P={P}, window={cfg.sliding_window}) prompt positions "
+            "that remain attendable — raise max_len")
+    cache = init_cache(cfg, B, max_len, device=prompt.device)
+    keep = min(P, C)
+    if P <= C:
+        cache["k"][:, :, :P] = k_all
+        cache["v"][:, :, :P] = v_all
+    else:
+        slots = torch.arange(P - keep, P, device=prompt.device) % C
+        cache["k"][:, :, slots] = k_all[:, :, P - keep:]
+        cache["v"][:, :, slots] = v_all[:, :, P - keep:]
+    x = _norm(cfg, x, params["final_norm"])
+    logits = (x[:, -1] @ lm_head(cfg, params).to(dt)).to(torch.float32)
+    return logits, cache
+
+
+def cb_init_cache(cfg, slots: int, max_len: int, *, device) -> dict:
+    return init_cache(cfg, slots, max_len, device=device)
+
+
+def cb_prefill(cfg, params: dict, prompt: torch.Tensor, max_len: int) -> dict:
+    return prefill(cfg, params, prompt, max_len)[1]
+
+
+def insert_cache_row(cache: dict, row: dict, b: int) -> dict:
+    """Copy a one-row cache into row ``b`` of the pool cache, in place."""
+    for key in ("k", "v"):
+        cache[key][:, b] = row[key][:, 0]
+    return cache
+
+
+def chunk_attn_step(cfg, layer: dict, x: torch.Tensor,
+                    k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    positions: torch.Tensor, valid: torch.Tensor):
+    """One cached-attention sublayer for a c-token chunk: ``positions``
+    [B, c], ``valid`` [B, 1, c, C]; writes slot == position. A write
+    past the cache's end (only a padded prompt tail makes one) lands on
+    the last slot: the JAX scatter drops it, and here no real position
+    reaches that slot before decode rewrites it."""
+    B, c = positions.shape
+    C = k_cache.shape[1]
+    rows = torch.arange(B, device=x.device)[:, None]
+    q, k, v = _qkv(cfg, layer, x, positions)
+    idx = positions.clamp(max=C - 1)
+    k_cache[rows, idx] = k
+    v_cache[rows, idx] = v
+    attn = _cached_attention(cfg, q, k_cache, v_cache, valid)
+    return x + attn @ _w(layer["wo"], cfg.dtype), k_cache, v_cache
+
+
+def decode_chunk(cfg: LlamaConfig, params: dict, cache: dict,
+                 tokens: torch.Tensor,
+                 pos0: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Cached forward over a short chunk of c tokens per row (the
+    speculative verify step, and chunked prefill): writes their KV at
+    positions pos0..pos0+c-1 and returns logits [B, c, V] (logits[:, i]
+    predicts position pos0+i+1). Requires a full-length cache (slot ==
+    position), which makes acceptance rollback-free: entries written
+    past the accepted prefix sit at positions the next chunk rewrites
+    before anything attends them."""
+    if cfg.sliding_window is not None:
+        raise ValueError("speculative decode_chunk requires a full-length "
+                         "cache (no sliding_window)")
+    B, c = tokens.shape
+    C = cache["k"].shape[2]
+    dev = tokens.device
+    positions = pos0.to(dev).long()[:, None] + torch.arange(c, device=dev)
+    valid = (torch.arange(C, device=dev)[None, None, :]
+             <= positions[:, :, None])[:, None]
+    x = _embed(cfg, params, tokens, cfg.dtype)
+    for i, layer in enumerate(_layers(params)):
+        x, _, _ = chunk_attn_step(cfg, layer, x, cache["k"][i],
+                                  cache["v"][i], positions, valid)
+        x = _mlp(cfg, x, layer)
+    x = _norm(cfg, x, params["final_norm"])
+    return decode_logits(cfg, params, x), cache
+
+
+def generate(cfg: LlamaConfig, params: dict, prompt: torch.Tensor, *,
+             max_new_tokens: int, temperature: float = 0.0,
+             top_p: float = 1.0, top_k: int = 0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Greedy (temperature 0) or sampled continuation of prompt [B, P]:
+    [B, max_new] int. One prefill, then a Python loop of decode steps
+    (the JAX package's ``lax.scan``); sampled draws come from
+    ``generator``."""
+    from polyaxon_tpu_torch.models.common import sample_logits
+
+    B, P = prompt.shape
+    sampling = temperature > 0
+    if sampling and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a generator")
+    logits, cache = prefill(cfg, params, prompt, P + max_new_tokens)
+    out = []
+    for t in range(max_new_tokens):
+        token = (sample_logits(logits, generator, temperature, top_p, top_k)
+                 if sampling else logits.argmax(dim=-1))
+        token = token.to(torch.long)
+        out.append(token)
+        if t + 1 < max_new_tokens:
+            logits, cache = decode_step(cfg, params, cache, token, P + t)
+    return torch.stack(out, dim=1)
+
+
 # ------------------------------------------------------- paged KV decode
 def check_kernel_shapes(cfg: LlamaConfig, device, *,
-                        training: bool = False) -> None:
+                        training: bool = False, paged: bool = True) -> None:
     """On a CUDA device, raise if a kernel this config's serving path (or,
     with ``training``, its training path) launches cannot take its
-    head_dim: at construction, not inside every step. The CPU runs the
-    plain versions, which take any shape."""
+    head_dim: at construction, not inside every step. ``paged=False``
+    leaves out the paged decode kernel (a dense-cache engine). The CPU
+    runs the plain versions, which take any shape."""
     if torch.device(device).type != "cuda":
         return
     from polyaxon_tpu_torch.ops import flash, paged_attention
@@ -477,7 +723,7 @@ def check_kernel_shapes(cfg: LlamaConfig, device, *,
         kernels.append(("flash_fwd", flash.KERNEL_HEAD_DIMS))
         if training and cfg.flash_bwd_impl != "xla":
             kernels.append(("flash_bwd", flash.KERNEL_HEAD_DIMS))
-    if not training and cfg.paged_attention_impl == "auto":
+    if not training and paged and cfg.paged_attention_impl == "auto":
         kernels.append(("paged_decode", paged_attention.KERNEL_HEAD_DIMS))
     for name, dims in kernels:
         if cfg.head_dim not in dims:

@@ -1,8 +1,10 @@
 """Observability (port of ``polyaxon_tpu/obs``): run-lifecycle tracing
-(``obs.trace``), the Prometheus metrics registry (``obs.metrics``) and
-the failure flight recorder (``obs.flight``). The JAX package's analysis
-plane (``rules``, ``history``, ``analyze``, ``oracle``, ``reqtrace``)
-is ROADMAP.md, Queue 1 item 9."""
+(``obs.trace``), the Prometheus metrics registry (``obs.metrics``), the
+failure flight recorder (``obs.flight``), serving-request span trees
+(``obs.reqtrace``) and their phase summary (``obs.analyze``'s
+``request_phases``). The rest of the JAX package's analysis plane
+(``rules``, ``history``, the run report of ``analyze``, ``oracle``) is
+ROADMAP.md, Queue 1 item 9."""
 
 from polyaxon_tpu_torch.obs import flight, metrics, trace
 from polyaxon_tpu_torch.obs.metrics import (

@@ -1,11 +1,11 @@
-"""``python -m polyaxon_tpu_torch.serving --model llama3_8b --batching
-continuous --kv paged`` — serve a model on the GPU over HTTP (it
-raises without one).
+"""``python -m polyaxon_tpu_torch.serving --model llama3_8b [--checkpoint
+d]`` — serve a model on the GPU over HTTP (it raises without one).
 
-The flags are those of ``python -m polyaxon_tpu.serving``; the ones whose
-feature is not ported yet are accepted and refused with a clear error
-(the tuning knobs of those features are not accepted at all). SIGINT and
-SIGTERM stop the server and exit with 0.
+The flags and defaults are those of ``python -m polyaxon_tpu.serving``
+(the static engine over a dense cache unless ``--batching continuous``).
+``--mesh`` parses and is refused (ROADMAP.md, Queue 1 item 7), as are
+the MoE and t5 models (item 6) and a LoRA checkpoint (item 3b). SIGINT
+and SIGTERM stop the server and exit with 0.
 """
 
 from __future__ import annotations
@@ -16,53 +16,135 @@ import signal
 import threading
 
 
-def main() -> int:
+def parse_mesh_axes(spec: str) -> dict[str, int]:
+    """``"tp=4,dp=2"`` / ``"fsdp=-1"`` → an axes dict (the JAX package's
+    CLI format); raises ValueError on a malformed string."""
+    axes: dict[str, int] = {}
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        name = name.strip()
+        if name in axes:
+            raise ValueError(f"mesh axis {name!r} given twice")
+        try:
+            axes[name] = int(size)
+        except ValueError:
+            raise ValueError(
+                f"mesh axes expect name=size pairs "
+                f"(e.g. 'tp=4,dp=2'), got {part.strip()!r}") from None
+        if not name:
+            raise ValueError(f"mesh axis in {part.strip()!r} has no name")
+    return axes
+
+
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="polyaxon_tpu_torch.serving")
     parser.add_argument("--model", required=True)
     parser.add_argument("--checkpoint", default=None)
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--batching", default="continuous",
-                        choices=["static", "continuous"])
-    parser.add_argument("--slots", type=int, default=4)
-    parser.add_argument("--kv", default="paged", choices=["dense", "paged"])
+    parser.add_argument("--batching", default="static",
+                        choices=["static", "continuous"],
+                        help="continuous = slot-pool batcher: concurrent "
+                             "requests interleave token-by-token")
+    parser.add_argument("--slots", type=int, default=4,
+                        help="KV-cache slots for --batching continuous")
+    parser.add_argument("--mesh", default=None,
+                        help="shard weights over a device mesh, e.g. "
+                             "'tp=4' (not ported: refused)")
+    parser.add_argument("--quantize", default=None, choices=["int8"],
+                        help="weight-only quantization at load (int8 + "
+                             "per-channel scales)")
+    parser.add_argument("--kv", default="dense", choices=["dense", "paged"],
+                        help="KV layout for continuous batching: paged = "
+                             "shared page pool + block tables")
     parser.add_argument("--kv-page-size", type=int, default=16)
     parser.add_argument("--kv-pages", type=int, default=None)
-    parser.add_argument("--no-prefix-cache", action="store_true")
-    parser.add_argument("--max-pending", type=int, default=None)
-    # The port's engine is the FIFO-with-cache-affinity scheduler without
-    # request traces, which is what these three flags ask the JAX server
-    # for: accepted, and true of every port run.
-    for flag in ("--no-class-admission", "--no-preemption",
-                 "--no-request-tracing"):
-        parser.add_argument(flag, action="store_true")
-    # Features not ported yet: naming one is an error.
-    unported = ("--mesh", "--quantize", "--draft-model", "--draft-checkpoint",
-                "--prefill-chunk", "--prefill-slots", "--trace-dump")
-    for flag in unported:
-        parser.add_argument(flag, default=None)
-    parser.add_argument("--class-max-pending", action="append", default=[])
-    args = parser.parse_args()
-    named = [flag for flag in unported
-             if getattr(args, flag[2:].replace("-", "_")) is not None]
-    if args.class_max_pending:
-        named.append("--class-max-pending")
-    if args.kv != "paged":
-        named.append("--kv dense")
-    if named:
-        parser.error(f"not ported to polyaxon_tpu_torch yet: {named}")
+    parser.add_argument("--no-prefix-cache", action="store_true",
+                        help="(paged kv) disable radix-tree prefix sharing")
+    parser.add_argument("--draft-model", default=None,
+                        help="speculative-decoding draft (both engines; "
+                             "lossless for greedy requests; the "
+                             "continuous pool becomes greedy-only)")
+    parser.add_argument("--prefill-chunk", type=int, default=None,
+                        help="(continuous, dense kv) stream long prompts "
+                             "into the pool this many tokens per loop "
+                             "iteration; with --prefill-slots, the lane's "
+                             "chunk")
+    parser.add_argument("--prefill-slots", type=int, default=None,
+                        help="(continuous, paged kv) prefill-lane rows "
+                             "that stream prompts in suffix chunks and "
+                             "hand their KV pages to the decode pool")
+    parser.add_argument("--prefill-lane-budget", type=int, default=1,
+                        help="(with --prefill-slots) max lane chunks per "
+                             "engine tick while decode rows are live")
+    parser.add_argument("--draft-checkpoint", default=None)
+    parser.add_argument("--spec-k", type=int, default=4)
+    parser.add_argument("--lora-alpha", type=float, default=16.0,
+                        help="alpha when --checkpoint is a LoRA fine-tune "
+                             "(not ported: such a checkpoint is refused)")
+    parser.add_argument("--max-pending", type=int, default=None,
+                        help="(continuous) pending-queue cap; saturated "
+                             "generate requests answer 503 + Retry-After")
+    parser.add_argument("--no-class-admission", action="store_true",
+                        help="(continuous) one FIFO-with-cache-affinity "
+                             "queue for every request class, no "
+                             "preemption")
+    parser.add_argument("--class-max-pending", action="append", default=[],
+                        metavar="CLASS=N",
+                        help="(continuous) per-class pending cap, e.g. "
+                             "interactive=64; repeatable")
+    parser.add_argument("--no-preemption", action="store_true",
+                        help="(continuous) keep class-aware ranking but "
+                             "never evict a live slot")
+    parser.add_argument("--no-request-tracing", action="store_true",
+                        help="(continuous) disable per-request span "
+                             "timelines; the SLO histograms keep flowing")
+    parser.add_argument("--trace-dump", default=None, metavar="PATH",
+                        help="(continuous) persist the request-timeline "
+                             "ring to PATH on engine shutdown")
+    return parser
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    class_caps = {}
+    for spec in args.class_max_pending:
+        name, sep, cap = spec.partition("=")
+        if not sep or not name or not cap.isdigit():
+            parser.error(f"--class-max-pending expects CLASS=N, got "
+                         f"{spec!r}")
+        class_caps[name] = int(cap)
+    mesh_axes = None
+    if args.mesh:
+        try:
+            mesh_axes = parse_mesh_axes(args.mesh)
+        except ValueError as exc:
+            parser.error(str(exc))
 
     logging.basicConfig(level=logging.INFO)
     from polyaxon_tpu_torch.serving.server import ServingServer
 
-    with ServingServer(args.model, args.checkpoint, host=args.host,
-                       port=args.port, seed=args.seed,
+    with ServingServer(args.model, args.checkpoint,
+                       host=args.host, port=args.port, seed=args.seed,
                        batching=args.batching, slots=args.slots,
+                       mesh_axes=mesh_axes, quantize=args.quantize,
                        kv=args.kv, page_size=args.kv_page_size,
                        kv_pages=args.kv_pages,
                        prefix_cache=not args.no_prefix_cache,
-                       max_pending=args.max_pending) as s:
+                       draft_model=args.draft_model,
+                       draft_checkpoint=args.draft_checkpoint,
+                       spec_k=args.spec_k, lora_alpha=args.lora_alpha,
+                       prefill_chunk=args.prefill_chunk,
+                       prefill_slots=args.prefill_slots,
+                       prefill_lane_budget=args.prefill_lane_budget,
+                       max_pending=args.max_pending,
+                       class_admission=not args.no_class_admission,
+                       class_max_pending=class_caps or None,
+                       preemption=not args.no_preemption,
+                       request_tracing=not args.no_request_tracing,
+                       trace_dump_path=args.trace_dump) as s:
         # Installed explicitly: a shell starts a background job with
         # SIGINT ignored, and Python then never raises KeyboardInterrupt.
         stop = threading.Event()

@@ -368,6 +368,12 @@ class PagePool:
             matched, cow = self._match_locked(length, tokens, touch=False)
             return len(matched) * self.page_size + (cow[1] if cow else 0)
 
+    def slot_pages(self, slot: int) -> int:
+        """Pages mapped into this slot's row, its live KV footprint (the
+        preemption policy evicts the slot holding the most)."""
+        with self._lock:
+            return int(np.count_nonzero(self.tables[slot] >= 0))
+
     # -------------------------------------------------------- allocation
     def _alloc_one_locked(self):
         """One page: free list first, then evict the LRU reclaimable
@@ -462,6 +468,26 @@ class PagePool:
             self.tables[slot, idx] = page
             self._ref[page] += 1
             return True
+
+    # ----------------------------------------------------------- handoff
+    def handoff(self, src_slot: int, dst_slot: int) -> int:
+        """Transfer ownership of ``src_slot``'s pages to ``dst_slot``
+        (prefill lane → decode lane). Pure bookkeeping: the block-table
+        row moves, the fresh-leaf marker follows, and refcounts are
+        untouched (the pages appear in exactly one row before and after,
+        so ``check_invariants`` holds across the boundary). Returns the
+        number of pages transferred."""
+        with self._lock:
+            dst = self.tables[dst_slot]
+            assert (dst < 0).all(), \
+                f"handoff into slot {dst_slot} which still holds pages"
+            src = self.tables[src_slot]
+            dst[:] = src
+            src[:] = -1
+            leaf = self._fresh_leaf.pop(src_slot, None)
+            if leaf is not None:
+                self._fresh_leaf[dst_slot] = leaf
+            return int((dst >= 0).sum())
 
     # ----------------------------------------------------------- release
     def commit_prefix(self, slot: int) -> None:

@@ -493,6 +493,73 @@ def test_launcher_trains_llama_200m(gen, tmp_path):
     assert lines[-1]["outputs"]["steps"] == 3
 
 
+def test_dense_static_and_int8_engines_on_the_card(gen):
+    """llama_200m (head_dim 64) through the dense continuous engine, the
+    static engine and the int8 paged engine: every request finishes with
+    its budget and each path launches the kernels it runs (the flash
+    forward in every prefill, paged decode only in the paged engine)."""
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.quantize import quantize_tree
+    from polyaxon_tpu_torch.serving.server import _Engine, load_params
+
+    cfg, params = load_params("llama_200m", seed=0, device="cuda")
+    rows = [[5, 6, 7, 8] * 30, [9, 10, 11], [1] * 77]
+    for kv, p in (("dense", params), ("paged", quantize_tree(params))):
+        flash.launches = paged_attention.launches = 0
+        eng = ContinuousBatchingEngine("llama_200m", cfg, p, slots=2,
+                                       kv=kv, max_len=512, device="cuda")
+        try:
+            outs = eng.generate(rows, 8, timeout=300)
+        finally:
+            eng.stop()
+        assert [len(o) for o in outs] == [8, 8, 8]
+        assert flash.launches > 0
+        assert (paged_attention.launches > 0) == (kv == "paged")
+    flash.launches = 0
+    outs = _Engine("llama_200m", cfg, params, device="cuda").generate(rows, 8)
+    assert [len(o) for o in outs] == [8, 8, 8] and flash.launches > 0
+
+
+def test_self_draft_speculation_accepts_on_the_card(gen):
+    """A self-draft's proposals are the target's own decode-step argmaxes,
+    which its verify chunk accepts except at bf16 near-ties: most are
+    accepted, so the draft and verify caches stay aligned on the card,
+    and the tokens are the plain engine's. A row may part from them only
+    where the target's top two logits after the common prefix lie within
+    8 bf16 spacings of its largest logit (a decode step and a verify
+    chunk round their logits differently)."""
+    from polyaxon_tpu_torch.models import llama
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.server import load_params
+
+    cfg, params = load_params("llama_200m", seed=0, device="cuda")
+    prompts = [[5, 6, 7, 8] * 30, [9, 10, 11]]
+    outs = {}
+    for name, draft in (("spec", ("llama_200m", cfg, params, 4)),
+                        ("plain", None)):
+        eng = ContinuousBatchingEngine(
+            "llama_200m", cfg, params, slots=2, max_len=512, draft=draft,
+            device="cuda")
+        try:
+            outs[name] = eng.generate(prompts, 24, timeout=300)
+            if draft is not None:
+                stats = eng.stats()
+        finally:
+            eng.stop()
+    assert [len(o) for o in outs["spec"]] == [24, 24]
+    assert stats["spec_tokens_accepted_rate"] > 0.5, stats
+    for prompt, got, want in zip(prompts, outs["spec"], outs["plain"]):
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if j is None:
+            continue
+        row = torch.tensor([prompt + want[:j]], device="cuda")
+        logits = llama.forward(cfg, params, row)[0, -1]
+        top2 = torch.topk(logits, 2).values
+        ulp = 2.0 ** (torch.floor(torch.log2(logits.abs().max())) - 7)
+        assert (top2[0] - top2[1]).item() < 8 * ulp.item(), (j, got, want)
+
+
 def test_cli_serves_and_stops_on_sigterm(gen):
     """``python -m polyaxon_tpu_torch.serving`` answers a generate call,
     then exits 0 on SIGTERM."""

@@ -62,7 +62,8 @@ def test_greedy_matches_jax_engine():
     finally:
         jeng.stop()
     eng = ContinuousBatchingEngine("llama_tiny", tcfg, tparams, slots=2,
-                                   max_len=48, page_size=4, device="cpu")
+                                   max_len=48, kv="paged", page_size=4,
+                                   device="cpu")
     try:
         got = eng.generate(ROWS, max_new_tokens=6, timeout=300)
         stats = eng.stats()
@@ -78,7 +79,8 @@ def test_greedy_matches_jax_engine():
 def test_eos_sampling_and_validation():
     _, _, tcfg, tparams = _params()
     eng = ContinuousBatchingEngine("llama_tiny", tcfg, tparams, slots=2,
-                                   max_len=32, page_size=4, device="cpu")
+                                   max_len=32, kv="paged", page_size=4,
+                                   device="cpu")
     try:
         full = eng.generate([[1, 2, 3]], max_new_tokens=5)[0]
         stop = eng.generate([[1, 2, 3]], max_new_tokens=5,
@@ -97,17 +99,16 @@ def test_eos_sampling_and_validation():
 
 
 def test_deferred_features_refuse():
+    """What still waits for another item raises naming it: the MoE and
+    t5 families (item 6) and sharded serving (item 7)."""
     _, _, tcfg, tparams = _params()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatchingEngine("llama_tiny", tcfg, tparams, device="cpu",
-                                 kv="dense")
-    # The engine has no parameter for an unported feature.
-    for kwargs in ({"prefill_chunk": 8},
-                   {"draft": ("llama_tiny", tcfg, tparams, 2)},
-                   {"prefill_slots": 1}, {"class_admission": True}):
-        with pytest.raises(TypeError, match="unexpected keyword"):
-            ContinuousBatchingEngine("llama_tiny", tcfg, tparams,
-                                     device="cpu", **kwargs)
+    for model in ("moe_tiny", "t5_tiny"):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            ContinuousBatchingEngine(model, tcfg, tparams, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 6"):
+            load_params(model, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ServingServer("llama_tiny", mesh_axes={"tp": 2}, device="cpu")
 
 
 @pytest.mark.parametrize("model", sorted(tllama.CONFIGS))
@@ -139,7 +140,8 @@ def _post(url, payload):
 
 
 def test_http_round_trip_on_cpu():
-    with ServingServer("llama_tiny", slots=2, device="cpu") as srv:
+    with ServingServer("llama_tiny", batching="continuous", kv="paged",
+                       slots=2, device="cpu") as srv:
         out = _post(f"{srv.url}/v1/generate",
                     {"tokens": [[1, 2, 3], [4, 5, 6, 7]],
                      "max_new_tokens": 4})
