@@ -11,9 +11,10 @@ Phases, each of which must pass:
    forward at llama3_8b prefill (a ragged length and 2048), at the
    llama3_1b training microbatch (B=4, S=4096, D=64, packed segments) and
    at gemma_2b's (S=4096, D=256, MQA 8:1, causal and with a window); paged
-   decode at four cases (``decode_cases``: llama3_8b at 8 ragged rows
+   decode at five cases (``decode_cases``: llama3_8b at 8 ragged rows
    with a hole and an idle row, at 8 long rows, gemma_2b's MQA, llama3_1b
-   at 64 rows; one split and several must both be held, two calls must
+   at 64 rows, moe_8x200m's 16:8 heads at head_dim 64 up to 2,048
+   positions; one split and several must both be held, two calls must
    agree bitwise), timed by CUDA-graph replay with a cold L2, and two
    streams launching multi-split decode at once, in a loop (each must
    match the plain version); the flash backward pair at llama3_1b's packed training microbatch (B=4,
@@ -25,7 +26,14 @@ Phases, each of which must pass:
    and, where one PyTorch call computes the same function,
    ``F.scaled_dot_product_attention`` (forward or backward) as a
    yardstick the port never calls; the backward pair also with the
-   training path's packed segments.
+   training path's packed segments. Then the forward and the backward
+   pair at the shapes phases 11-13 give them (PATH_CASES, D=64): t5's
+   encoder without a causal mask at t5_base's training microbatch (B=32,
+   S=512, 12:12 heads) and a served encoder length of 300, t5's decoder
+   self-attention (causal) at that microbatch, and moe_8x200m's training
+   microbatch (B=4, S=2048, 16:8 heads, causal), held and timed beside
+   SDPA, the bounds counting the visible pairs (all S^2 without a
+   causal mask).
 2. The serving path: ``ContinuousBatchingEngine`` over llama3_8b at full
    width and depth (random bf16 weights from a seed), 16 requests of
    mixed lengths, some sharing a prefix. The kernels' launch counts are
@@ -150,6 +158,55 @@ Phases, each of which must pass:
    counters moving. The depth is cut only if every trial's checkpoint
    does not fit in DRILL_DISK_BUDGET, or its tier-0 replica in host
    memory (a cut is printed).
+
+11. MoE training: ``examples/moe_expert_parallel.yaml`` compiled by the
+   port with the gpu preset (one device for its dp2 x ep8 mesh: the
+   parallel layer is ROADMAP item 7) and run by the port's launcher in
+   this process: moe_8x200m at full width and depth, lm_synthetic, seq
+   2048, global batch 32 in MOE_ACCUM microbatches, ragged dispatch,
+   MOE_STEPS steps; losses and router_aux finite, each flash kernel once
+   per layer and microbatch, tokens/s and MFU from the active parameters.
+   Then its first-step parity (``moe_parity``), each compared run
+   replaying the kernel path's routing (``_Routing``), within phase 5's
+   tolerances (the loss; layer 0's router, w_gate and wq gradients): the
+   kernel path against the plain path at no-drop capacity and at the
+   training capacity, ragged against dense dispatch at no-drop capacity,
+   and phase 5's backward witnesses.
+12. MoE serving: moe_8x200m (bf16) on the dense and the paged engines
+   over phase 2's mix (each prompt cut to leave room for 32 new tokens in
+   2,048 positions) at no-drop capacity, radix hits required, each
+   engine's routing recorded per row and position (``_EngineRoutes``):
+   every token of both engines' rows must be the target's argmax given
+   its own prefix up to a near-tie, the teacher replaying that engine's
+   routing, and where two rows part, the engines' routings must differ
+   in their common prefix or the parting sit at a near-tie
+   (``moe_rows_check``); the mix at the default capacity on the paged engine, its
+   token streams printed, not held (ROADMAP Queue 3); then mixtral_8x7b
+   at full width and MIXTRAL_LAYERS of its 32 layers on the paged engine
+   (MIXTRAL_PROMPTS, 32 new tokens), its first admission held against
+   the plain path replaying the kernel path's routing.
+13. T5: ``examples/t5_seq2seq.yaml`` compiled and run by the launcher
+   (t5_base, seq2seq_synthetic, adafactor, seq 512, global batch 64 in
+   T5_ACCUM microbatches, remat dots, T5_STEPS steps; one device for its
+   dp2 mesh): the forward kernel's calls split by the causal flag (the
+   encoder's non-causal, the decoder's causal), each backward once per
+   attention layer and microbatch. Then ``ServingServer("t5_base")`` on
+   its defaults answers one request, streamed equal to non-streamed; the
+   continuous engine serves T5_PROMPTS; the first admission's decoder
+   logits are held against the plain path.
+14. The other families, a few steps each at full width and depth with
+   finite losses and no kernel launched: bert_large (mlm_synthetic, seq
+   512, lion), vit_b16 (``examples/hyperband_vit.yaml`` at one trial's
+   values), resnet50 (imagenet_synthetic, batch 64; its batch statistics
+   must move) and mnist_cnn (``examples/mnist.yaml``).
+15. LoRA: ``examples/lora_finetune.yaml``'s runtime, llama3_8b at full
+   width, rank 16, alpha 32, seq 4096, LORA_STEPS steps of LORA_BATCH
+   rows in microbatches of 1, one checkpoint, the depth cut only by
+   ``lora_depth``: each backward kernel once per layer and microbatch,
+   optimizer state for the adapters alone, the base equal to its seeded
+   init, every B moved. ``ServingServer("llama3_8b", checkpoint=...)``
+   then merges the adapters from the checkpoint's ``_meta``, answers one
+   request, and its first admission is held against the plain path.
 
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
@@ -336,15 +393,17 @@ def _flash_inputs(torch, gen, B, S, H, KV, D):
                              dtype=torch.bfloat16) for n in (H, KV, KV))
 
 
-def hold_flash(torch, flash, label, q, k, v, *, seg=None, window=None):
-    """The forward kernel against ``flash_fwd_plain`` (causal); fails on
-    a disagreement, returns the max abs error of o."""
+def hold_flash(torch, flash, label, q, k, v, *, seg=None, window=None,
+               causal=True):
+    """The forward kernel against ``flash_fwd_plain``; fails on a
+    disagreement, returns the max abs error of o."""
     D = q.shape[-1]
-    o, lse = flash.flash_attention_with_lse(q, k, v, causal=True,
+    o, lse = flash.flash_attention_with_lse(q, k, v, causal=causal,
                                             window=window, segment_ids=seg)
     torch.cuda.synchronize()
-    po, plse = flash.flash_fwd_plain(q, k, v, causal=True, scale=D ** -0.5,
-                                     window=window, segment_ids=seg)
+    po, plse = flash.flash_fwd_plain(q, k, v, causal=causal,
+                                     scale=D ** -0.5, window=window,
+                                     segment_ids=seg)
     torch.cuda.synchronize()
     if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
         fail(f"flash kernel produced non-finite values ({label})")
@@ -361,26 +420,29 @@ def hold_flash(torch, flash, label, q, k, v, *, seg=None, window=None):
     return err_o
 
 
-def time_flash(torch, flash, peaks, label, q, k, v, *, window=None):
-    """Kernel, plain and (without a window) SDPA times of the causal
-    forward, and its bound; returns the record."""
+def time_flash(torch, flash, peaks, label, q, k, v, *, window=None,
+               causal=True):
+    """Kernel, plain and (without a window) SDPA times of the forward,
+    and its bound; returns the record."""
     import torch.nn.functional as F
 
     B, S, H, D = q.shape
     KV = k.shape[2]
     ms = time_ms(lambda: flash.flash_attention_with_lse(
-        q, k, v, causal=True, window=window), reps=20)
+        q, k, v, causal=causal, window=window), reps=20)
     plain_ms = time_ms(lambda: flash.flash_fwd_plain(
-        q, k, v, causal=True, scale=D ** -0.5, window=window), reps=3,
+        q, k, v, causal=causal, scale=D ** -0.5, window=window), reps=3,
         warmup=1)
     lib_ms = None
     if window is None:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+            qt, kt, vt, is_causal=causal, enable_gqa=True), reps=20)
         del qt, kt, vt
-    # Visible (row, col) pairs: the causal triangle, cut to the band.
-    pairs = sum(min(r + 1, window or r + 1) for r in range(S))
+    # Visible (row, col) pairs: the causal triangle, cut to the band; all
+    # S^2 of them without a causal mask.
+    pairs = (sum(min(r + 1, window or r + 1) for r in range(S)) if causal
+             else S * S)
     flops = 4.0 * B * H * pairs * D
     nbytes = (2.0 * (2 * B * S * H * D + 2 * B * S * KV * D)
               + 4.0 * B * H * S)  # q, k, v read; o, lse written
@@ -400,7 +462,9 @@ def time_flash(torch, flash, peaks, label, q, k, v, *, window=None):
 # and an idle row (the kernels line's record); b. llama3_8b at 8 long
 # rows (6,000 to 8,191); c. gemma_2b's MQA (8 q heads on 1 kv head,
 # head_dim 256), ragged up to 8,191; d. llama3_1b at 64 rows, positions
-# seeded uniform in 0..2,047 (a grid that fills the card: one split).
+# seeded uniform in 0..2,047 (a grid that fills the card: one split);
+# e. moe_8x200m's 16:8 heads, head_dim 64, ragged up to its 2,048
+# positions, with a hole and an idle row.
 def decode_cases():
     import numpy as np
 
@@ -413,6 +477,8 @@ def decode_cases():
         ("c gemma_2b B=8", 8, 8, 1, 256, 16, 512,
          [8191, 4000, 1033, 6133, 257, 7999, 4800, -1], []),
         ("d llama3_1b B=64", 64, 32, 8, 64, 16, 128, d_pos, []),
+        ("e moe_8x200m B=8", 8, 16, 8, 64, 16, 128,
+         [2047, 1500, 1015, 700, 300, 129, 37, -1], [(3, 10)]),
     )
 
 
@@ -613,7 +679,8 @@ def _bwd_close(got, want) -> bool:
                           atol=BWD_ATOL_REL * want.abs().max().item())
 
 
-def _bwd_inputs(torch, flash, gen, B, S, H, KV, D, seg, dlse: bool):
+def _bwd_inputs(torch, flash, gen, B, S, H, KV, D, seg, dlse: bool,
+                causal: bool = True):
     q = torch.randn(B, S, H, D, generator=gen, device="cuda",
                     dtype=torch.bfloat16)
     k = torch.randn(B, S, KV, D, generator=gen, device="cuda",
@@ -622,7 +689,7 @@ def _bwd_inputs(torch, flash, gen, B, S, H, KV, D, seg, dlse: bool):
                     dtype=torch.bfloat16)
     do = torch.randn(B, S, H, D, generator=gen, device="cuda",
                      dtype=torch.bfloat16)
-    o, lse = flash.flash_fwd_cuda(q, k, v, causal=True, scale=D ** -0.5,
+    o, lse = flash.flash_fwd_cuda(q, k, v, causal=causal, scale=D ** -0.5,
                                   segment_ids=seg)
     dl = (0.1 * torch.randn(B, H, S, generator=gen, device="cuda")
           if dlse else None)
@@ -797,6 +864,99 @@ def time_flash_bwd(torch, flash, peaks, gen, B, S, H, KV, D, seg):
     return recs
 
 
+# The flash kernels at the shapes phases 11-13 give them (D=64): t5's
+# encoder, non-causal, in training (t5_base at S=512, 12:12 heads, the
+# microbatch of phase 13) and served (one ragged encoder length); t5's
+# decoder self-attention, causal, at the same microbatch; moe_8x200m's
+# training microbatch (B=4, S=2048, 16:8 heads), causal.
+PATH_CASES = (("t5_base encoder training B=32 S=512", 32, 512, 12, 12, False),
+              ("t5_base served encoder S=300", 1, 300, 12, 12, False),
+              ("t5_base decoder training B=32 S=512", 32, 512, 12, 12, True),
+              ("moe_8x200m training B=4 S=2048", 4, 2048, 16, 8, True))
+
+
+def check_path_shapes(torch, flash, peaks, gen):
+    """The forward and the backward pair at PATH_CASES: each against its
+    plain version, then timed beside SDPA (``is_causal`` as the case),
+    the bounds counting the visible pairs (all S^2 without a causal
+    mask). Returns the worst errors {"fwd", "dkdv", "dq"} and the
+    records."""
+    import torch.nn.functional as F
+
+    worst = {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
+    recs = {}
+    D = 64
+    for label, B, S, H, KV, causal in PATH_CASES:
+        mask = "causal" if causal else "non-causal"
+        args = _flash_inputs(torch, gen, B, S, H, KV, D)
+        worst["fwd"] = max(worst["fwd"], hold_flash(
+            torch, flash, f"{label} {mask}", *args, causal=causal))
+        recs[f"fwd {label}"] = time_flash(torch, flash, peaks,
+                                          f"{label} {mask}", *args,
+                                          causal=causal)
+        del args
+        args = _bwd_inputs(torch, flash, gen, B, S, H, KV, D, None,
+                           dlse=True, causal=causal)
+        kw = dict(causal=causal, scale=D ** -0.5)
+        got = flash.flash_bwd_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        want = flash.flash_bwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(g).all():
+                fail(f"flash backward {name} non-finite ({label}, {mask})")
+            errs[name] = (g.float() - w.float()).abs().max().item()
+            if not _bwd_close(g, w):
+                fail(f"flash backward {name} disagrees with its plain "
+                     f"version ({label}, {mask}): max abs err "
+                     f"{errs[name]}, max |plain| "
+                     f"{w.float().abs().max().item()} (atol "
+                     f"{BWD_ATOL_REL} * max|plain| + rtol {BWD_RTOL})")
+        worst["dq"] = max(worst["dq"], errs["dq"])
+        worst["dkdv"] = max(worst["dkdv"], errs["dk"], errs["dv"])
+        print(f"flash_bwd {label} {mask}: max_abs_err "
+              f"dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e}",
+              flush=True)
+        del got, want, args
+        args = _bwd_inputs(torch, flash, gen, B, S, H, KV, D, None,
+                           dlse=False, causal=causal)
+        run_dkdv, run_dq, _ = flash._bwd_launchers(*args, **kw)
+        dkdv_ms = time_ms(run_dkdv, reps=20)
+        dq_ms = time_ms(run_dq, reps=20)
+        plain_ms = time_ms(lambda: flash.flash_bwd_plain(*args, **kw),
+                           reps=3, warmup=1)
+        q, k, v, _, _, _, do, _ = args
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=KV < H)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), reps=20)
+        pairs = B * H * (S * (S + 1) / 2 if causal else S * S)
+        qbytes, kvbytes, rowbytes = (2.0 * B * S * H * D,
+                                     2.0 * B * S * KV * D, 4.0 * B * H * S)
+        inputs = 2 * qbytes + 2 * kvbytes + 2 * rowbytes  # q do k v lse dd
+        for name, n_prod, nbytes, ms in (
+                ("dkdv", 4, inputs + 2 * kvbytes, dkdv_ms),
+                ("dq", 1, qbytes, dq_ms)):
+            t_ops = 2.0 * D * n_prod * pairs / peaks[0]
+            t_bytes = nbytes / peaks[1]
+            rec = {"ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes
+                   else "bytes", "library_ms": lib_ms}
+            recs[f"{name} {label}"] = rec
+            print(f"flash_bwd {name} {label} {mask} H={H} KV={KV} D={D}: "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"sdpa_bwd_ms={lib_ms:.4f} bound_ms={rec['bound_ms']:.4f} "
+                  f"({rec['bound_by']})", flush=True)
+        del args, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+    return worst, recs
+
+
 # -------------------------------------------------------------- model
 def make_prompts(vocab: int):
     """16 prompts of mixed lengths: six share a 256-token system prefix
@@ -877,14 +1037,12 @@ def run_engine(flash, paged, cfg, params):
     eng = ContinuousBatchingEngine("llama3_8b", cfg, params, slots=8,
                                    kv="paged", page_size=16, device="cuda")
     try:
-        flash.launches = 0
-        paged.launches = 0
+        _zero(flash, paged)
         t0 = time.perf_counter()
         reqs = [eng.submit(p, 32) for p in prompts]
         outs = [r.wait(timeout=900) for r in reqs]
         wall = time.perf_counter() - t0
-        counts = {"flash_fwd": flash.launches,
-                  "paged_decode": paged.launches}
+        counts = _counts(flash, paged)
         stats = eng.stats()
         bad = eng.check_invariants()
     finally:
@@ -894,8 +1052,8 @@ def run_engine(flash, paged, cfg, params):
     for p, o in zip(prompts, outs):
         if len(o) != 32 or not all(0 <= t < cfg.vocab_size for t in o):
             fail(f"engine output malformed for a prompt of {len(p)}: {o}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in SERVING_KERNELS:
+        if counts[name] <= 0:
             fail(f"main path never launched the {name} kernel")
     tokens = sum(len(o) for o in outs)
     print(f"engine llama3_8b: requests={len(prompts)} tokens={tokens} "
@@ -980,12 +1138,21 @@ def _rel(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
+# The kernels a paged serving path launches (the backward pair's counts
+# stay 0 there).
+SERVING_KERNELS = ("flash_fwd", "paged_decode")
+
+
 def _counts(flash, paged) -> dict:
-    return {"flash_fwd": flash.launches, "paged_decode": paged.launches}
+    """The launches of the four kernels since the last ``_zero``."""
+    return {"flash_fwd": flash.launches,
+            "flash_bwd_dkdv": flash.bwd_dkdv_launches,
+            "flash_bwd_dq": flash.bwd_dq_launches,
+            "paged_decode": paged.launches}
 
 
 def _zero(flash, paged) -> None:
-    flash.launches = 0
+    flash.launches = flash.bwd_dkdv_launches = flash.bwd_dq_launches = 0
     paged.launches = 0
 
 
@@ -1006,10 +1173,15 @@ def _check_outs(label, prompts, outs, new_tokens, vocab):
 def _teacher_logits(torch, llama, cfg, params, prompt, toks):
     """The target's f32 logits predicting each of ``toks`` after
     ``prompt`` ([len(toks), V]): one prompt pass over prompt + toks
-    through the kernel path, only the predicting rows projected."""
+    through the kernel path, only the predicting rows projected.
+    ``llama`` is the target's family module (llama or moe, whose
+    ``hidden_states`` also returns the router aux)."""
     row = torch.tensor([prompt + toks[:-1]], dtype=torch.long,
                        device="cuda")
-    x = llama.hidden_states(cfg, params, row)[0, len(prompt) - 1:]
+    x = llama.hidden_states(cfg, params, row)
+    if isinstance(x, tuple):
+        x = x[0]
+    x = x[0, len(prompt) - 1:]
     return (x @ llama.lm_head(cfg, params).to(cfg.dtype)).float()
 
 
@@ -1042,19 +1214,27 @@ def near_tie_check(torch, llama, cfg, params, label, prompt, got, want):
              f"(tol {tol[j].item():.4f})")
     lg = lw if j is None else _teacher_logits(torch, llama, cfg, params,
                                               prompt, got)
-    picked = lg.gather(1, torch.tensor(got, device="cuda")[:, None])[:, 0]
-    short = lg.amax(dim=-1) - picked
-    bad = (short >= _tie_tol(torch, lg)).nonzero().flatten().tolist()
-    if bad:
-        i = bad[0]
-        fail(f"{label}: token {i} ({got[i]}) is {short[i].item():.4f} below "
-             f"the target's argmax given its own prefix (tol "
-             f"{_tie_tol(torch, lg)[i].item():.4f})")
+    _check_own_choice(torch, label, lg, got)
     if j is not None:
         print(f"  {label}: near-tie divergence at token {j}: gap "
               f"{gaps[j].item():.4f} < tol {tol[j].item():.4f}; "
               f"near-tie share {share:.3f}", flush=True)
     return j, share
+
+
+def _check_own_choice(torch, label, logits, toks):
+    """Fails unless each of ``toks`` is the argmax of its row of the
+    teacher's ``logits`` (the target given the row's own prefix), or
+    within a near-tie of it."""
+    picked = logits.gather(1, torch.tensor(toks, device="cuda")[:, None])[:, 0]
+    short = logits.amax(dim=-1) - picked
+    tol = _tie_tol(torch, logits)
+    bad = (short >= tol).nonzero().flatten().tolist()
+    if bad:
+        i = bad[0]
+        fail(f"{label}: token {i} ({toks[i]}) is {short[i].item():.4f} below "
+             f"the target's argmax given its own prefix (tol "
+             f"{tol[i].item():.4f})")
 
 
 def dense_static(torch, llama, flash, paged, cfg, params, prompts,
@@ -1326,8 +1506,8 @@ def int8_serving(torch, llama, flash, paged, cfg, params, prompts,
         fail(f"int8 engine: page pool invariants broken: {bad[:5]}")
     _check_outs("int8 engine", prompts, outs, DENSE_NEW_TOKENS,
                 cfg.vocab_size)
-    for kernel, n in counts.items():
-        if n <= 0:
+    for kernel in SERVING_KERNELS:
+        if counts[kernel] <= 0:
             fail(f"the int8 engine never launched {kernel}")
     prompt = prompts[0]
     page = 16
@@ -1684,8 +1864,8 @@ def fleet(torch, flash, paged):
         fail(f"fleet: /v1/fleet lacks per-replica series: {snap}")
     if stats["kv_invariant_violations"]:
         fail("fleet: page pool invariants broken")
-    for kernel, n in counts.items():
-        if n <= 0:
+    for kernel in SERVING_KERNELS:
+        if counts[kernel] <= 0:
             fail(f"fleet never launched {kernel}")
     tokens = sum(map(len, outs))
     reasons = {}
@@ -1720,7 +1900,7 @@ def serve_the_rest(torch, llama, flash, paged, cfg, params, prompts,
     return dense_counts, spec_counts, lane_counts, http_counts, int8_counts
 
 
-def run_training(torch, flash, job, layers):
+def run_training(torch, flash, paged, job, layers):
     """One training main path; returns its launch counts and the loss of
     each emitted step."""
     from polyaxon_tpu_torch.runtime.loop import run_torchjob
@@ -1729,13 +1909,11 @@ def run_training(torch, flash, job, layers):
     steps, accum = rt["steps"], rt["grad_accum_steps"]
     emitted = []
     torch.cuda.reset_peak_memory_stats()
-    flash.launches = flash.bwd_dkdv_launches = flash.bwd_dq_launches = 0
+    _zero(flash, paged)
     t0 = time.perf_counter()
     result = run_torchjob(job, on_metrics=lambda s, v: emitted.append((s, v)))
     wall = time.perf_counter() - t0
-    counts = {"flash_fwd": flash.launches,
-              "flash_bwd_dkdv": flash.bwd_dkdv_launches,
-              "flash_bwd_dq": flash.bwd_dq_launches}
+    counts = _counts(flash, paged)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for step, vals in emitted:
         print(f"train {rt['model']} step {step}: loss={vals['loss']:.5f} "
@@ -1754,7 +1932,7 @@ def run_training(torch, flash, job, layers):
     # remat "dots" recomputes the forward kernel once in the backward.
     want_bwd = layers * accum * steps
     if counts != {"flash_fwd": 2 * want_bwd, "flash_bwd_dkdv": want_bwd,
-                  "flash_bwd_dq": want_bwd}:
+                  "flash_bwd_dq": want_bwd, "paged_decode": 0}:
         fail(f"{rt['model']} training main path launches {counts}; each "
              f"backward kernel must run {want_bwd} times (layers x "
              f"microbatches x steps), the forward twice as often")
@@ -2101,7 +2279,8 @@ def _drill(torch, flash, paged, llama, train_losses, train_result, tmp,
     if layers == TRAIN_LAYERS:
         refs.append(train_losses)
     while len(refs) < 2:
-        _, losses, ref_result = run_training(torch, flash, ref_job, layers)
+        _, losses, ref_result = run_training(torch, flash, paged, ref_job,
+                                             layers)
         refs.append(losses)
         torch.cuda.empty_cache()
     spread = max(abs(refs[0][s] - refs[1][s]) for s in refs[0])
@@ -2371,20 +2550,18 @@ def serve_checkpoint(torch, flash, paged, llama, ckdir, layers):
                                    page_size=16, max_len=4096,
                                    device="cuda")
     try:
-        flash.launches = 0
-        paged.launches = 0
+        _zero(flash, paged)
         reqs = [eng.submit(p, SERVE_NEW_TOKENS) for p in prompts]
         outs = [r.wait(timeout=600) for r in reqs]
-        counts = {"flash_fwd": flash.launches,
-                  "paged_decode": paged.launches}
+        counts = _counts(flash, paged)
     finally:
         eng.stop()
     for o in outs:
         if len(o) != SERVE_NEW_TOKENS or not all(
                 0 <= t < cfg.vocab_size for t in o):
             fail(f"serving the drill's checkpoint: malformed output {o}")
-    for kernel, n in counts.items():
-        if n <= 0:
+    for kernel in SERVING_KERNELS:
+        if counts[kernel] <= 0:
             fail(f"serving the drill's checkpoint never launched {kernel}")
     print(f"serve checkpoint: {name} loaded in {t_load:.1f}s, "
           f"{len(prompts)} requests x {SERVE_NEW_TOKENS} new tokens, "
@@ -2877,16 +3054,12 @@ def _sweep(torch, flash, paged, tmp):
 
     plane = ControlPlane(os.path.join(tmp, "home"))
     agent = Agent(plane, max_concurrent=2, in_process=True)
-    flash.launches = flash.bwd_dkdv_launches = flash.bwd_dq_launches = 0
-    paged.launches = 0
+    _zero(flash, paged)
     t0 = time.perf_counter()
     record = plane.submit(spec, project="chip-smoke")
     status = agent.run_until_done(record.uuid, timeout=900)
     wall = time.perf_counter() - t0
-    counts = {"flash_fwd": flash.launches,
-              "flash_bwd_dkdv": flash.bwd_dkdv_launches,
-              "flash_bwd_dq": flash.bwd_dq_launches,
-              "paged_decode": paged.launches}
+    counts = _counts(flash, paged)
     trials = plane.list_runs(pipeline_uuid=record.uuid)
     if status != V1Statuses.SUCCEEDED:
         fail(f"{label}: the sweep ended {status.value}; trials "
@@ -2947,7 +3120,7 @@ def _sweep(torch, flash, paged, tmp):
     best = min(((v, t) for v, t in scored if v is not None),
                key=lambda vt: vt[0])[1]
     ckpt = os.path.join(plane.run_artifacts_dir(best.uuid), "checkpoints")
-    flash.launches = paged.launches = 0
+    _zero(flash, paged)
     t0 = time.perf_counter()
     with ServingServer(model, ckpt, batching="continuous",
                        kv="paged") as server:
@@ -2959,12 +3132,11 @@ def _sweep(torch, flash, paged, tmp):
             headers={"Content-Type": "application/json"})
         with urllib.request.urlopen(req, timeout=300) as resp:
             served = json.load(resp)
-    serve_counts = {"flash_fwd": flash.launches,
-                    "paged_decode": paged.launches}
+    serve_counts = _counts(flash, paged)
     tokens = served["tokens"][0]
     if len(tokens) != SWEEP_NEW_TOKENS or not all(
             0 <= x < llama.CONFIGS[model].vocab_size for x in tokens) or \
-            not all(n > 0 for n in serve_counts.values()):
+            not all(serve_counts[k] > 0 for k in SERVING_KERNELS):
         fail(f"{label}: serving the best trial's checkpoint returned "
              f"{served} with launches {serve_counts}")
     print(f"{label}: best trial {best.name} (loss "
@@ -2975,6 +3147,1078 @@ def _sweep(torch, flash, paged, tmp):
     del server
     torch.cuda.empty_cache()
     return counts, serve_counts
+
+
+# ------------------------------------------ the other families (11-15)
+MOE_EXAMPLE = "examples/moe_expert_parallel.yaml"
+T5_EXAMPLE = "examples/t5_seq2seq.yaml"
+VIT_EXAMPLE = "examples/hyperband_vit.yaml"
+MNIST_EXAMPLE = "examples/mnist.yaml"
+LORA_EXAMPLE = "examples/lora_finetune.yaml"
+# Phase 11: moe_8x200m's global batch of 32 x 2048 in 8 microbatches of 4
+# rows; 6 steps.
+MOE_STEPS = 6
+MOE_ACCUM = 8
+# Phase 12: new tokens per request; the served mixtral_8x7b's depth (16
+# of its 32 layers: 47 GB of bf16 weights) and its eight prompts.
+MOE_NEW_TOKENS = 32
+MIXTRAL_LAYERS = 16
+MIXTRAL_PROMPTS = (2048, 1500, 1024, 700, 300, 129, 37, 5)
+# Phase 13: t5_base's global batch of 64 x 512 in 2 microbatches; 6
+# steps; served prompts of mixed encoder lengths.
+T5_STEPS = 6
+T5_ACCUM = 2
+T5_NEW_TOKENS = 32
+T5_PROMPTS = (512, 400, 300, 200, 129, 64, 37, 5)
+# Phase 15: lora_finetune.yaml's runtime at 3 steps of global batch 4 in
+# microbatches of 1 (its 16-row batch at one row per microbatch would be
+# 16 microbatches a step).
+LORA_STEPS = 3
+LORA_BATCH = 4
+
+
+def compile_example(path: str, label: str, *, params=None, axes=None,
+                    runtime=None) -> dict:
+    """``path`` compiled by the port (the gpu preset, then a preset of one
+    process, the mesh ``axes`` at one device each, and the ``runtime``
+    patch); returns the job its one process runs (the plan's
+    POLYAXON_JAXJOB_SPEC)."""
+    from polyaxon_tpu_torch.compiler import ENV_JAXJOB_SPEC, compile_operation
+    from polyaxon_tpu_torch.polyaxonfile import (check_polyaxonfile,
+                                                 resolve_operation_context)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    patch: dict = {"numProcesses": 1}
+    if axes:
+        patch["mesh"] = {"axes": {a: 1 for a in axes}}
+    if runtime:
+        patch["runtime"] = runtime
+    preset = {"isPreset": True, "patchStrategy": "post_merge",
+              "runPatch": patch}
+    op = check_polyaxonfile([os.path.join(repo, path)], params=params,
+                            presets=[os.path.join(repo, GPU_PRESET), preset])
+    plan = compile_operation(resolve_operation_context(op),
+                             run_uuid="chip-smoke", artifacts_root="/tmp")
+    if plan.num_processes != 1:
+        fail(f"{label}: the plan has {plan.num_processes} processes")
+    job = json.loads(plan.processes[0].env[ENV_JAXJOB_SPEC])
+    cut = f"; cut: one device for its mesh {sorted(axes)} (the parallel " \
+          "layer is ROADMAP item 7)" if axes else ""
+    print(f"{label}: {path} compiled by the port: runtime "
+          f"{job['runtime']}, mesh {job.get('mesh')}{cut}", flush=True)
+    return job
+
+
+def launch_in_process(job: dict, artifacts_dir: str, label: str):
+    """The port's launcher (``runtime/launch.py main``) on ``job`` in this
+    process, its stdout captured; returns (emissions, outputs, launches,
+    wall seconds). Fails unless it exits 0."""
+    import contextlib
+    import io
+
+    from polyaxon_tpu_torch.runtime import launch
+
+    env = {launch.ENV_JAXJOB_SPEC: json.dumps(job),
+           launch.ENV_ARTIFACTS_PATH: artifacts_dir,
+           launch.ENV_RUN_UUID: "chip-smoke"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = launch.main(device="cuda")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    lines = [json.loads(line) for line in out.getvalue().splitlines()
+             if line.startswith("{")]
+    if rc != 0:
+        fail(f"{label}: the launcher exited {rc}:\n"
+             f"{out.getvalue()[-3000:]}")
+    emitted = [d for d in lines if "step" in d]
+    outputs = next(d["outputs"] for d in lines if "outputs" in d)
+    launches = next(d["launches"] for d in lines if "launches" in d)
+    return emitted, outputs, launches, wall
+
+
+class _CausalSplit:
+    """Counts the flash kernels' calls by their causal flag, around the
+    wrappers the autograd function calls (``flash_fwd_cuda``,
+    ``flash_bwd_cuda``)."""
+
+    def __init__(self, flash):
+        self.flash = flash
+        self.counts = {"fwd causal": 0, "fwd non-causal": 0,
+                       "bwd causal": 0, "bwd non-causal": 0}
+
+    def _wrap(self, kind, fn):
+        def counted(*args, **kw):
+            name = f"{kind} {'causal' if kw['causal'] else 'non-causal'}"
+            self.counts[name] += 1
+            return fn(*args, **kw)
+        return counted
+
+    def __enter__(self):
+        self.real = (self.flash.flash_fwd_cuda, self.flash.flash_bwd_cuda)
+        self.flash.flash_fwd_cuda = self._wrap("fwd", self.real[0])
+        self.flash.flash_bwd_cuda = self._wrap("bwd", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.flash.flash_fwd_cuda, self.flash.flash_bwd_cuda = self.real
+
+
+def _check_emissions(label, emitted, steps, keys=("loss", "grad_norm")):
+    if len(emitted) != steps - 1:
+        fail(f"{label}: {len(emitted)} emissions for {steps} steps")
+    for vals in emitted:
+        for key in keys:
+            if not math.isfinite(vals.get(key, float("nan"))):
+                fail(f"{label}: step {vals['step']} {key} is "
+                     f"{vals.get(key)}")
+
+
+def moe_training(torch, flash, paged):
+    """Phase 11: examples/moe_expert_parallel.yaml compiled with the gpu
+    preset and run by the port's launcher: moe_8x200m at full width and
+    depth, lm_synthetic, seq 2048, global batch 32 in MOE_ACCUM
+    microbatches, ragged dispatch, MOE_STEPS steps. Each backward kernel
+    once per layer and microbatch; router_aux reported; tokens/s and MFU
+    from the active parameters. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from polyaxon_tpu_torch.models import moe
+
+    label = "11. moe training"
+    t_phase = time.perf_counter()
+    cfg = moe.CONFIGS["moe_8x200m"]
+    job = compile_example(MOE_EXAMPLE, label, axes=("dp", "ep"),
+                          runtime={"steps": MOE_STEPS,
+                                   "grad_accum_steps": MOE_ACCUM,
+                                   "log_every": 1})
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-moe-")
+    try:
+        _zero(flash, paged)
+        torch.cuda.reset_peak_memory_stats()
+        emitted, outputs, launches, wall = launch_in_process(job, tmp, label)
+        counts = _counts(flash, paged)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _check_emissions(label, emitted, MOE_STEPS,
+                     keys=("loss", "grad_norm", "router_aux", "ce_loss"))
+    want = cfg.n_layers * MOE_ACCUM * MOE_STEPS
+    if counts != launches or counts != {
+            "flash_fwd": want, "flash_bwd_dkdv": want, "flash_bwd_dq": want,
+            "paged_decode": 0}:
+        fail(f"{label}: launches {counts} (launcher's line {launches}); "
+             f"each flash kernel must run {want} times (layers x "
+             f"microbatches x steps)")
+    for vals in emitted:
+        print(f"{label} step {vals['step']}: loss={vals['loss']:.5f} "
+              f"ce={vals['ce_loss']:.5f} router_aux="
+              f"{vals['router_aux']:.5f} grad_norm={vals['grad_norm']:.4f} "
+              f"step_ms={vals['step_time_ms']:.1f} tokens_per_s="
+              f"{vals['tokens_per_sec']:.1f} mfu={vals.get('mfu')}",
+              flush=True)
+    last = emitted[-1]
+    print(f"{label}: params={outputs['param_count'] / 1e9:.3f}B "
+          f"tokens_per_s={outputs['throughput']:.1f} "
+          f"mfu(active params)={last.get('mfu')} "
+          f"first_step_s={outputs['compile_time_s']:.1f} wall_s={wall:.1f} "
+          f"max_memory_allocated_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches={counts} "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return counts
+
+
+class _Routing:
+    """Records or replays the MoE router's choices through ``moe._top_k``
+    (the one place either dispatch decides a routing). Every call's
+    expert ids [T, K] are appended to ``calls``, in the order the model
+    makes them. With ``replay`` (one [T, K] per call, in that order; -1 =
+    not recorded), each call takes the recorded ids instead of its own
+    top-k, the router's probabilities at those ids renormalized as the
+    router does; ``flips`` counts the tokens of each call whose own
+    choice would have differed. A rounding that flips a near-tie routing
+    choice changes the function by more than a rounding: replayed, two
+    computations of one function differ by their roundings alone."""
+
+    def __init__(self, torch, moe, replay=None):
+        self.torch, self.moe, self.replay = torch, moe, replay
+        self.calls, self.flips = [], []
+
+    def __enter__(self):
+        torch, real = self.torch, self.moe._top_k
+        self.real = real
+
+        def top_k(probs, k):
+            top_probs, idx = real(probs, k)
+            if self.replay is not None:
+                want = self.replay[len(self.calls)].to(idx.device)
+                if want.shape != idx.shape:
+                    fail(f"routing replay: call {len(self.calls)} routes "
+                         f"{tuple(idx.shape)}, recorded {tuple(want.shape)}")
+                known = want >= 0
+                self.flips.append(int(((idx.sort(-1).values
+                                        != want.sort(-1).values).any(-1)
+                                       & known.all(-1)).sum()))
+                idx = torch.where(known, want, idx)
+                top_probs = probs.gather(-1, idx)
+                top_probs = top_probs / top_probs.sum(-1, keepdim=True)
+            self.calls.append(idx)
+            return top_probs, idx
+
+        self.moe._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k = self.real
+
+
+def moe_parity(torch, flash):
+    """Phase 11, first-step parity: one 1x2048 microbatch of moe_8x200m
+    from the same f32 weights, the routing of each compared run replayed
+    from the kernel path's (``_Routing``; the tokens whose own choice
+    would differ are printed). Held within phase 5's tolerances: the loss
+    and layer 0's router, w_gate and wq gradients of the kernel path
+    against the plain path (einsum attention) at no-drop capacity
+    (n_experts / experts_per_token) and at the training capacity, and of
+    ragged against dense dispatch at no-drop capacity; and phase 5's
+    backward witnesses (each backward call against the plain backward
+    with the kernels' bf16 roundings, and the kernel path against the
+    forward kernel with the f32 plain backward)."""
+    from polyaxon_tpu_torch.models import moe
+    from polyaxon_tpu_torch.runtime.data import lm_synthetic
+
+    base = moe.CONFIGS["moe_8x200m"]
+    params = moe.init(base, torch.Generator(device="cuda").manual_seed(SEED),
+                      device="cuda")["params"]
+    for t in _leaves(params):
+        t.requires_grad_(True)
+    batch = {"tokens": torch.from_numpy(next(lm_synthetic(
+        1, seq_len=2048, vocab_size=base.vocab_size,
+        seed=SEED + 3))["tokens"]).cuda().long()}
+    names = ("router", "w_gate", "wq")
+    no_drop = base.n_experts / base.experts_per_token
+
+    def run(replay=None, **overrides):
+        """(loss, layer-0 grads, routing calls, flips per call)."""
+        cfg = dataclasses.replace(base, **overrides)
+        with _Routing(torch, moe, replay) as routing:
+            loss, _, _ = moe.apply(cfg, {"params": params, "state": {}},
+                                   batch)
+        loss.backward()
+        grads = {n: params["layers"][n].grad[0].float().clone()
+                 for n in names}
+        for t in _leaves(params):
+            t.grad = None
+        torch.cuda.synchronize()
+        return loss.item(), grads, routing.calls, routing.flips
+
+    def compare(label, a, b):
+        (la, ga, _, _), (lb, gb, _, flips) = a, b
+        loss_rel = abs(la - lb) / abs(lb)
+        rels = {n: ((ga[n] - gb[n]).norm() / gb[n].norm()).item()
+                for n in names}
+        print(f"11. moe first-step parity, {label}: loss {la:.6f} vs "
+              f"{lb:.6f} rel={loss_rel:.3e}; layer-0 grad rel "
+              + " ".join(f"{n}={r:.3e}" for n, r in rels.items())
+              + f"; routing replayed, the compared run's own choice "
+              f"differs for {sum(flips)} of {len(flips) * 2048} "
+              f"(layer, token) pairs", flush=True)
+        if not all(torch.isfinite(g).all() for g in ga.values()):
+            fail(f"moe parity ({label}): non-finite gradients")
+        return loss_rel, rels
+
+    kernel = run(attention_impl="flash", capacity_factor=no_drop)
+    kernel_tc = run(attention_impl="flash")
+    held = [
+        compare(f"kernel vs plain path at no-drop capacity {no_drop}",
+                kernel, run(kernel[2], attention_impl="xla",
+                            capacity_factor=no_drop)),
+        compare(f"ragged vs dense dispatch at no-drop capacity {no_drop}",
+                kernel, run(kernel[2], attention_impl="flash",
+                            capacity_factor=no_drop, dispatch="dense")),
+        compare(f"kernel vs plain path at the training capacity "
+                f"{base.capacity_factor}", kernel_tc,
+                run(kernel_tc[2], attention_impl="xla"))]
+
+    # Phase 5's witnesses of the backward kernels.
+    layer_errs = []
+    kernel_bwd = flash.flash_bwd_cuda
+
+    def held_bwd(*args, **kw):
+        got = kernel_bwd(*args, **kw)
+        want = flash_bwd_plain_bf16(*args, **kw)
+        layer_errs.append(max(((g.float() - w.float()).abs().max()
+                               / w.float().abs().max()).item()
+                              for g, w in zip(got, want)))
+        return got
+
+    def swapped(fn):
+        # The name _FlashFn.backward calls (MoEConfig has no
+        # flash_bwd_impl field, as the reference's has none).
+        flash.flash_bwd_cuda = fn
+        try:
+            return run(kernel[2], attention_impl="flash",
+                       capacity_factor=no_drop)
+        finally:
+            flash.flash_bwd_cuda = kernel_bwd
+
+    swapped(held_bwd)
+    _, bwd_rel = compare(
+        "kernel path vs the forward kernel with the f32 plain backward",
+        kernel, swapped(flash.flash_bwd_plain))
+    print(f"11. moe parity witness: {len(layer_errs)} backward calls held "
+          f"against the plain backward with P and dS in bf16, worst "
+          f"max|err| / max|plain| {max(layer_errs, default=0.0):.3e}",
+          flush=True)
+    if len(layer_errs) != base.n_layers \
+            or max(layer_errs, default=0.0) > TRAIN_LAYER_BWD_TOL \
+            or max(bwd_rel.values()) > TRAIN_BWD_REL_TOL:
+        fail(f"moe parity: backward witnesses {layer_errs} (tol "
+             f"{TRAIN_LAYER_BWD_TOL}), {bwd_rel} (tol {TRAIN_BWD_REL_TOL})")
+    for (loss_rel, rels), label in zip(held, (
+            "kernel vs plain", "ragged vs dense",
+            "kernel vs plain at the training capacity")):
+        if loss_rel > TRAIN_LOSS_REL_TOL or max(rels.values()) \
+                > TRAIN_GRAD_REL_TOL:
+            fail(f"moe parity ({label}): loss rel {loss_rel} (tol "
+                 f"{TRAIN_LOSS_REL_TOL}), grad rel {rels} (tol "
+                 f"{TRAIN_GRAD_REL_TOL})")
+    del params
+    torch.cuda.empty_cache()
+
+
+def router_margin(torch, moe, cfg, params, tokens, j):
+    """The routing of the token at position ``j`` of a prompt pass over
+    ``tokens``: the smallest gap between some layer's K-th and (K+1)-th
+    router logits, as a multiple of NEAR_TIE_ULPS bf16 spacings (printed
+    where two engines' rows part)."""
+    ratios, real = [], moe.moe_block
+    K = cfg.experts_per_token
+
+    def spy(c, h, router_w, *args, **kw):
+        row = h.reshape(-1, h.shape[-1])[j]
+        logits = (row @ router_w.to(c.dtype)).float()[None]
+        top = logits.sort(descending=True).values[0]
+        ratios.append(((top[K - 1] - top[K]) / _tie_tol(torch, logits)[0])
+                      .item())
+        return real(c, h, router_w, *args, **kw)
+
+    moe.moe_block = spy
+    try:
+        with torch.no_grad():
+            moe.hidden_states(cfg, params, torch.tensor(
+                [tokens[:j + 1]], device="cuda"))
+    finally:
+        moe.moe_block = real
+    return min(ratios)
+
+
+class _EngineRoutes:
+    """The routing one engine's MoE computed for each request, position
+    by position, recorded through ``_Routing`` while it serves: its
+    admission prefills (``_prefill_row``: the prompt from the radix hit
+    on) and its decode steps (``_decode_logits``: each live slot's
+    position). A position that a radix hit skipped is found by its
+    context (the tokens up to it) among the other requests' prefills."""
+
+    def __init__(self, torch, eng, routing, n_layers):
+        self.torch, self.L = torch, n_layers
+        self.own, self.by_context, self.prefills = {}, {}, []
+        real_prefill, real_decode = eng._prefill_row, eng._decode_logits
+
+        def routed_since(n0):  # [T, L, K]
+            calls = routing.calls[n0:]
+            if len(calls) != n_layers:
+                fail(f"routing record: {len(calls)} router calls in one "
+                     f"model call of {n_layers} layers")
+            return torch.stack(calls, 1).cpu()
+
+        def prefill_row(b, req, tokens, skip):
+            n0 = len(routing.calls)
+            real_prefill(b, req, tokens, skip)
+            if skip < len(tokens):
+                self.prefills.append((req, list(tokens), skip,
+                                      routed_since(n0)))
+
+        def decode_logits():
+            live = [(b, req, int(eng._pos[b]))
+                    for b, req in enumerate(eng._slot_req[:eng.slots])
+                    if req is not None]
+            n0 = len(routing.calls)
+            logits = real_decode()
+            routed = routed_since(n0)
+            for b, req, pos in live:
+                self.own[(id(req), pos)] = routed[b]
+            return logits
+
+        eng._prefill_row, eng._decode_logits = prefill_row, decode_logits
+
+    def finish(self) -> None:
+        for req, tokens, skip, routed in self.prefills:
+            h = 0
+            for t, tok in enumerate(tokens):
+                h = hash((h, tok))
+                if t >= skip:
+                    self.own[(id(req), t)] = routed[t - skip]
+                    self.by_context.setdefault((t, h), []).append(
+                        routed[t - skip])
+
+    def row(self, req, seq, n: int):
+        """[n, L, K] expert ids of positions 0..n-1 of ``req``'s row
+        ``seq`` (prompt and output); -1 where nothing was recorded or the
+        prefills that computed a skipped position disagree."""
+        torch = self.torch
+        out = None
+        h = 0
+        for t in range(n):
+            h = hash((h, seq[t]))
+            r = self.own.get((id(req), t))
+            if r is None:
+                found = self.by_context.get((t, h), [])
+                if found and all(torch.equal(f, found[0]) for f in found):
+                    r = found[0]
+            if out is None and r is not None:
+                out = torch.full((n, *r.shape), -1, dtype=r.dtype)
+            if r is not None:
+                out[t] = r
+        if out is None:
+            fail("routing record: nothing recorded for a served row")
+        return out
+
+
+def _replayed_teacher(torch, moe, cfg, params, prompt, toks, routes):
+    """``_teacher_logits`` over ``prompt + toks`` with the routing
+    ``routes`` [positions, L, K] (-1: the pass's own choice) replayed."""
+    n = len(prompt) + len(toks) - 1
+    with _Routing(torch, moe, [routes[:n, i] for i in
+                               range(routes.shape[1])]):
+        return _teacher_logits(torch, moe, cfg, params, prompt, toks)
+
+
+def moe_rows_check(torch, moe, cfg, params, label, prompts, rows, routes):
+    """Greedy rows of two MoE engines over ``prompts`` (``rows`` and
+    ``routes`` as {engine: (requests, outputs)} and {engine:
+    _EngineRoutes}, the first engine the reference): each engine's every
+    token must be the target's argmax given its own prefix, up to a
+    near-tie, with the teacher replaying the routing that engine
+    computed for the row; where two rows part, the engines' recorded
+    routings must differ at some position of their common prefix, or
+    the parting must sit at a near-tie of the reference teacher's
+    logits. Returns (rows that part, of them those whose routings
+    differ)."""
+    (ref, (ref_reqs, ref_outs)), (other, (reqs, outs)) = rows.items()
+    parted = excused = 0
+    for i, p in enumerate(prompts):
+        a, b = outs[i], ref_outs[i]
+        seq_a, seq_b = p + a, p + b
+        ra = routes[other].row(reqs[i], seq_a, len(seq_a) - 1)
+        rb = routes[ref].row(ref_reqs[i], seq_b, len(seq_b) - 1)
+        lb = _replayed_teacher(torch, moe, cfg, params, p, b, rb)
+        _check_own_choice(torch, f"{label} row {i} {ref}", lb, b)
+        la = _replayed_teacher(torch, moe, cfg, params, p, a, ra)
+        _check_own_choice(torch, f"{label} row {i} {other}", la, a)
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        parted += 1
+        n = len(p) + j
+        known = ((ra[:n] >= 0) & (rb[:n] >= 0)).flatten(1).all(-1)
+        differ = known & (ra[:n].sort(-1).values
+                          != rb[:n].sort(-1).values).flatten(1).any(-1)
+        margin = router_margin(torch, moe, cfg, params, seq_b, n - 1)
+        top2 = torch.topk(lb[j], 2).values
+        gap, tol = (top2[0] - top2[1]).item(), _tie_tol(torch,
+                                                          lb[j][None])[0]
+        where = differ.nonzero().flatten().tolist()
+        print(f"  {label} row {i} parts at token {j}: routing differs "
+              f"between the engines at {len(where)} of {n} positions "
+              f"({int(known.sum())} recorded in both; first "
+              f"{where[:3]}); logits top-2 gap {gap:.4f} (tol "
+              f"{tol.item():.4f}); smallest router top-2 gap at the token "
+              f"{margin:.3f} of the tolerance", flush=True)
+        if where:
+            excused += 1
+        elif gap >= tol:
+            fail(f"{label} row {i}: {other} parts from {ref} at token {j} "
+                 f"({a[j]} vs {b[j]}) where both engines routed alike and "
+                 f"the top-2 gap {gap:.4f} is not a near-tie (tol "
+                 f"{tol.item():.4f})")
+    return parted, excused
+
+
+def moe_first_admission(torch, moe, cfg, params, prompt):
+    """``compare_first_admission`` for an MoE: the first admission's
+    prefill KV and first decode logits, kernel path against plain path,
+    at no-drop capacity, the plain path replaying the kernel path's
+    routing (``_Routing``), held over every position (max error over
+    max value, MODEL_REL_TOL). Prints how many prompt positions the
+    plain path would route otherwise in some layer."""
+    nd = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    page = 16
+    P = len(prompt) - 1
+    n_pages = -(-(P + 1) // page) + 1
+    tables = torch.full((1, n_pages), -1, dtype=torch.long, device="cuda")
+    tables[0, :n_pages - 1] = torch.arange(1, n_pages, device="cuda")
+    row = torch.tensor([prompt[:-1]], dtype=torch.long, device="cuda")
+    tok = torch.tensor([prompt[-1]], dtype=torch.long, device="cuda")
+    pos = torch.tensor([P], dtype=torch.long, device="cuda")
+    plain = dataclasses.replace(nd, attention_impl="xla",
+                                paged_attention_impl="gather")
+    results, replay = {}, None
+    for name, c in (("kernel", nd), ("plain", plain)):
+        cache = moe.paged_init_cache(c, n_pages, page, device="cuda")
+        with _Routing(torch, moe, replay) as routing:
+            k, v = moe.paged_prefill_kv(c, params, row)
+            moe.paged_insert_prefill(cache, k, v, tables[0], page)
+            logits, _ = moe.decode_step_paged(c, params, cache, tok, pos,
+                                              tables)
+        torch.cuda.synchronize()
+        results[name], replay = (k, v, logits), routing.calls
+        del cache
+    L = cfg.n_layers
+    flips = routing.flips
+    out = {}
+    for i, what in enumerate(("k", "v", "logits")):
+        a, b = results["kernel"][i].float(), results["plain"][i].float()
+        if not torch.isfinite(a).all():
+            fail(f"moe first admission: non-finite {what}")
+        out[what] = ((a - b).abs().max() / b.abs().max()).item()
+        if out[what] > MODEL_REL_TOL:
+            fail(f"moe first admission {what}: kernel path vs plain path "
+                 f"relative max err {out[what]} (tol {MODEL_REL_TOL}), "
+                 f"the routing replayed")
+    print(f"moe first admission (prompt {len(prompt)}, no-drop capacity, "
+          f"the plain path replaying the kernel path's routing): rel err "
+          f"k={out['k']:.3e} v={out['v']:.3e} logits={out['logits']:.3e}; "
+          f"the plain path's own routing would differ for "
+          f"{sum(flips[:L])} (layer, position) pairs of the prompt's "
+          f"{L * P} and {sum(flips[L:])} of the decoded token's {L}",
+          flush=True)
+
+
+def moe_serving(torch, llama, flash, paged):
+    """Phase 12: moe_8x200m (bf16, random weights from SEED) on the dense
+    and the paged engines over phase 2's mix at no-drop capacity, each
+    engine's routing recorded (``moe_rows_check`` holds the rows; radix
+    hits must fire), the mix at the default capacity on the paged engine
+    (token streams printed, not held: ROADMAP Queue 3), then mixtral_8x7b
+    at full width and MIXTRAL_LAYERS of its layers on the paged engine,
+    its first admission held against the plain path. Returns each run's
+    launches."""
+    import numpy as np
+
+    from polyaxon_tpu_torch.models import moe
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+
+    label = "12. moe serving"
+    t_phase = time.perf_counter()
+    base = moe.CONFIGS["moe_8x200m"]
+    params = moe.init(base, torch.Generator(device="cuda").manual_seed(SEED),
+                      device="cuda", param_dtype=base.dtype)["params"]
+    no_drop = dataclasses.replace(
+        base, capacity_factor=base.n_experts / base.experts_per_token)
+    # Phase 2's mix, each prompt cut to leave room for the new tokens in
+    # moe_8x200m's 2048 positions.
+    prompts = [p[:base.max_seq_len - MOE_NEW_TOKENS]
+               for p in make_prompts(base.vocab_size)]
+    runs, rows, routes = [], {}, {}
+    for name, cfg, kv in (("dense", no_drop, "dense"),
+                          ("paged", no_drop, "paged"),
+                          ("paged, capacity 1.25", base, "paged")):
+        eng = ContinuousBatchingEngine("moe_8x200m", cfg, params, slots=8,
+                                       kv=kv, page_size=16, device="cuda")
+        # The no-drop engines record the routing they compute per row.
+        routing = _Routing(torch, moe) if cfg is no_drop else None
+        if routing is not None:
+            routing.__enter__()
+            routes[name] = _EngineRoutes(torch, eng, routing, base.n_layers)
+        try:
+            _zero(flash, paged)
+            reqs, o, wall = _run_engine_mix(eng, prompts, MOE_NEW_TOKENS)
+            counts = _counts(flash, paged)
+            stats = eng.stats()
+            bad = eng.check_invariants() if kv == "paged" else []
+        finally:
+            eng.stop()
+            if routing is not None:
+                routing.__exit__()
+        _check_outs(f"{label} {name}", prompts, o, MOE_NEW_TOKENS,
+                    base.vocab_size)
+        if bad:
+            fail(f"{label} {name}: page pool invariants broken: {bad[:5]}")
+        want_kernels = ("flash_fwd", "paged_decode") if kv == "paged" \
+            else ("flash_fwd",)
+        if any(counts[k] <= 0 for k in want_kernels):
+            fail(f"{label} {name}: launches {counts}")
+        if kv == "paged" and stats["prefill_tokens_skipped"] <= 0:
+            fail(f"{label} {name}: no radix hit fired")
+        print(f"{label} {name}: {len(prompts)} requests x {MOE_NEW_TOKENS} "
+              f"tokens wall_s={wall:.2f} tokens_per_s="
+              f"{len(prompts) * MOE_NEW_TOKENS / wall:.1f} "
+              f"decode_step_ms_median={stats['decode_step_ms_median']:.2f} "
+              f"prefill_tokens_skipped="
+              f"{stats.get('prefill_tokens_skipped', 0)} launches={counts}"
+              + (" (routing recorded)" if routing is not None else ""),
+              flush=True)
+        runs.append(counts)
+        rows[name] = (reqs, o)
+        if name in routes:
+            routes[name].finish()
+    parted, differ = moe_rows_check(
+        torch, moe, no_drop, params, label, prompts,
+        {k: rows[k] for k in ("dense", "paged")}, routes)
+    outs = {k: o for k, (_, o) in rows.items()}
+    same = sum(a == b for a, b in zip(outs["paged, capacity 1.25"],
+                                      outs["paged"]))
+    print(f"{label}: paged rows equal to dense {len(prompts) - parted}/"
+          f"{len(prompts)}; of the {parted} that part, {differ} where the "
+          f"two engines' recorded routings differ and "
+          f"{parted - differ} at a near-tie of the logits; at capacity 1.25 "
+          f"(full prefill drops, suffix prefill and decode do not) "
+          f"{same}/{len(prompts)} rows equal the no-drop paged rows; "
+          f"first 8 tokens of rows 0-3 at 1.25: "
+          f"{[o[:8] for o in outs['paged, capacity 1.25'][:4]]}",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # mixtral_8x7b at full width, MIXTRAL_LAYERS of its layers.
+    full = moe.CONFIGS["mixtral_8x7b"]
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    params = moe.init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                      device="cuda", param_dtype=cfg.dtype)["params"]
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{label}: mixtral_8x7b at full width (dim {cfg.dim}, "
+          f"{cfg.n_heads}:{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+          f"{cfg.n_experts} experts of ffn {cfg.ffn_dim}); cut: "
+          f"{MIXTRAL_LAYERS} of its {full.n_layers} layers "
+          f"({n_params / 1e9:.2f}B params, {2 * n_params / 1e9:.1f} GB "
+          f"bf16; the full depth's "
+          f"{2 * n_params * full.n_layers / MIXTRAL_LAYERS / 1e9:.0f} GB do "
+          f"not fit one card); init {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in MIXTRAL_PROMPTS]
+    eng = ContinuousBatchingEngine("mixtral_8x7b", cfg, params, slots=8,
+                                   kv="paged", page_size=16, max_len=4096,
+                                   device="cuda")
+    try:
+        _zero(flash, paged)
+        _, o, wall = _run_engine_mix(eng, prompts, MOE_NEW_TOKENS)
+        counts = _counts(flash, paged)
+        stats = eng.stats()
+        bad = eng.check_invariants()
+    finally:
+        eng.stop()
+    _check_outs(f"{label} mixtral", prompts, o, MOE_NEW_TOKENS,
+                cfg.vocab_size)
+    if bad or counts["flash_fwd"] <= 0 or counts["paged_decode"] <= 0:
+        fail(f"{label} mixtral: launches {counts}, invariants {bad[:5]}")
+    print(f"{label} mixtral_8x7b ({MIXTRAL_LAYERS} layers): "
+          f"{len(prompts)} requests (prompts {list(MIXTRAL_PROMPTS)}) x "
+          f"{MOE_NEW_TOKENS} tokens wall_s={wall:.2f} "
+          f"decode_step_ms_median={stats['decode_step_ms_median']:.2f} "
+          f"launches={counts}", flush=True)
+    runs.append(counts)
+    moe_first_admission(torch, moe, cfg, params, prompts[0])
+    del params
+    torch.cuda.empty_cache()
+    print(f"{label}: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return runs
+
+
+def t5_phase(torch, flash, paged):
+    """Phase 13: examples/t5_seq2seq.yaml compiled and run by the port's
+    launcher (t5_base at full width and depth, seq2seq_synthetic,
+    adafactor, seq 512, global batch 64 in T5_ACCUM microbatches, remat
+    dots, T5_STEPS steps): the forward kernel's launches split into the
+    encoder's (non-causal) and the decoder self-attention's (causal),
+    each backward once per attention layer and microbatch. Then t5_base
+    served: the static engine over HTTP (streamed equals non-streamed),
+    the continuous engine over T5_PROMPTS, and the first admission's
+    decoder logits against the plain path. Returns each run's
+    launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from polyaxon_tpu_torch.models import t5
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.server import ServingServer, load_params
+
+    label = "13. t5"
+    t_phase = time.perf_counter()
+    cfg = t5.CONFIGS["t5_base"]
+    job = compile_example(T5_EXAMPLE, label, axes=("dp",),
+                          runtime={"steps": T5_STEPS,
+                                   "grad_accum_steps": T5_ACCUM,
+                                   "log_every": 1})
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-t5-")
+    try:
+        _zero(flash, paged)
+        torch.cuda.reset_peak_memory_stats()
+        with _CausalSplit(flash) as split:
+            emitted, outputs, launches, wall = launch_in_process(
+                job, tmp, label)
+        counts = _counts(flash, paged)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _check_emissions(label, emitted, T5_STEPS)
+    per_stack = cfg.n_layers * T5_ACCUM * T5_STEPS
+    # remat "dots" recomputes each forward once in the backward.
+    want = {"fwd causal": 2 * per_stack, "fwd non-causal": 2 * per_stack,
+            "bwd causal": per_stack, "bwd non-causal": per_stack}
+    if split.counts != want or counts["flash_bwd_dq"] != 2 * per_stack \
+            or counts != launches:
+        fail(f"{label}: kernel calls {split.counts} (want {want}), "
+             f"launches {counts}")
+    for vals in emitted:
+        print(f"{label} train step {vals['step']}: loss={vals['loss']:.5f} "
+              f"grad_norm={vals['grad_norm']:.4f} step_ms="
+              f"{vals['step_time_ms']:.1f} tokens_per_s="
+              f"{vals['tokens_per_sec']:.1f}", flush=True)
+    print(f"{label} training: params={outputs['param_count'] / 1e6:.1f}M "
+          f"tokens_per_s={outputs['throughput']:.1f} (no MFU: the JAX "
+          f"package derives none for t5) wall_s={wall:.1f} "
+          f"max_memory_allocated_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} kernel calls "
+          f"{split.counts} launches={counts}", flush=True)
+    runs = [counts]
+    torch.cuda.empty_cache()
+
+    # Served: the static engine over a dense cache (the defaults).
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist()
+               for n in T5_PROMPTS]
+    _zero(flash, paged)
+    with ServingServer("t5_base", seed=SEED, device="cuda") as srv:
+        body = {"tokens": [prompts[2]], "max_new_tokens": T5_NEW_TOKENS}
+        plain = _post_json(srv.url, body)["tokens"][0]
+        streamed = _sse(srv.url, body)
+        cfg, params = srv.engine.cfg, srv.engine.params
+    counts = _counts(flash, paged)
+    toks = [d["token"] for name, d in streamed if name == "token"]
+    if len(plain) != T5_NEW_TOKENS or toks != plain:
+        fail(f"{label}: static engine answered {plain}, streamed {toks}")
+    if counts["flash_fwd"] <= 0:
+        fail(f"{label}: the static engine launched {counts}")
+    runs.append(counts)
+    print(f"{label} static engine over HTTP: {len(plain)} tokens, streamed "
+          f"equals non-streamed, launches {counts}", flush=True)
+
+    eng = ContinuousBatchingEngine("t5_base", cfg, params, slots=8,
+                                   device="cuda")
+    try:
+        _zero(flash, paged)
+        _, outs, wall = _run_engine_mix(eng, prompts, T5_NEW_TOKENS)
+        counts = _counts(flash, paged)
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    _check_outs(f"{label} continuous", prompts, outs, T5_NEW_TOKENS,
+                cfg.vocab_size)
+    if counts["flash_fwd"] != cfg.n_layers * len(prompts):
+        fail(f"{label} continuous: launches {counts}; the encoder's "
+             f"non-causal forward must run once per layer and admission")
+    runs.append(counts)
+    print(f"{label} continuous engine: {len(prompts)} prompts (encoder "
+          f"lengths {list(T5_PROMPTS)}) x {T5_NEW_TOKENS} tokens "
+          f"wall_s={wall:.2f} decode_step_ms_median="
+          f"{stats['decode_step_ms_median']:.2f} launches={counts}",
+          flush=True)
+
+    # The first admission's decoder logits, kernel path against plain.
+    row = torch.tensor([prompts[0]], device="cuda")
+    logits = {}
+    for name, c in (("kernel", cfg),
+                    ("plain", dataclasses.replace(cfg,
+                                                  attention_impl="xla"))):
+        pool = t5.cb_prefill(c, params, row, T5_NEW_TOKENS)
+        lg, _ = t5.decode_step_ragged(
+            c, params, pool, torch.tensor([t5.BOS_ID], device="cuda"),
+            torch.tensor([0], device="cuda"))
+        logits[name] = lg.float()
+    rel = _rel(logits["kernel"], logits["plain"])
+    if not torch.isfinite(logits["kernel"]).all() or rel > MODEL_REL_TOL:
+        fail(f"{label}: first decoder logits kernel vs plain rel {rel} "
+             f"(tol {MODEL_REL_TOL})")
+    print(f"{label} first admission (encoder {T5_PROMPTS[0]} tokens): "
+          f"decoder logits rel err {rel:.3e} same_argmax="
+          f"{bool(logits['kernel'].argmax() == logits['plain'].argmax())} "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def other_families(torch, flash, paged):
+    """Phase 14: bert_large (mlm_synthetic, seq 512, lion), vit_b16 (the
+    runtime of examples/hyperband_vit.yaml at one trial's values),
+    resnet50 (imagenet_synthetic, batch 64; its batch statistics must
+    move) and mnist_cnn (examples/mnist.yaml at its defaults), each at
+    full width and depth for a few steps with finite losses. These launch
+    no kernel: bert and vit run einsum attention, as the reference's
+    configs do, and convolutions are cuDNN's."""
+    import shutil
+    import tempfile
+
+    from polyaxon_tpu_torch.runtime.checkpoint import load_tree
+    from polyaxon_tpu_torch.runtime.loop import run_torchjob
+
+    label = "14."
+    t_phase = time.perf_counter()
+    lr = float(math.exp(-5.75))  # the middle of the sweep's log range
+    jobs = [
+        ("bert_large", {"kind": "jaxjob", "runtime": {
+            "model": "bert_large", "dataset": "mlm_synthetic",
+            "seq_len": 512, "global_batch_size": 8, "optimizer": "lion",
+            "learning_rate": 1e-4, "steps": 4, "log_every": 1}}),
+        ("vit_b16", compile_example(VIT_EXAMPLE, f"{label} vit_b16",
+                                    params={"lr": lr, "num_epochs": 1},
+                                    axes=("dp",),
+                                    runtime={"log_every": 1})),
+        ("resnet50", {"kind": "jaxjob", "runtime": {
+            "model": "resnet50", "dataset": "imagenet_synthetic",
+            "global_batch_size": 64, "steps": 4, "log_every": 1},
+            "checkpointing": {"enabled": True, "intervalSteps": 100,
+                              "asyncSave": False}}),
+        ("mnist_cnn", compile_example(MNIST_EXAMPLE, f"{label} mnist_cnn",
+                                      runtime={"log_every": 1})),
+    ]
+    for name, job in jobs:
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-family-")
+        try:
+            emitted = []
+            _zero(flash, paged)
+            t0 = time.perf_counter()
+            result = run_torchjob(job, artifacts_dir=tmp, device="cuda",
+                                  on_metrics=lambda s, v: emitted.append(
+                                      dict(v, step=s)))
+            wall = time.perf_counter() - t0
+            counts = _counts(flash, paged)
+            steps = job["runtime"]["steps"]
+            _check_emissions(f"{label} {name}", emitted, steps)
+            moved = ""
+            if name == "resnet50":
+                _, tree = load_tree(os.path.join(tmp, "checkpoints"),
+                                    only="state")
+                mean = tree["state"]["stem_bn"]["mean"]
+                var = tree["state"]["stem_bn"]["var"]
+                if not (mean.abs().max() > 0 and (var - 1).abs().max() > 0):
+                    fail(f"{label} resnet50: batch statistics did not move")
+                moved = (f" stem_bn mean |max| {mean.abs().max():.3e}, var "
+                         f"in [{var.min():.3e}, {var.max():.3e}] (init 0 "
+                         f"and 1);")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if any(counts.values()):
+            fail(f"{label} {name} launched {counts}")
+        print(f"{label} {name}: steps={result.steps} losses "
+              f"{[round(v['loss'], 4) for v in emitted]}{moved} "
+              f"{result.unit}_per_s={result.throughput:.1f} wall_s="
+              f"{wall:.1f}; launches no kernel ({counts})", flush=True)
+        torch.cuda.empty_cache()
+    print(f"{label} phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+
+
+def lora_depth(torch, llama, free_disk: float, free_host: float,
+               rank: int, label: str) -> int:
+    """llama3_8b's depth for the LoRA phase: full, cut only if one
+    checkpoint (the f32 base, the adapters and their adamw moments) does
+    not fit in the free disk or DRILL_DISK_BUDGET, or its host snapshot
+    in the available host memory less DRILL_HOST_MARGIN."""
+    from polyaxon_tpu_torch.models import lora
+
+    cfg = llama.CONFIGS["llama3_8b"]
+    meta = llama.init(cfg, torch.Generator(), device="meta")["params"]
+    per_layer = sum(t.numel() for t in meta["layers"].values()) \
+        // cfg.n_layers
+    other = sum(t.numel() for t in _leaves(meta)) - per_layer * cfg.n_layers
+    adapters = sum(rank * (t.shape[-2] + t.shape[-1])
+                   for name, t in meta["layers"].items()
+                   if name in lora.DEFAULT_TARGETS) // cfg.n_layers
+
+    def state_bytes(layers):
+        return 4 * (other + per_layer * layers) + 12 * adapters * layers
+
+    def fits(layers):
+        return (state_bytes(layers) <= min(free_disk, DRILL_DISK_BUDGET)
+                and state_bytes(layers) <= free_host - DRILL_HOST_MARGIN)
+
+    layers = cfg.n_layers
+    while layers > 1 and not fits(layers):
+        layers -= 1
+    print(f"{label}: one checkpoint of {state_bytes(layers) / 1e9:.2f} GB "
+          f"at {layers} of {cfg.n_layers} layers; disk free "
+          f"{free_disk / 1e9:.1f} GB (budget {DRILL_DISK_BUDGET / 1e9:.1f} "
+          f"GB), host available {free_host / 1e9:.1f} GB"
+          + ("" if layers == cfg.n_layers else
+             f"; cut: depth {cfg.n_layers} -> {layers}, width kept"),
+          flush=True)
+    return layers
+
+
+def lora_phase(torch, llama, flash, paged):
+    """Phase 15: the runtime section of examples/lora_finetune.yaml
+    (llama3_8b at full width, rank 16, alpha 32, seq 4096, flash, remat
+    dots) for LORA_STEPS steps of LORA_BATCH rows in microbatches of 1,
+    one checkpoint, depth cut only by ``lora_depth``. Only the adapters
+    change (the base equals its seeded init), the optimizer holds state
+    for them alone, the backward kernels launch per layer and
+    microbatch. Then ``ServingServer("llama3_8b", checkpoint=...)``
+    merges the adapters from the checkpoint's ``_meta`` and answers one
+    request, and its first logits are held against the plain path over
+    the merged weights. Returns each run's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from polyaxon_tpu_torch.models import lora
+    from polyaxon_tpu_torch.runtime import tiers
+    from polyaxon_tpu_torch.runtime.checkpoint import (load_tree,
+                                                       read_manifest)
+    from polyaxon_tpu_torch.serving.server import ServingServer
+    from polyaxon_tpu_torch.tracking.systemmetrics import meminfo
+
+    label = "15. lora"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-lora-")
+    try:
+        runtime = {"steps": LORA_STEPS, "global_batch_size": LORA_BATCH,
+                   "grad_accum_steps": LORA_BATCH, "log_every": 1}
+        rank = 16
+        layers = lora_depth(torch, llama, shutil.disk_usage(tmp).free,
+                            meminfo()["MemAvailable"], rank, label)
+        if layers < llama.CONFIGS["llama3_8b"].n_layers:
+            runtime["n_layers"] = layers
+        job = compile_example(LORA_EXAMPLE, label, axes=("fsdp",),
+                              runtime=runtime)
+        rt = job["runtime"]
+        if (rt["lora_rank"], rt["lora_alpha"]) != (rank, 32.0):
+            fail(f"{label}: the example's LoRA settings changed: {rt}")
+        _zero(flash, paged)
+        torch.cuda.reset_peak_memory_stats()
+        emitted, outputs, launches, wall = launch_in_process(job, tmp, label)
+        counts = _counts(flash, paged)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tiers.TIER0.clear()
+        torch.cuda.empty_cache()
+        _check_emissions(label, emitted, LORA_STEPS)
+        want = layers * LORA_BATCH * LORA_STEPS
+        if counts != launches or counts != {
+                "flash_fwd": 2 * want, "flash_bwd_dkdv": want,
+                "flash_bwd_dq": want, "paged_decode": 0}:
+            fail(f"{label}: launches {counts}; each backward kernel must "
+                 f"run {want} times (layers x microbatches x steps), the "
+                 f"forward twice as often (remat dots)")
+        for vals in emitted:
+            print(f"{label} step {vals['step']}: loss={vals['loss']:.5f} "
+                  f"grad_norm={vals['grad_norm']:.4e} step_ms="
+                  f"{vals['step_time_ms']:.1f} tokens_per_s="
+                  f"{vals['tokens_per_sec']:.1f}", flush=True)
+        print(f"{label} training: params={outputs['param_count'] / 1e9:.3f}B "
+              f"(base and adapters) tokens_per_s="
+              f"{outputs['throughput']:.1f} wall_s={wall:.1f} "
+              f"max_memory_allocated_GB={peak:.2f} launches={counts}",
+              flush=True)
+
+        # The checkpoint: optimizer state for the adapters alone, the base
+        # as initialized, the adapters moved (B starts at zero).
+        ckdir = os.path.join(tmp, "checkpoints")
+        step = _store_steps(ckdir)[-1]
+        entries = read_manifest(ckdir, step)["leaves"]
+        shapes = {e["path"]: tuple(e.get("shape", ())) for e in entries}
+        adapters = [s for p, s in shapes.items()
+                    if p.startswith("params/lora/") and "_meta" not in p]
+        moments = {k: [s for p, s in shapes.items()
+                       if p.startswith(f"opt_state/{k}/")]
+                   for k in ("mu", "nu")}
+        if sorted(moments["mu"]) != sorted(adapters) \
+                or sorted(moments["nu"]) != sorted(adapters):
+            fail(f"{label}: optimizer state {moments} is not the adapters' "
+                 f"{adapters}")
+        base_cfg = dataclasses.replace(llama.CONFIGS["llama3_8b"],
+                                       n_layers=layers)
+        init = llama.init(base_cfg, torch.Generator(device="cuda").manual_seed(
+            rt.get("seed", 0)), device="cuda")["params"]
+        for path in ("embed", "layers/wq"):
+            _, tree = load_tree(ckdir, only=f"params/base/{path}")
+            node = tree["params"]["base"]
+            ref = init
+            for key in path.split("/"):
+                node, ref = node[key], ref[key]
+            if not torch.equal(node.cuda(), ref):
+                fail(f"{label}: the base's {path} changed in training")
+        del init
+        _, tree = load_tree(ckdir, only="params/lora")
+        ab = lora._adapters_by_path(lora.split_meta(
+            tree["params"]["lora"])[0])
+        if not all(v["b"].abs().max() > 0 for v in ab.values()):
+            fail(f"{label}: an adapter's B stayed at zero")
+        print(f"{label} checkpoint step {step}: {len(adapters)} adapter "
+              f"tensors with adamw moments, {len(entries)} leaves; the base "
+              f"(embed, wq) equals its seeded init, every B moved",
+              flush=True)
+        torch.cuda.empty_cache()
+
+        # Served: the adapters merged at load from the checkpoint's _meta.
+        name = "llama3_8b"
+        if layers < llama.CONFIGS[name].n_layers:
+            name = f"llama3_8b_{layers}l"
+            llama.CONFIGS[name] = base_cfg
+        rng = np.random.default_rng(SEED + 6)
+        prompt = rng.integers(0, base_cfg.vocab_size, 300).tolist()
+        t0 = time.perf_counter()
+        _zero(flash, paged)
+        with ServingServer(name, checkpoint=ckdir, device="cuda") as srv:
+            t_load = time.perf_counter() - t0
+            out = _post_json(srv.url, {"tokens": [prompt],
+                                       "max_new_tokens": 8})
+            counts_srv = _counts(flash, paged)
+            cfg, params = srv.engine.cfg, srv.engine.params
+            if len(out["tokens"][0]) != 8 or counts_srv["flash_fwd"] <= 0:
+                fail(f"{label}: serving answered {out}, launches "
+                     f"{counts_srv}")
+            print(f"{label} served {name} from the checkpoint (adapters "
+                  f"merged at load, alpha and rank from _meta) in "
+                  f"{t_load:.1f}s: {out['tokens'][0]}, launches "
+                  f"{counts_srv}", flush=True)
+            compare_first_admission(torch, llama, cfg, params, prompt)
+            del params
+    finally:
+        tiers.TIER0.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"{label} phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return counts, counts_srv
+
+
+def families(torch, llama, flash, paged):
+    """Phases 11-15; returns each run's launches."""
+    t0 = time.perf_counter()
+    runs = [moe_training(torch, flash, paged)]
+    moe_parity(torch, flash)
+    runs += moe_serving(torch, llama, flash, paged)
+    runs += t5_phase(torch, flash, paged)
+    other_families(torch, flash, paged)
+    runs += lora_phase(torch, llama, flash, paged)
+    print(f"phases 11-15: {time.perf_counter() - t0:.1f}s", flush=True)
+    return runs
 
 
 def main() -> None:
@@ -3023,6 +4267,12 @@ def main() -> None:
     paged_rec = check_paged(torch, paged_attention, peaks, gen)
     check_decode_streams(torch, paged_attention, gen)
     bwd_recs = check_flash_bwd(torch, flash, peaks, gen)
+    path_worst, _ = check_path_shapes(torch, flash, peaks, gen)
+    flash_rec["max_abs_err"] = max(flash_rec["max_abs_err"],
+                                   path_worst["fwd"])
+    for kernel in ("dkdv", "dq"):
+        bwd_recs[kernel]["max_abs_err"] = max(
+            bwd_recs[kernel]["max_abs_err"], path_worst[kernel])
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3047,11 +4297,12 @@ def main() -> None:
     run_http(flash, paged_attention)
 
     train_counts, train_losses, train_result = run_training(
-        torch, flash, TRAIN_JOB, TRAIN_LAYERS)
+        torch, flash, paged_attention, TRAIN_JOB, TRAIN_LAYERS)
     torch.cuda.empty_cache()
     first_step_parity(torch, llama, flash)
     torch.cuda.empty_cache()
-    gemma_counts = run_training(torch, flash, GEMMA_JOB, GEMMA_LAYERS)[0]
+    gemma_counts = run_training(torch, flash, paged_attention, GEMMA_JOB,
+                                GEMMA_LAYERS)[0]
     torch.cuda.empty_cache()
 
     drill_counts = checkpoint_drill(torch, flash, paged_attention, llama,
@@ -3060,15 +4311,18 @@ def main() -> None:
     plan_counts = compiled_launch(torch, llama, train_result)
     torch.cuda.empty_cache()
     sweep_counts = sweep(torch, flash, paged_attention)
+    torch.cuda.empty_cache()
+    family_counts = families(torch, llama, flash, paged_attention)
 
     # Each kernel's launches are the sum over the main-path runs that
     # reach it (each printed above): the engine, phases a-g, the two
     # training runs,
     # the resumed launcher of the checkpoint drill, the engine serving
     # its checkpoint, the launcher the agent ran from the compiled plan,
-    # the sweep's trials and the engine serving its best trial.
+    # the sweep's trials and the engine serving its best trial, and the
+    # runs of phases 11-15.
     runs = (counts, *serve_counts, train_counts, gemma_counts, *drill_counts,
-            plan_counts, *sweep_counts)
+            plan_counts, *sweep_counts, *family_counts)
 
     def total(name):
         return sum(run.get(name, 0) for run in runs)

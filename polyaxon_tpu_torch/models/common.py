@@ -1,12 +1,12 @@
 """Shared model numerics (port of ``polyaxon_tpu/models/common.py``).
 
-The pieces the serving and training slices run: the ``ModelDef``
-convention, RoPE, RMSNorm, the weight read at consumption (plain or
-int8), the logits projection, the embedding gather, sampling,
-the random initializers, and the training losses (cross entropy, the
-chunked LM loss, ``shift_right``). Parameters keep the JAX pytree's
-names and layouts (``x @ w`` with ``[in, out]`` weights), so weights
-move between the packages as an identity map.
+The pieces the model families share: the ``ModelDef`` convention, RoPE,
+RMSNorm, LayerNorm, GELU, the weight read at consumption (plain or
+int8), the logits projection, the embedding gather, sampling, the random
+initializers, the numpy-to-tensor weight map, and the training losses
+(cross entropy, the chunked LM loss, ``shift_right``). Parameters keep
+the JAX pytree's names and layouts (``x @ w`` with ``[in, out]``
+weights), so weights move between the packages as an identity map.
 """
 
 from __future__ import annotations
@@ -15,9 +15,16 @@ import dataclasses
 import math
 from typing import Any, Callable, Optional
 
+import numpy as np
+import functools
+
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 Variables = dict[str, Any]  # {"params": dict of tensors, "state": dict}
 Batch = dict[str, torch.Tensor]
@@ -38,6 +45,12 @@ class ModelDef:
     # tokens (LM) or samples (vision) consumed per batch element.
     unit: str = "examples"
     config: Any = None
+    # Metric keys that are mask-independent per-microbatch means (MoE
+    # router aux): gradient accumulation averages them uniformly instead
+    # of weighting them by valid tokens. A model with such a loss term
+    # also returns it as the differentiable ``loss_unweighted`` metric,
+    # so that the accumulated gradient stays exact.
+    uniform_metrics: tuple = ()
 
 
 def truncated_normal_init(shape, generator: torch.Generator, *,
@@ -104,18 +117,131 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
     return (normed * (offset + weight.to(torch.float32))).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in f32 (biased variance); the result keeps x's dtype."""
+    x32 = x.to(torch.float32)
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    return (normed * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def tree_from_numpy(tree: dict, *, device, param_dtype: torch.dtype,
+                    f32_names=(), name: str = "") -> dict:
+    """A JAX parameter (or state) tree as numpy arrays → port tensors
+    under the same names and layouts (an identity map): leaves named in
+    ``f32_names`` stay f32 (norm gains and the like), the rest take
+    ``param_dtype``."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device=device, param_dtype=param_dtype,
+                                   f32_names=f32_names, name=k)
+                for k, v in tree.items()}
+    dt = torch.float32 if name in f32_names else param_dtype
+    return torch.tensor(np.asarray(tree, np.float32), dtype=dt,
+                        device=device)
+
+
+def unstack(layers: dict):
+    """Per-layer views of stacked ``[L, ...]`` tensors (one ``unbind``
+    per tensor: its backward stacks the L layer gradients once)."""
+    per_layer = {name: t.unbind(0) for name, t in layers.items()}
+    for i in range(len(next(iter(per_layer.values())))):
+        yield {name: views[i] for name, views in per_layer.items()}
+
+
+# remat="dots": keep the outputs of matrix products, recompute the rest
+# (norms, RoPE, activations, attention) in the backward. JAX's
+# `checkpoint_dots_with_no_batch_dims` keeps the projections; the flash
+# kernels are invisible to the dispatcher, so attention is recomputed.
+_SAVED_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                        torch.ops.aten.bmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_body(body, remat: str):
+    """A per-layer function under the JAX package's remat policies
+    (none | full | dots), mapped onto ``torch.utils.checkpoint``."""
+    if remat == "none":
+        return body
+    if remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"unknown remat `{remat}` (none | full | dots)")
+
+
+def merged_weight(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """LoRA's ``W + scale·A@B`` in f32, cast back to W's dtype, over any
+    leading stack dims; gradients reach A and B, not W. One fused
+    product (``baddbmm``): under remat "dots" a separate ``A@B`` would be
+    saved as a matrix product's output, a full f32 copy of every adapted
+    weight per layer."""
+    shape = w.shape
+    w32 = w.detach().to(torch.float32).reshape(-1, *shape[-2:])
+    a32 = a.to(torch.float32).reshape(-1, *a.shape[-2:])
+    b32 = b.to(torch.float32).reshape(-1, *b.shape[-2:])
+    return torch.baddbmm(w32, a32, b32, alpha=scale).reshape(shape).to(
+        w.dtype)
+
+
+class LoraWeight:
+    """A LoRA-adapted projection read at its use (``models/lora.py``):
+    ``_w`` merges it, ``W + (alpha/rank)·A@B``, one weight at a time;
+    ``unbind(0)`` gives the per-layer weights of a stacked one (the
+    models' layer loops unbind every ``[L, ...]`` leaf)."""
+
+    __slots__ = ("w", "a", "b", "scale")
+
+    def __init__(self, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 scale: float):
+        self.w, self.a, self.b, self.scale = w, a, b, scale
+
+    @property
+    def shape(self):
+        return self.w.shape
+
+    @property
+    def dtype(self):
+        return self.w.dtype
+
+    def merged(self) -> torch.Tensor:
+        return merged_weight(self.w, self.a, self.b, self.scale)
+
+    def unbind(self, dim: int = 0) -> tuple["LoraWeight", ...]:
+        if dim != 0:
+            raise ValueError("LoraWeight unbinds its leading axis only")
+        return tuple(LoraWeight(w, a, b, self.scale) for w, a, b in zip(
+            self.w.unbind(0), self.a.unbind(0), self.b.unbind(0)))
+
+
 def is_quantized(w) -> bool:
-    """An int8 ``QuantizedTensor`` (duck-typed on ``.dequantize``; a
-    plain torch tensor has a method of that name too)."""
-    return not isinstance(w, torch.Tensor) and hasattr(w, "dequantize")
+    """An int8 ``QuantizedTensor`` (``serving/quantize.py``: int8 values
+    ``q`` and their ``scale``)."""
+    return not isinstance(w, torch.Tensor) and hasattr(w, "q")
 
 
 def _w(w, dt: torch.dtype) -> torch.Tensor:
     """Weight read at the point of consumption: cast to the compute
     dtype (a no-op when serving already stores ``cfg.dtype``). An int8
-    ``QuantizedTensor`` (``serving/quantize.py``, duck-typed on
-    ``.dequantize``) is dequantized here, one weight at a time, and
-    never as a whole tree."""
+    ``QuantizedTensor`` is dequantized here and a ``LoraWeight`` merged
+    here, one weight at a time, never as a whole tree."""
+    if isinstance(w, LoraWeight):
+        return w.merged().to(dt)
     if is_quantized(w):
         return w.dequantize().to(dt)
     return w.to(dt)

@@ -38,15 +38,8 @@ import dataclasses
 import functools
 from typing import Any, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
-
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
 
 from polyaxon_tpu_torch.models.common import (
     ModelDef,
@@ -56,11 +49,14 @@ from polyaxon_tpu_torch.models.common import (
     chunked_lm_loss,
     is_quantized,
     lm_logits,
+    remat_body,
     rms_norm,
     rope,
     scaled_init,
     shift_right,
+    tree_from_numpy,
     truncated_normal_init,
+    unstack,
 )
 from polyaxon_tpu_torch.ops.attention import (
     NEG_INF,
@@ -221,14 +217,8 @@ def params_from_numpy(cfg: LlamaConfig, tree: dict, *, device,
     """JAX parameters as numpy arrays (same names, same layouts) → port
     tensors: an identity map, matrices in ``param_dtype`` and norm gains
     in f32."""
-    def convert(name, value):
-        if isinstance(value, dict):
-            return {k: convert(k, v) for k, v in value.items()}
-        dt = torch.float32 if name in _GAINS else param_dtype
-        return torch.tensor(np.asarray(value, np.float32), dtype=dt,
-                            device=device)
-
-    out = convert("", tree)
+    out = tree_from_numpy(tree, device=device, param_dtype=param_dtype,
+                          f32_names=_GAINS)
     expected = {"embed", "layers", "final_norm"} | (
         set() if cfg.tie_embeddings else {"lm_head"})
     if set(out) != expected:
@@ -238,12 +228,8 @@ def params_from_numpy(cfg: LlamaConfig, tree: dict, *, device,
 
 
 def _layers(params: dict):
-    """Per-layer views of the stacked ``[L, ...]`` tensors (one
-    ``unbind`` per tensor: its backward stacks the L layer gradients
-    once)."""
-    per_layer = {name: t.unbind(0) for name, t in params["layers"].items()}
-    for i in range(len(per_layer["wq"])):
-        yield {name: views[i] for name, views in per_layer.items()}
+    """Per-layer views of ``params["layers"]``."""
+    return unstack(params["layers"])
 
 
 def _norm(cfg, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -315,32 +301,9 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, layer: dict,
     return _mlp(cfg, x, layer)
 
 
-# remat="dots": keep the outputs of matrix products, recompute the rest
-# (norms, RoPE, activations, attention) in the backward. JAX's
-# `checkpoint_dots_with_no_batch_dims` keeps the projections; the flash
-# kernels are invisible to the dispatcher, so attention is recomputed.
-_SAVED_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-                        torch.ops.aten.bmm.default})
-
-
-def _dots_policy(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
-            else CheckpointPolicy.PREFER_RECOMPUTE)
-
-
 def _layer_body(cfg: LlamaConfig):
     """The per-layer function under ``cfg.remat``."""
-    body = functools.partial(_layer, cfg)
-    if cfg.remat == "none":
-        return body
-    if cfg.remat == "full":
-        return functools.partial(checkpoint, body, use_reentrant=False)
-    if cfg.remat == "dots":
-        return functools.partial(
-            checkpoint, body, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _dots_policy))
-    raise ValueError(f"unknown remat `{cfg.remat}` (none | full | dots)")
+    return remat_body(functools.partial(_layer, cfg), cfg.remat)
 
 
 def _positions(B: int, S: int, device, start=0) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""LM streams and the input pipeline (port of
+"""The synthetic and text streams and the input pipeline (port of
 ``polyaxon_tpu/runtime/data.py``).
 
 The generators are the JAX package's, copied: batch ``i`` is a pure
@@ -291,23 +291,87 @@ def lm_packed_synthetic(batch_size: int, seq_len: int = 2048,
         i += 1
 
 
+def seq2seq_synthetic(batch_size: int, seq_len: int = 128,
+                      vocab_size: int = 32_000, seed: int = 0,
+                      start_batch: int = 0,
+                      **_) -> Iterator[dict[str, np.ndarray]]:
+    """Copy task (targets == inputs): learnable through cross-attention,
+    so seq2seq training curves move."""
+    i = start_batch
+    while True:
+        rng = np.random.default_rng((seed, i))
+        tokens = rng.integers(2, vocab_size,
+                              size=(batch_size, seq_len)).astype(np.int32)
+        yield {"inputs": tokens, "targets": tokens.copy()}
+        i += 1
+
+
+def mlm_synthetic(batch_size: int, seq_len: int = 128,
+                  vocab_size: int = 30_522, mask_rate: float = 0.15,
+                  mask_id: int = 103, seed: int = 0, start_batch: int = 0,
+                  **_) -> Iterator[dict[str, np.ndarray]]:
+    """Masked-LM rows: ``mask_rate`` of the positions replaced by
+    ``mask_id`` in ``tokens``, their ids in ``labels`` (-1 elsewhere)."""
+    i = start_batch
+    while True:
+        rng = np.random.default_rng((seed, i))
+        tokens = rng.integers(5, vocab_size,
+                              size=(batch_size, seq_len)).astype(np.int32)
+        mask = rng.random((batch_size, seq_len)) < mask_rate
+        labels = np.where(mask, tokens, -1).astype(np.int32)
+        masked = np.where(mask, mask_id, tokens).astype(np.int32)
+        yield {"tokens": masked, "labels": labels}
+        i += 1
+
+
+def image_synthetic(batch_size: int, image_size: int = 224,
+                    num_classes: int = 1000, seed: int = 0,
+                    start_batch: int = 0,
+                    **_) -> Iterator[dict[str, np.ndarray]]:
+    """Gaussian NHWC images with uniform labels."""
+    i = start_batch
+    while True:
+        rng = np.random.default_rng((seed, i))
+        yield {
+            "image": rng.standard_normal(
+                (batch_size, image_size, image_size, 3)).astype(np.float32),
+            "label": rng.integers(0, num_classes,
+                                  size=(batch_size,)).astype(np.int32),
+        }
+        i += 1
+
+
+def mnist_synthetic(batch_size: int, seed: int = 0, start_batch: int = 0,
+                    **_) -> Iterator[dict[str, np.ndarray]]:
+    """Class-conditional blobs (28x28x1): learnable, so the quick-start
+    converges."""
+    protos = np.random.default_rng(seed).standard_normal(
+        (10, 28, 28)).astype(np.float32)
+    i = start_batch
+    while True:
+        rng = np.random.default_rng((seed, i))
+        labels = rng.integers(0, 10, size=(batch_size,)).astype(np.int32)
+        images = protos[labels] + 0.3 * rng.standard_normal(
+            (batch_size, 28, 28)).astype(np.float32)
+        yield {"image": images[..., None], "label": labels}
+        i += 1
+
+
 DATASETS: dict[str, Callable[..., Iterator[dict[str, np.ndarray]]]] = {
     "lm_synthetic": lm_synthetic,
     "lm_file": lm_file,
     "lm_text": lm_text,
     "lm_text_packed": lm_text_packed,
     "lm_packed_synthetic": lm_packed_synthetic,
+    "seq2seq_synthetic": seq2seq_synthetic,
+    "mlm_synthetic": mlm_synthetic,
+    "imagenet_synthetic": image_synthetic,
+    "image_synthetic": image_synthetic,
+    "mnist_synthetic": mnist_synthetic,
 }
-# The JAX package's other datasets; each raises until it is ported.
-UNPORTED = ("seq2seq_synthetic", "mlm_synthetic", "imagenet_synthetic",
-            "image_synthetic", "mnist_synthetic")
 
 
 def get_dataset(name: str, **kwargs) -> Iterator[dict[str, np.ndarray]]:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"dataset `{name}` is not ported yet: ROADMAP.md, Queue 1 "
-            "item 3b")
     if name not in DATASETS:
         raise ValueError(f"Unknown dataset `{name}`. Available: "
                          f"{sorted(DATASETS)}")

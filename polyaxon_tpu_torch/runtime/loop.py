@@ -32,7 +32,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from polyaxon_tpu_torch.device import resolve_device
-from polyaxon_tpu_torch.models import get_model, llama
+from polyaxon_tpu_torch.models import family_of, get_model
 from polyaxon_tpu_torch.obs import flight as obs_flight
 from polyaxon_tpu_torch.obs import metrics as obs_metrics
 from polyaxon_tpu_torch.obs import trace as obs_trace
@@ -87,20 +87,21 @@ def _check_single_device(job: dict) -> None:
             "device (the parallel layer is ROADMAP.md, Queue 1 item 7)")
 
 
-def _check_ported(cfg: RuntimeConfig) -> None:
-    if cfg.lora_rank > 0:
-        raise NotImplementedError(
-            "LoRA (lora_rank > 0) is not ported yet: ROADMAP.md, Queue 1 "
-            "item 3b")
-
-
 def _dataset_kwargs(cfg: RuntimeConfig, model_cfg, batch: int) -> dict:
+    """The JAX loop's rule: spec extras, then the model's sequence
+    length, vocabulary and image shape where it has them."""
     kwargs: dict[str, Any] = {"batch_size": batch, "seed": cfg.seed}
-    for key in ("path", "tokenizer"):
+    for key in ("path", "tokenizer", "image_size", "num_classes",
+                "mask_rate"):
         if key in cfg.extras:
             kwargs[key] = cfg.extras[key]
-    kwargs["seq_len"] = cfg.seq_len or min(model_cfg.max_seq_len, 2048)
-    kwargs["vocab_size"] = model_cfg.vocab_size
+    if cfg.seq_len:
+        kwargs["seq_len"] = cfg.seq_len
+    elif hasattr(model_cfg, "max_seq_len"):
+        kwargs["seq_len"] = min(model_cfg.max_seq_len, 2048)
+    for key in ("vocab_size", "image_size", "num_classes"):
+        if hasattr(model_cfg, key) and key not in kwargs:
+            kwargs[key] = getattr(model_cfg, key)
     return kwargs
 
 
@@ -190,8 +191,8 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
     resolve to one device. With an artifacts dir, ``checkpointing``
     saves to and restores from ``<artifacts>/checkpoints`` and
     ``profile_steps`` traces to ``<artifacts>/profile``. ``lora_rank >
-    0`` raises NotImplementedError; ``compile_cache_dir`` is accepted
-    and means nothing without XLA.
+    0`` trains LoRA adapters over a frozen base (``models/lora.py``);
+    ``compile_cache_dir`` is accepted and means nothing without XLA.
 
     Tracing follows ``run_jaxjob``: an explicit ``tracer`` (the
     in-process executor passes one parented under its ``execute`` span)
@@ -204,7 +205,6 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
                          "section")
     cfg = RuntimeConfig.from_dict(job["runtime"])
     _check_single_device(job)
-    _check_ported(cfg)
     ckpt_job = job.get("checkpointing")
     ckpt_spec = (CheckpointSpec.from_dict(ckpt_job) if ckpt_job is not None
                  else CheckpointSpec(enabled=False))
@@ -234,13 +234,16 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
                   should_stop: Optional[Callable[[], bool]],
                   tracer: Optional[obs_trace.RunTracer],
                   run_span: Optional[obs_trace.Span]) -> TrainResult:
-    # Only the llama family is ported: get_model refuses any other name.
-    overrides = cfg.model_overrides(llama.LlamaConfig)
+    family = family_of(cfg.model)
+    overrides = cfg.model_overrides(type(family.CONFIGS[cfg.model]))
     if isinstance(overrides.get("dtype"), str):  # "float32", "bfloat16"
         overrides["dtype"] = getattr(torch, overrides["dtype"])
     model_def = get_model(cfg.model, **overrides)
     model_cfg = model_def.config
-    llama.check_kernel_shapes(model_cfg, device, training=True)
+    # Families whose training launches a kernel check its shapes here;
+    # bert, vit, resnet and mnist launch none.
+    if hasattr(family, "check_kernel_shapes"):
+        family.check_kernel_shapes(model_cfg, device, training=True)
 
     global_batch = cfg.global_batch_size or (cfg.batch_size or 8)
     accum = max(int(cfg.grad_accum_steps or 1), 1)
@@ -249,10 +252,19 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
                          f"batch {global_batch}")
     dataset_name = cfg.dataset or data_lib.dataset_for_model(cfg.model)
     ds_kwargs = _dataset_kwargs(cfg, model_cfg, global_batch)
-    seq = ds_kwargs["seq_len"]
+    seq = ds_kwargs.get("seq_len", 1)
     units_per_step = global_batch * (seq if model_def.unit == "tokens" else 1)
 
     optimizer = build_optimizer(cfg)
+    if cfg.lora_rank:
+        from polyaxon_tpu_torch.models.lora import (lora_model_def,
+                                                    wrap_optimizer)
+
+        model_def = lora_model_def(model_def, cfg.lora_rank, cfg.lora_alpha,
+                                   cfg.lora_targets)
+        optimizer = wrap_optimizer(optimizer)
+        logger.info("lora: rank=%d alpha=%s targets=%s", cfg.lora_rank,
+                    cfg.lora_alpha, cfg.lora_targets or "default")
     state = build_init(model_def, optimizer, device=device)(cfg.seed)
     train_step = build_train_step(model_def, optimizer, accum_steps=accum)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))

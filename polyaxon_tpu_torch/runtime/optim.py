@@ -5,9 +5,15 @@ The arithmetic is optax's, written out: the schedule is read at the
 update count starting from 0 (so the first update under warmup uses
 lr 0), Adam's bias correction uses count + 1 and puts eps outside the
 square root, adamw decays every parameter, sgd keeps a 0.9 momentum
-trace, and ``clip_by_global_norm`` scales by ``max_norm / norm`` only
-when ``norm >= max_norm``, with no epsilon (torch's ``clip_grad_norm_``
-adds 1e-6). Unlike optax's pure functions, ``Optimizer.update`` changes
+trace, lion and adafactor take optax's defaults (``optax.lion`` and
+``optax.adafactor``: the sign of an interpolated momentum with decayed
+weights; factored second moments for leaves with two dims of at least
+128, the decay ``1 - (count + 1) ** -0.8``, block-RMS clipping at 1 and
+the step scaled by the parameter's RMS), and ``clip_by_global_norm``
+scales by ``max_norm / norm`` only when ``norm >= max_norm``, with no
+epsilon (torch's ``clip_grad_norm_`` adds 1e-6). ``Masked`` is
+``optax.masked``: state and updates only for the leaves its mask
+selects (LoRA's adapters). Unlike optax's pure functions, ``Optimizer.update`` changes
 the parameters, gradients and moments in place, which keeps one copy of
 each on the card.
 """
@@ -18,6 +24,7 @@ import dataclasses
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -26,6 +33,12 @@ Schedule = Callable[[int], float]
 B1 = 0.9
 EPS = 1e-8
 MOMENTUM = 0.9
+LION_B1, LION_B2 = 0.9, 0.99
+ADAFACTOR_MIN_DIM = 128       # min_dim_size_to_factor
+ADAFACTOR_DECAY = 0.8         # decay_rate
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP = 1.0          # clipping_threshold (block RMS)
+ADAFACTOR_MIN_SCALE = 1e-3    # scale_by_param_block_rms
 
 
 def _constant(value: float) -> Schedule:
@@ -92,12 +105,28 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
         g.copy_(torch.where(clip, g / norm * max_norm, g))
 
 
+def _factored_dims(shape) -> Optional[tuple[int, int]]:
+    """optax's rule: the two largest dims (d1, d0), when the smaller of
+    them is at least ``ADAFACTOR_MIN_DIM``; else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    return x.square().mean().sqrt()
+
+
 @dataclasses.dataclass
 class Optimizer:
-    """One of adamw, adam, sgd, with an optional global-norm clip
-    before it (the order of the JAX package's optax chain)."""
+    """One of adamw, adam, sgd, lion, adafactor, with an optional
+    global-norm clip before it (the order of the JAX package's optax
+    chain)."""
 
-    kind: str  # adamw | adam | sgd
+    kind: str  # adamw | adam | sgd | lion | adafactor
     schedule: Schedule
     clip_norm: Optional[float] = None
     weight_decay: float = 0.0
@@ -108,6 +137,24 @@ class Optimizer:
         zeros = lambda: [torch.zeros_like(p) for p in leaves]  # noqa: E731
         if self.kind == "sgd":
             return {"count": 0, "trace": zeros()}
+        if self.kind == "lion":
+            return {"count": 0, "mu": zeros()}
+        if self.kind == "adafactor":
+            v_row, v_col, v = [], [], []
+            for p in leaves:
+                dims = _factored_dims(tuple(p.shape))
+                if dims is None:
+                    v_row.append(p.new_zeros((1,)))
+                    v_col.append(p.new_zeros((1,)))
+                    v.append(torch.zeros_like(p))
+                else:
+                    d1, d0 = dims
+                    v_row.append(p.new_zeros(
+                        [n for i, n in enumerate(p.shape) if i != d0]))
+                    v_col.append(p.new_zeros(
+                        [n for i, n in enumerate(p.shape) if i != d1]))
+                    v.append(p.new_zeros((1,)))
+            return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
         return {"count": 0, "mu": zeros(), "nu": zeros()}
 
     @torch.no_grad()
@@ -116,7 +163,12 @@ class Optimizer:
         """One update, in place on ``params``' tensors, ``grads`` (when
         clipped) and ``state``. ``grads`` follow ``tree_leaves(params)``;
         ``grad_norm`` may pass their global norm when already known."""
-        leaves = tree_leaves(params)
+        self.update_leaves(tree_leaves(params), grads, state, grad_norm)
+
+    @torch.no_grad()
+    def update_leaves(self, leaves: list[torch.Tensor],
+                      grads: list[torch.Tensor], state: dict,
+                      grad_norm: Optional[torch.Tensor] = None) -> None:
         if self.clip_norm:
             clip_by_global_norm(grads, self.clip_norm, grad_norm)
         count = state["count"]
@@ -127,6 +179,17 @@ class Optimizer:
                 tr.mul_(MOMENTUM).add_(g)
                 p.add_(tr, alpha=-lr)
             return
+        if self.kind == "lion":
+            for p, g, mu in zip(leaves, grads, state["mu"]):
+                u = torch.sign(g * (1.0 - LION_B1) + mu * LION_B1)
+                if self.weight_decay:
+                    u.add_(p, alpha=self.weight_decay)
+                mu.mul_(LION_B2).add_(g, alpha=1.0 - LION_B2)
+                p.add_(u, alpha=-lr)
+            return
+        if self.kind == "adafactor":
+            self._adafactor(leaves, grads, state, count, lr)
+            return
         bc1 = 1.0 - B1 ** (count + 1)
         bc2 = 1.0 - self.b2 ** (count + 1)
         for p, g, mu, nu in zip(leaves, grads, state["mu"], state["nu"]):
@@ -136,6 +199,61 @@ class Optimizer:
             if self.weight_decay:
                 u.add_(p, alpha=self.weight_decay)
             p.add_(u, alpha=-lr)
+
+    @staticmethod
+    def _adafactor(leaves, grads, state, count: int, lr: float) -> None:
+        decay = 1.0 - float(np.float32(count + 1) ** np.float32(
+            -ADAFACTOR_DECAY))
+        for i, (p, g) in enumerate(zip(leaves, grads)):
+            sq = g.square() + ADAFACTOR_EPS
+            dims = _factored_dims(tuple(p.shape))
+            if dims is None:
+                v = state["v"][i]
+                v.mul_(decay).add_(sq, alpha=1.0 - decay)
+                u = g * v.rsqrt()
+            else:
+                d1, d0 = dims
+                v_row, v_col = state["v_row"][i], state["v_col"][i]
+                v_row.mul_(decay).add_(sq.mean(d0), alpha=1.0 - decay)
+                v_col.mul_(decay).add_(sq.mean(d1), alpha=1.0 - decay)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)
+                              ).rsqrt()
+                u = (g * row_factor.unsqueeze(d0)
+                     * v_col.rsqrt().unsqueeze(d1))
+            u = u / torch.clamp(_rms(u) / ADAFACTOR_CLIP, min=1.0)
+            u = u * lr
+            p_rms = _rms(p)
+            scale = torch.where(p_rms <= ADAFACTOR_MIN_SCALE,
+                                torch.full_like(p_rms, ADAFACTOR_MIN_SCALE),
+                                p_rms)
+            p.sub_(u * scale)
+
+
+class Masked:
+    """``optax.masked``: ``inner`` keeps state for, and updates, only
+    the leaves ``mask(params)`` marks True; the others are left as they
+    are (their gradients are zero where the JAX package applies them).
+    The train step hands it the gradients of the trainable leaves
+    alone."""
+
+    def __init__(self, inner: Optimizer, mask: Callable[[dict], dict]):
+        self.inner = inner
+        self.mask = mask
+
+    def _selected(self, params: dict) -> list[torch.Tensor]:
+        return [p for p, m in zip(tree_leaves(params),
+                                  tree_leaves(self.mask(params))) if m]
+
+    def init(self, params: dict) -> dict:
+        return self.inner.init({"leaves": dict(enumerate(
+            self._selected(params)))})
+
+    def update(self, params: dict, grads: list[torch.Tensor], state: dict,
+               grad_norm: Optional[torch.Tensor] = None) -> None:
+        """``grads`` follow the selected leaves, in tree order."""
+        self.inner.update_leaves(self._selected(params), grads, state,
+                                 grad_norm)
 
 
 def build_optimizer(cfg) -> Optimizer:
@@ -149,8 +267,8 @@ def build_optimizer(cfg) -> Optimizer:
         return Optimizer("adam", sched, clip)
     if name == "sgd":
         return Optimizer("sgd", sched, clip)
-    if name in ("lion", "adafactor"):
-        raise NotImplementedError(
-            f"optimizer `{name}` is not ported yet: ROADMAP.md, Queue 1 "
-            "item 3b")
+    if name == "lion":
+        return Optimizer("lion", sched, clip, weight_decay=cfg.weight_decay)
+    if name == "adafactor":
+        return Optimizer("adafactor", sched, clip)
     raise ValueError(f"Unknown optimizer `{cfg.optimizer}`")

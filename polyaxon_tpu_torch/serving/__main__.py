@@ -3,9 +3,10 @@ d]`` — serve a model on the GPU over HTTP (it raises without one).
 
 The flags and defaults are those of ``python -m polyaxon_tpu.serving``
 (the static engine over a dense cache unless ``--batching continuous``).
-``--mesh`` parses and is refused (ROADMAP.md, Queue 1 item 7), as are
-the MoE and t5 models (item 6) and a LoRA checkpoint (item 3b). SIGINT
-and SIGTERM stop the server and exit with 0.
+It serves the llama, MoE and t5 families, and a LoRA checkpoint (the
+adapters merged at load, ``--lora-alpha`` the fallback for a checkpoint
+without metadata). ``--mesh`` parses and is refused (ROADMAP.md, Queue 1
+item 7). SIGINT and SIGTERM stop the server and exit with 0.
 """
 
 from __future__ import annotations
@@ -81,8 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--draft-checkpoint", default=None)
     parser.add_argument("--spec-k", type=int, default=4)
     parser.add_argument("--lora-alpha", type=float, default=16.0,
-                        help="alpha when --checkpoint is a LoRA fine-tune "
-                             "(not ported: such a checkpoint is refused)")
+                        help="alpha when --checkpoint is a LoRA fine-tune")
     parser.add_argument("--max-pending", type=int, default=None,
                         help="(continuous) pending-queue cap; saturated "
                              "generate requests answer 503 + Retry-After")

@@ -32,7 +32,10 @@ The caches live on the engine's device and are updated in place; greedy,
 temperature and top-p/top-k rows share one step, each sampled row
 drawing from its own generator seeded by the request. On a CUDA device a
 config whose head_dim the kernels do not take is refused at
-construction. The MoE and t5 families are not ported (``_family``).
+construction. Any family with the ragged-decode surface batches
+continuously: llama decoders, MoE decoders (the expert FFN in the MLP
+slot) and t5 (per-slot encoder state in the pool cache; dense cache only,
+no chunked prefill or speculation).
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ import numpy as np
 import torch
 
 from polyaxon_tpu_torch.device import resolve_device
-from polyaxon_tpu_torch.models import llama
+from polyaxon_tpu_torch.models import llama, moe, t5
 from polyaxon_tpu_torch.models.common import sample_row
 from polyaxon_tpu_torch.obs import metrics as obs_metrics
 from polyaxon_tpu_torch.obs import reqtrace
@@ -57,14 +60,6 @@ from polyaxon_tpu_torch.serving.paged import PagePool
 from polyaxon_tpu_torch.serving.speculative import LaneView, SpeculationPolicy
 
 logger = logging.getLogger(__name__)
-
-# The JAX package's other servable families; their port is ROADMAP.md,
-# Queue 1 item 6.
-_UNPORTED_FAMILIES = {
-    "moe": ("mixtral_8x7b", "moe_8x200m", "moe_tiny"),
-    "t5": ("t5_base", "t5_small", "t5_tiny"),
-}
-
 
 class QueueFull(RuntimeError):
     """The engine's pending queue is at its cap: the caller should shed
@@ -131,17 +126,16 @@ def validate_sampling(top_p: float, top_k: int) -> None:
 
 
 def _family(model: str):
-    """The model family module serving ``model`` (llama decoders)."""
-    if model in llama.CONFIGS:
-        return llama
-    for family, names in _UNPORTED_FAMILIES.items():
-        if model in names:
-            raise NotImplementedError(
-                f"model `{model}` ({family}): the {family} family is not "
-                "ported to polyaxon_tpu_torch yet (ROADMAP.md, Queue 1 "
-                "item 6)")
-    raise ValueError(f"model `{model}` is not servable; decoders: "
-                     f"{sorted(llama.CONFIGS)}")
+    """The model family module serving ``model``, with CONFIGS, init,
+    generate and a SEQ2SEQ flag: llama decoders, Mixtral-style MoE
+    decoders and t5 encoder-decoders."""
+    for mod in (llama, moe, t5):
+        if model in mod.CONFIGS:
+            return mod
+    raise ValueError(
+        f"model `{model}` is not servable; decoders: "
+        f"{sorted(llama.CONFIGS) + sorted(moe.CONFIGS)}, "
+        f"seq2seq: {sorted(t5.CONFIGS)}")
 
 
 @dataclass
@@ -218,6 +212,12 @@ class ContinuousBatchingEngine:
                     "prefill_slots and draft are mutually exclusive: "
                     "the draft's verify chunk needs kv='dense' while "
                     "the page handoff needs kv='paged'")
+            if not (hasattr(family, "paged_prefill_suffix_kv")
+                    and hasattr(family, "paged_insert_suffix")):
+                raise ValueError(
+                    f"`{model}` ({family.__name__}) has no paged suffix-"
+                    "prefill surface; the prefill lane streams chunks "
+                    "through paged_prefill_suffix_kv")
         if prefill_lane_budget < 1:
             raise ValueError(f"prefill_lane_budget must be >= 1, got "
                              f"{prefill_lane_budget}")
@@ -234,6 +234,11 @@ class ContinuousBatchingEngine:
                     "writer needs the slot==position row cache) — or "
                     "prefill_slots, where it sizes the lane's per-tick "
                     "suffix chunk instead")
+            if kv == "dense" and not hasattr(family, "decode_chunk"):
+                raise ValueError(
+                    f"`{model}` ({family.__name__}) has no decode_chunk "
+                    "surface; chunked prefill supports llama/moe-family "
+                    "decoders")
             if kv == "dense" and getattr(cfg, "sliding_window",
                                          None) is not None:
                 raise ValueError(
@@ -250,9 +255,25 @@ class ContinuousBatchingEngine:
                     "speculative decoding requires a full-length cache "
                     "(no sliding_window) — rollback-free acceptance "
                     "depends on slot == position")
-        if kv not in ("dense", "paged"):
+            if not hasattr(family, "decode_chunk"):
+                raise ValueError(
+                    f"`{model}` ({family.__name__}) has no decode_chunk "
+                    "verify surface; speculative continuous batching "
+                    "supports llama/moe-family decoders")
+        required = ("decode_step_ragged", "cb_init_cache", "cb_prefill",
+                    "cb_admission", "cb_validate", "insert_cache_row")
+        if kv == "paged":
+            required += ("decode_step_paged", "paged_init_cache",
+                         "paged_prefill_kv", "paged_insert_prefill")
+        elif kv != "dense":
             raise ValueError(f"unknown kv mode `{kv}` "
                              "(expected 'dense' or 'paged')")
+        missing = [name for name in required if not hasattr(family, name)]
+        if missing:
+            alt = "kv='dense'" if kv == "paged" else "the static engine"
+            raise ValueError(
+                f"continuous batching needs the ragged-decode surface; "
+                f"`{model}` ({family.__name__}) lacks {missing} — use {alt}")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.device = resolve_device(device)
@@ -304,6 +325,12 @@ class ContinuousBatchingEngine:
             if spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
             self._draft_family = _family(draft_model)
+            if getattr(self._draft_family, "SEQ2SEQ", False):
+                raise ValueError(
+                    f"draft `{draft_model}` is seq2seq — a drafting "
+                    "decoder must continue the same token stream the "
+                    "target decodes (its proposals would be garbage "
+                    "and acceptance would silently collapse)")
             self._draft_family.check_kernel_shapes(draft_cfg, self.device,
                                                    paged=False)
             self._draft_cfg = draft_cfg

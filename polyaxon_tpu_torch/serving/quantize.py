@@ -11,7 +11,7 @@ biases, routers and positional tables stay full precision.
 The contract is the JAX package's: engines pass a quantized tree through
 whole, and the model unwraps each weight where it is used (``models/
 common.py`` ``_w``, ``_embed_rows``, ``lm_logits``), duck-typed on
-``.dequantize``; the tree is never dequantized whole on the serving
+``.q`` (``is_quantized``); the tree is never dequantized whole on the serving
 path. Here that read materializes a compute-dtype copy of each weight
 per use, so on the card int8 saves weight memory but not time (a fused
 int8 matrix-vector kernel is ROADMAP.md, Queue 2).

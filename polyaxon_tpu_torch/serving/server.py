@@ -31,9 +31,12 @@ API (JSON over HTTP):
                                static engine emits one burst per batch.
 
 ``GET /alerts`` answers 501: the alert rules (``obs/rules.py``) are
-ROADMAP.md, Queue 1 item 9. Weights come from a seeded random init, or
-from the latest step of a checkpoint the port's training wrote, and may
-be quantized to int8 at load (``serving/quantize.py``). Sampled draws
+ROADMAP.md, Queue 1 item 9. The llama and MoE decoders and the t5
+encoder-decoder are served (t5's prompt is the encoder input, and its
+generation starts from BOS). Weights come from a seeded random init, or
+from the latest step of a checkpoint the port's training wrote (a LoRA
+fine-tune merged at load), and may be quantized to int8 at load
+(``serving/quantize.py``). Sampled draws
 come from torch generators seeded by the request, so they differ from
 the JAX package's; greedy output is the same.
 """
@@ -71,15 +74,19 @@ def _bucket(n: int, lo: int = 16) -> int:
 
 
 def load_params(model: str, checkpoint: Optional[str] = None, seed: int = 0,
-                *, device=None, quantize: Optional[str] = None):
+                *, device=None, quantize: Optional[str] = None,
+                lora_alpha: float = 16.0):
     """(cfg, params) for ``model`` on the device, matrices in
     ``cfg.dtype`` and norm gains in f32: the latest committed step of the
     port's checkpoint directory ``checkpoint`` (a saved train state, whose
     ``params`` are sliced out, or a bare params tree), else a random init
-    from ``seed``. A checkpoint must match the model's tree and shapes.
-    ``quantize="int8"`` quantizes the matrices at load. Orbax trees
-    written by the JAX package are not read (ROADMAP.md), nor LoRA
-    fine-tunes (ROADMAP.md, Queue 1 item 3b)."""
+    from ``seed``. A LoRA fine-tune's state (``{"base", "lora"}``) is
+    folded into dense weights at load, one adapted weight at a time on
+    the device, with alpha and rank from the checkpoint's ``_meta``
+    (``lora_alpha`` is the fallback for a tree without one). A checkpoint
+    must match the model's tree and shapes. ``quantize="int8"`` quantizes
+    the matrices at load. Orbax trees written by the JAX package are not
+    read (ROADMAP.md, Queue 1 item 3c)."""
     family = _family(model)
     cfg = family.CONFIGS[model]
     dev = resolve_device(device)
@@ -89,10 +96,12 @@ def load_params(model: str, checkpoint: Optional[str] = None, seed: int = 0,
         step, tree = load_tree(checkpoint, only="params")
         loaded = tree.get("params", tree)
         if isinstance(loaded, dict) and set(loaded) == {"base", "lora"}:
-            raise NotImplementedError(
-                f"checkpoint {checkpoint} is a LoRA fine-tune; merging "
-                "adapters (--lora-alpha) is not ported yet (ROADMAP.md, "
-                "Queue 1 item 3b)")
+            from polyaxon_tpu_torch.models.lora import merge_saved
+
+            loaded = merge_saved(loaded["base"], loaded["lora"],
+                                 alpha=lora_alpha, device=dev,
+                                 dtype=cfg.dtype)
+            logger.info("merged LoRA adapters into %s", model)
         template = family.init(cfg, torch.Generator(), device="meta",
                                param_dtype=cfg.dtype)["params"]
         params = _cast_like(template, loaded, dev,
@@ -161,12 +170,26 @@ class _Engine:
         self._lock = threading.Lock()  # one generation on the card at a time
         self._family_mod = _family(model)
         self._family_mod.check_kernel_shapes(cfg, self.device, paged=False)
+        # A seq2seq family's prompt is the encoder input and it decodes
+        # into its own cache, so prompt and budget are bounded apart.
+        self.seq2seq = bool(getattr(self._family_mod, "SEQ2SEQ", False))
         if draft is not None:
+            if not hasattr(self._family_mod, "decode_chunk"):
+                raise ValueError(
+                    f"speculative decoding needs the target family to "
+                    f"expose decode_chunk; `{model}` does not — serve "
+                    "without --draft-model")
             if getattr(cfg, "sliding_window", None) is not None:
                 raise ValueError(
                     "speculative decoding requires a full-length cache "
                     "(no sliding_window)")
             self._draft_family = _family(draft[0])
+            missing = [name for name in ("prefill", "decode_step_ragged")
+                       if not hasattr(self._draft_family, name)]
+            if missing:
+                raise ValueError(
+                    f"draft `{draft[0]}` cannot speculate: its family "
+                    f"lacks {missing}")
             self._draft_family.check_kernel_shapes(draft[1], self.device,
                                                    paged=False)
 
@@ -187,7 +210,12 @@ class _Engine:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
         plen, n_bucket = len(tokens), _bucket(max_new_tokens, lo=16)
-        if plen + n_bucket > self.cfg.max_seq_len:
+        if self.seq2seq:
+            if max(plen, n_bucket) > self.cfg.max_seq_len:
+                raise ValueError(
+                    f"prompt {plen} or generation budget {n_bucket} "
+                    f"exceeds max_seq_len {self.cfg.max_seq_len}")
+        elif plen + n_bucket > self.cfg.max_seq_len:
             raise ValueError(
                 f"prompt {plen} + generation budget {n_bucket} exceeds "
                 f"max_seq_len {self.cfg.max_seq_len}")
@@ -711,11 +739,8 @@ class ServingServer:
                     "static engine runs whole generations, not pooled "
                     "steps)")
         dev = resolve_device(device)
-        # lora_alpha is the JAX server's merge factor for a LoRA
-        # checkpoint; load_params refuses those (Queue 1 item 3b).
-        del lora_alpha
         cfg, params = load_params(model, checkpoint, seed=seed, device=dev,
-                                  quantize=quantize)
+                                  quantize=quantize, lora_alpha=lora_alpha)
         draft = None
         if draft_model is not None:
             if spec_k < 1:

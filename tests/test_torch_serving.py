@@ -99,14 +99,16 @@ def test_eos_sampling_and_validation():
 
 
 def test_deferred_features_refuse():
-    """What still waits for another item raises naming it: the MoE and
-    t5 families (item 6) and sharded serving (item 7)."""
-    _, _, tcfg, tparams = _params()
+    """What still waits for another item raises naming it: sharded
+    serving (item 7). The MoE and t5 families load and serve now; t5 has
+    no paged surface, which the engine refuses as the reference's does."""
     for model in ("moe_tiny", "t5_tiny"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ContinuousBatchingEngine(model, tcfg, tparams, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            load_params(model, device="cpu")
+        cfg, params = load_params(model, device="cpu")
+        assert cfg.dtype == torch.bfloat16 and "embed" in params
+    cfg, params = load_params("t5_tiny", device="cpu")
+    with pytest.raises(ValueError, match="ragged-decode surface"):
+        ContinuousBatchingEngine("t5_tiny", cfg, params, kv="paged",
+                                 device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         ServingServer("llama_tiny", mesh_axes={"tp": 2}, device="cpu")
 

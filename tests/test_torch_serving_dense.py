@@ -751,16 +751,31 @@ def test_cli_main_builds_the_server_with_the_reference_defaults(
 
 
 def test_waiting_features_raise_naming_their_item(tmp_path, monkeypatch):
+    """Sharded serving still raises naming item 7. The MoE and t5 models
+    serve, and a LoRA checkpoint (item 3b) is merged at load with the
+    alpha and rank of its ``_meta``."""
     with pytest.raises(NotImplementedError, match="item 7"):
         ServingServer("llama_tiny", mesh_axes={"tp": 2}, device="cpu")
-    for model in ("moe_tiny", "t5_tiny", "mixtral_8x7b"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ServingServer(model, device="cpu")
+    for model in ("moe_tiny", "t5_tiny"):
+        server = ServingServer(model, device="cpu")
+        assert server.engine.model == model
+        server.httpd.server_close()
+    from polyaxon_tpu_torch.models import lora
     from polyaxon_tpu_torch.runtime import checkpoint as ckpt
 
-    _, _, _, tp = _pair()
+    _, _, tcfg, tp = _pair()
+    adapters = lora.with_meta(lora.init_lora(
+        tp, 2, lora.DEFAULT_TARGETS, torch.Generator().manual_seed(0)),
+        rank=2, alpha=4.0)
+    for ab in adapters.values():
+        if "b" in ab:
+            ab["b"].normal_(generator=torch.Generator().manual_seed(1))
     monkeypatch.setattr(
         ckpt, "load_tree",
-        lambda path, only=None: (3, {"params": {"base": tp, "lora": {}}}))
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        load_params("llama_tiny", str(tmp_path), device="cpu")
+        lambda path, only=None: (3, {"params": {"base": tp,
+                                                "lora": adapters}}))
+    _, served = load_params("llama_tiny", str(tmp_path), device="cpu")
+    a, b = adapters["layers/wq"]["a"], adapters["layers/wq"]["b"]
+    want = (tp["layers"]["wq"] + 2.0 * (a @ b)).to(tcfg.dtype)
+    assert torch.equal(served["layers"]["wq"], want.to(
+        served["layers"]["wq"].dtype))

@@ -215,8 +215,8 @@ def test_engine_refusals(target):
         ContinuousBatchingEngine("llama_tiny", wcfg, tp,
                                  draft=("llama_tiny", tcfg, tp, 4),
                                  device="cpu")
-    # A seq2seq draft waits for the t5 family (Queue 1 item 6).
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # A seq2seq draft cannot continue the target's token stream.
+    with pytest.raises(ValueError, match="seq2seq"):
         ContinuousBatchingEngine("llama_tiny", tcfg, tp,
                                  draft=("t5_tiny", tcfg, {}, 4),
                                  device="cpu")
