@@ -208,6 +208,31 @@ Phases, each of which must pass:
    then merges the adapters from the checkpoint's ``_meta``, answers one
    request, and its first admission is held against the plain path.
 
+16. Telemetry and chaos (lines ``16a.`` to ``16c.``). (a) In a fresh
+   temporary directory a ``TieredCheckpointManager`` saves two steps of
+   llama3_1b's full-width f32 params on the card; a restore with
+   ``checkpoint/corrupt_latest`` installed must return the older step
+   from tier 1 or 2 with the newer skipped, and one with
+   ``tier0-loss/drop`` installed must come from the store; each restore's
+   leaves are held against that step's manifest CRC-32s, each must add
+   one sample to ``polyaxon_checkpoint_restore_seconds{tier}``, and the
+   history ring must hold the closed ``chaos.checkpoint`` window. (b)
+   Phase 9's run, once SUCCEEDED: the process's metrics registry, its
+   history ring and the default alert engine are reset before the run
+   is submitted, so what is judged is that run's own telemetry.
+   ``plane.report`` must close its phase accounting within
+   ``phase-accounting-closes``' tolerance, and ``plane.verify`` must
+   return a verdict for each of the 16 invariants, with
+   ``all-runs-terminal``, ``phase-accounting-closes``,
+   ``loss-continuity`` and ``zero-unresolved-alerts`` passing; the agent
+   must have run its history and alert passes. After phase 10's sweep, ``plane.verify()`` across its
+   whole plane is printed. (c) Phase f's server must answer ``GET
+   /alerts`` with 200 and the 18 committed rules; phase g's fleet calls
+   ``maybe_scale`` with the firing rule ids of an alert engine over its
+   registry. Prints the restore seconds by tier, the report's phases and
+   step trend, every verdict, the passes' counts and times, and the time
+   of ``report``, ``verify``, an alert pass and a history sample.
+
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -1705,6 +1730,7 @@ def http_defaults(torch, flash, paged):
         stats = _get_json(srv.url + "/v1/stats")
         plain = _post_json(srv.url, body)["tokens"]
         events = _sse(srv.url, body)
+        alerts = alerts_endpoint(srv.url)
     static_counts = _counts(flash, paged)
     done = [p for n, p in events if n == "done"]
     streamed = [p["token"] for n, p in events if n == "token"]
@@ -1731,7 +1757,27 @@ def http_defaults(torch, flash, paged):
           f"{sorted(names)} ttft_ms={timeline['summary']['ttft_ms']:.1f}; "
           f"launches static={static_counts} continuous={cont_counts}; "
           f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"16c. GET /alerts on phase f's server: {alerts}", flush=True)
     return {k: static_counts[k] + cont_counts[k] for k in static_counts}
+
+
+def alerts_endpoint(url: str) -> str:
+    """``GET /alerts`` must answer 200 with the committed rules; returns
+    what it printed about them."""
+    from polyaxon_tpu_torch.obs import rules as obs_rules
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url + "/alerts", timeout=60) as resp:
+        code, body = resp.status, json.load(resp)
+    ms = 1e3 * (time.perf_counter() - t0)
+    want = sorted(r.id for r in obs_rules.load_ruleset())
+    got = sorted(r["rule"] for r in body.get("rules", []))
+    if code != 200 or got != want or len(want) != 18:
+        fail(f"GET /alerts answered {code} with rules {got}, want the "
+             f"18 committed {want}")
+    return (f"200 in {ms:.1f} ms, {len(got)} rules, firing "
+            f"{[a['rule'] for a in body['alerts']]}, states "
+            f"{sorted({r['state'] for r in body['rules']})}")
 
 
 def mistral_ring(torch, llama, flash, paged):
@@ -1845,6 +1891,7 @@ def fleet(torch, flash, paged):
         httpd, thread, url = _bound_http(fl)
         snap = _get_json(url + "/v1/fleet")
         stats = fl.stats()
+        scaled = scale_from_alerts(fl, reg)
     finally:
         if httpd is not None:
             httpd.shutdown()
@@ -1878,8 +1925,42 @@ def fleet(torch, flash, paged):
           f"{reasons}; prefix_hit_rate={stats['prefix_hit_rate']}; "
           f"per_replica={snap['per_replica']}; launches={counts}; "
           f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"16c. fleet autoscaler: {scaled}", flush=True)
     torch.cuda.empty_cache()
     return counts
+
+
+def scale_from_alerts(fl, registry) -> str:
+    """One autoscaler step fed from the committed rules: an alert engine
+    over the fleet's registry evaluates them once, and ``maybe_scale``
+    takes its firing rule ids; returns what it printed about it."""
+    from polyaxon_tpu_torch.obs import rules as obs_rules
+    from polyaxon_tpu_torch.serving.fleet import SCALE_UP_RULES
+
+    rules = obs_rules.load_ruleset()
+    if not SCALE_UP_RULES <= {r.id for r in rules}:
+        fail(f"fleet: scale-up rules {sorted(SCALE_UP_RULES)} are not all "
+             f"committed")
+    fl.poll()
+    engine = obs_rules.AlertEngine(rules, registry=registry)
+    t0 = time.perf_counter()
+    engine.evaluate()
+    eval_ms = 1e3 * (time.perf_counter() - t0)
+    firing = sorted(a["rule"] for a in engine.active())
+    event = fl.maybe_scale(firing)
+    return (f"{len(rules)} rules evaluated over the fleet's registry in "
+            f"{eval_ms:.1f} ms, firing {firing}; maybe_scale({firing}) -> "
+            f"{event}; states {fl.stats()['states']}")
+
+
+def release(torch) -> None:
+    """Free the device memory of a finished phase's engines: an engine
+    sits in reference cycles (its threads and callbacks), so its weights
+    go only when the cyclic collector runs."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def serve_the_rest(torch, llama, flash, paged, cfg, params, prompts,
@@ -1888,13 +1969,13 @@ def serve_the_rest(torch, llama, flash, paged, cfg, params, prompts,
     each phase's launch counts."""
     dense_counts, dense_outs = dense_static(torch, llama, flash, paged, cfg,
                                             params, prompts, paged_stats)
-    torch.cuda.empty_cache()
+    release(torch)
     spec_counts = speculation(torch, llama, flash, paged, cfg, params,
                               prompts, dense_outs)
     lane_counts = lanes_classes(torch, llama, flash, paged, cfg, params)
-    torch.cuda.empty_cache()
+    release(torch)
     http_counts = http_defaults(torch, flash, paged)
-    torch.cuda.empty_cache()
+    release(torch)
     int8_counts = int8_serving(torch, llama, flash, paged, cfg, params,
                                prompts, paged_stats)
     return dense_counts, spec_counts, lane_counts, http_counts, int8_counts
@@ -2726,6 +2807,100 @@ class _ReconcileClock:
                 f"{self._gc:.3f}s in all")
 
 
+class _PassClock:
+    """Counts and times the agent's two telemetry passes
+    (``_sample_history``, then ``_evaluate_alerts``) in each reconcile."""
+
+    def __init__(self, agent):
+        self.seconds: dict[str, list[float]] = {}
+        for name in ("_sample_history", "_evaluate_alerts"):
+            real = getattr(agent, name)
+
+            def timed(real=real, name=name):
+                t0 = time.perf_counter()
+                try:
+                    return real()
+                finally:
+                    self.seconds.setdefault(name, []).append(
+                        time.perf_counter() - t0)
+
+            setattr(agent, name, timed)
+
+    def summary(self, name: str) -> str:
+        times = self.seconds.get(name) or [float("nan")]
+        return (f"{len(self.seconds.get(name, []))} passes, median "
+                f"{1e3 * sorted(times)[len(times) // 2]:.3f} ms, max "
+                f"{1e3 * max(times):.3f} ms")
+
+
+def telemetry_plane(plane, run_uuid: str, passes: _PassClock) -> None:
+    """Phase 16b on phase 9's SUCCEEDED run: ``plane.report`` closes its
+    phase accounting within ``phase-accounting-closes``' tolerance,
+    ``plane.verify`` judges all 16 invariants (four must pass), the
+    agent ran both telemetry passes; prints the report, every verdict
+    and the times."""
+    from polyaxon_tpu_torch.obs import history as obs_history
+    from polyaxon_tpu_torch.obs import oracle as obs_oracle
+
+    label = "16b. plane"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    report = plane.report(run_uuid)
+    report_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    result = plane.verify(run_uuid)
+    verify_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    obs_history.default_history().sample(force=True)
+    sample_ms = 1e3 * (time.perf_counter() - t0)
+
+    (closes,) = [i for i in obs_oracle.load_invariants()
+                 if i.id == "phase-accounting-closes"]
+    wall, total = report["wall_clock_ms"], report["phase_sum_ms"]
+    gap = abs(total - wall) / wall if wall else float("inf")
+    phases = {n: f"{p['ms']:.1f} ms ({p['fraction']})"
+              for n, p in report["phases"].items()}
+    steps = report["steps"]
+    print(f"{label}: report of run {run_uuid} in {report_ms:.1f} ms: "
+          f"status {report['status']}, attempts {report['attempts']}, wall "
+          f"{wall:.1f} ms, phases sum {total:.1f} ms (|gap|/wall "
+          f"{gap:.4f}, tolerance {closes.tolerance}); phases {phases}; "
+          f"step windows "
+          f"{[(w['to_step'], w['step_time_ms']) for w in steps['windows']]}"
+          f", rolling median {steps['rolling_median_ms']} ms, anomalies "
+          f"{steps['anomalies']}; annotations {report['annotations']}; "
+          f"alerts {report['alerts']}", flush=True)
+    if gap > closes.tolerance:
+        fail(f"{label}: the report's phases sum to {total:.1f} ms of a "
+             f"{wall:.1f} ms wall clock")
+    verdicts = {v["invariant"]: v for v in result["verdicts"]}
+    if len(verdicts) != 16:
+        fail(f"{label}: verify returned {len(verdicts)} verdicts: "
+             f"{sorted(verdicts)}")
+    for must in ("all-runs-terminal", "phase-accounting-closes",
+                 "loss-continuity", "zero-unresolved-alerts"):
+        if verdicts[must]["verdict"] != "pass":
+            fail(f"{label}: {must} {verdicts[must]}")
+    print(f"{label}: verify in {verify_ms:.1f} ms: passed="
+          f"{result['passed']} counts={result['counts']}", flush=True)
+    for name, v in verdicts.items():
+        evidence = dict(v["evidence"])
+        if "unresolved_alerts" in evidence:  # which rules, at what values
+            evidence["unresolved_alerts"] = [
+                (a["rule"], a.get("value"), a.get("threshold"))
+                for a in evidence["unresolved_alerts"]]
+        print(f"  {label} verdict {name}: {v['verdict']} "
+              f"{json.dumps(evidence, default=str)[:400]}", flush=True)
+    for name in ("_sample_history", "_evaluate_alerts"):
+        if not passes.seconds.get(name):
+            fail(f"{label}: the agent never ran {name}")
+    print(f"{label}: agent history pass {passes.summary('_sample_history')}"
+          f"; alert pass {passes.summary('_evaluate_alerts')}; one forced "
+          f"history sample {sample_ms:.3f} ms; report {report_ms:.1f} ms, "
+          f"verify {verify_ms:.1f} ms; phase_s="
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def _compiled_launch(torch, llama, train_result, tmp):
     import shutil
 
@@ -2733,6 +2908,8 @@ def _compiled_launch(torch, llama, train_result, tmp):
     from polyaxon_tpu_torch.compiler import ENV_JAXJOB_SPEC
     from polyaxon_tpu_torch.controlplane import ControlPlane
     from polyaxon_tpu_torch.lifecycle import V1Statuses, can_transition
+    from polyaxon_tpu_torch.obs import metrics as obs_metrics
+    from polyaxon_tpu_torch.obs import rules as obs_rules
     from polyaxon_tpu_torch.obs.trace import read_trace
     from polyaxon_tpu_torch.runtime.flops import (peak_flops,
                                                   train_flops_per_token)
@@ -2761,7 +2938,12 @@ def _compiled_launch(torch, llama, train_result, tmp):
 
     # 2. Submitted to the port's plane, in a fresh home; the agent's
     # scheduler compiles it, its admission starts it as a subprocess gang
-    # (the path a deployment takes) and its executor reaps it.
+    # (the path a deployment takes) and its executor reaps it. The
+    # process-global registry, its history ring and the alert engine
+    # start empty, so phase 16b judges this run's telemetry alone, not
+    # the earlier phases' serving traffic and restores.
+    obs_metrics.REGISTRY.reset()
+    obs_rules.set_default_engine(None)
     plane = ControlPlane(os.path.join(tmp, "home"))
     agent = Agent(plane)
     t_submit = time.time()
@@ -2770,6 +2952,7 @@ def _compiled_launch(torch, llama, train_result, tmp):
                           presets=[os.path.join(repo, GPU_PRESET), preset],
                           project="chip-smoke")
     clock = _ReconcileClock(agent)
+    passes = _PassClock(agent)
     exited: dict = {}
     stop = threading.Event()
     watcher = threading.Thread(target=_watch_exit,
@@ -2792,6 +2975,7 @@ def _compiled_launch(torch, llama, train_result, tmp):
     if status != V1Statuses.SUCCEEDED:
         fail(f"{label}: the run ended {status.value}: "
              f"{conditions[-1].get('message')}\n{_tail(log)}")
+    telemetry_plane(plane, record.uuid, passes)
 
     # 3. What compilation produced.
     plan = record.launch_plan
@@ -3114,6 +3298,17 @@ def _sweep(torch, flash, paged, tmp):
     print(f"{label}: {status.value}: {len(trials)} trials, "
           f"{total_steps} trial steps, wall_s={wall:.1f}, launches "
           f"{counts}", flush=True)
+    t0 = time.perf_counter()
+    fleet_verdicts = plane.verify()
+    unresolved = [(a["rule"], a.get("value"), a.get("threshold"))
+                  for v in fleet_verdicts["verdicts"]
+                  for a in v["evidence"].get("unresolved_alerts", [])]
+    print(f"16b. sweep plane verify() in "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms: passed="
+          f"{fleet_verdicts['passed']} counts={fleet_verdicts['counts']}; "
+          f"{ {v['invariant']: v['verdict'] for v in fleet_verdicts['verdicts']} }"
+          f"; unresolved alerts (rule, value, threshold) {unresolved}",
+          flush=True)
 
     # The best trial's checkpoint, served.
     scored = [(plane.get_metric(t.uuid, "loss"), t) for t in trials]
@@ -4221,6 +4416,101 @@ def families(torch, llama, flash, paged):
     return runs
 
 
+def chaos_restore(torch, llama):
+    """Phase 16a: two steps of llama3_1b's full-width f32 params saved by
+    a ``TieredCheckpointManager`` on the card, then restored under
+    ``checkpoint/corrupt_latest`` (the older step, the newer skipped,
+    from tier 1 or 2) and under ``tier0-loss/drop`` (from the store);
+    each restore's leaves held against its step's manifest CRC-32s and
+    counted once in ``polyaxon_checkpoint_restore_seconds{tier}``, the
+    ``chaos.<seam>`` windows closed in the history ring."""
+    import shutil
+    import tempfile
+
+    from polyaxon_tpu_torch import chaos
+    from polyaxon_tpu_torch.obs import history as obs_history
+    from polyaxon_tpu_torch.obs import metrics as obs_metrics
+    from polyaxon_tpu_torch.runtime import checkpoint as ck
+    from polyaxon_tpu_torch.runtime import tiers
+
+    label = "16a. chaos restore"
+    t_phase = time.perf_counter()
+    cfg = llama.CONFIGS["llama3_1b"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init(cfg, gen, device="cuda")["params"]
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-chaos-")
+    mgr = ck.TieredCheckpointManager(
+        os.path.join(tmp, "ckpt"),
+        ck.CheckpointSpec(async_save=False, max_to_keep=3))
+
+    def restore_samples():
+        fam = obs_metrics.checkpoint_restore_hist().snapshot()["series"]
+        return {tier: s["count"] for tier, s in fam.items()}
+
+    try:
+        for step in (1, 2):
+            with torch.no_grad():
+                params["final_norm"].add_(1.0)  # the two steps differ
+            mgr.save(step, {"step": step, "params": params}, force=True)
+            mgr.wait()
+        saves = {t: [round(x, 3) for x in v]
+                 for t, v in mgr.save_seconds.items()}
+        out = []
+        for fault, want_step, want_skip, tiers_ok in (
+                ({"seam": "checkpoint", "op": "corrupt_latest"}, 1, [2],
+                 (tiers.TIER_LOCAL, tiers.TIER_STORE)),
+                ({"seam": "tier0-loss", "op": "drop"}, 1, [],
+                 (tiers.TIER_STORE,))):
+            before = restore_samples()
+            chaos.install(chaos.ChaosPlan.from_dict({"faults": [fault]}))
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state = mgr.restore({"step": 0, "params": params})
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                fired = chaos.active_plan().done
+            finally:
+                chaos.uninstall()
+            tier = mgr.last_restore_tier
+            after = restore_samples()
+            grew = {t: after.get(t, 0) - before.get(t, 0) for t in after}
+            manifest = ck.read_manifest(mgr.directory, want_step)
+            crcs_ok = device_crcs(torch, state) == [
+                e["crc32"] for e in manifest["leaves"]]
+            seam = fault["seam"]
+            if (not fired or state["step"] != want_step
+                    or mgr.last_restore_skipped != want_skip
+                    or tier not in tiers_ok or not crcs_ok
+                    or {t: n for t, n in grew.items() if n} != {tier: 1}):
+                fail(f"{label}: {seam}: fired {fired}, step "
+                     f"{state['step']} (want {want_step}), skipped "
+                     f"{mgr.last_restore_skipped} (want {want_skip}), tier "
+                     f"{tier} (want {tiers_ok}), CRC-32s equal "
+                     f"{crcs_ok}, restore samples added {grew}")
+            out.append(f"{seam}: step {state['step']} from tier {tier} in "
+                       f"{seconds:.3f}s (skipped {mgr.last_restore_skipped})")
+        windows = {w["name"]: w for w in
+                   obs_history.default_history().windows()}
+        for seam in ("checkpoint", "tier0-loss"):
+            w = windows.get(f"chaos.{seam}")
+            if w is None or w.get("end") is None:
+                fail(f"{label}: no closed chaos.{seam} window in the "
+                     f"history ring: {sorted(windows)}")
+    finally:
+        mgr.close()
+        tiers.TIER0.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+    print(f"{label}: llama3_1b params {nbytes / 1e9:.2f} GB f32, two steps "
+          f"saved (commit seconds by tier {saves}); {'; '.join(out)}; "
+          f"restore samples by tier {restore_samples()}; windows "
+          f"chaos.checkpoint and chaos.tier0-loss closed; phase_s="
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -4313,6 +4603,8 @@ def main() -> None:
     sweep_counts = sweep(torch, flash, paged_attention)
     torch.cuda.empty_cache()
     family_counts = families(torch, llama, flash, paged_attention)
+    release(torch)
+    chaos_restore(torch, llama)
 
     # Each kernel's launches are the sum over the main-path runs that
     # reach it (each printed above): the engine, phases a-g, the two

@@ -11,10 +11,8 @@ topologies), and one loop drives scheduler ticks + executor reconcile:
 
 Port of ``polyaxon_tpu/agent/agent.py``. Its executor is the port's
 ``LocalExecutor``; ``device`` is where in-process gangs train (the card
-unless the caller names another). Not ported yet, each named where it
-would run: the native slice pool (``slice_manager``, ROADMAP.md, Queue 1
-item 10) and the fail-open telemetry passes (alert rules and
-metrics-history sampling, item 9), which the port's loop does not call.
+unless the caller names another). Not ported yet: the native slice pool
+(``slice_manager``, ROADMAP.md, Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -56,6 +54,7 @@ class Agent:
         self.admission = admission or AdmissionController(plane)
         self._notified: set[str] = set()
         self._notify_service = None  # built lazily from the home catalog
+        self._history_refresh_t: Optional[float] = None
 
     def _notify_terminal_runs(self) -> int:
         """Fan out spec'd notifications for newly-terminal runs.
@@ -172,10 +171,72 @@ class Agent:
         self._record_placement_span(record, time.time(), state="running")
         return True
 
+    def _evaluate_alerts(self) -> None:
+        """One alert-rule pass over the live registry (obs.rules): the
+        reconcile loop is the evaluation clock, the same way the Borgmon
+        lineage runs rules next to collection. Fired rules with
+        ``annotate_runs`` stamp the live runs through the plane. Never
+        raises — alerting must not take scheduling down."""
+        try:
+            from polyaxon_tpu_torch.obs import rules as obs_rules
+
+            obs_rules.default_engine().evaluate(plane=self.plane)
+        except Exception:  # noqa: BLE001 — fail-open observability
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "alert evaluation pass failed", exc_info=True)
+
+    def _sample_history(self) -> None:
+        """Feed the shared metrics-history ring (obs.history): refresh
+        the per-project quota gauges from the admission live view, then
+        let the ring take its cadence-gated sample — the reconcile loop
+        is the sampling clock, exactly as it is the alert clock. Runs
+        BEFORE ``_evaluate_alerts`` so the engine's forced sample sees
+        current quota gauges. The refresh is paced by the agent's OWN
+        cadence tracker, not ``history.due()``: an alert engine sharing
+        the ring force-samples on every evaluate, which would keep
+        ``due()`` False forever and freeze the gauges at their first
+        value. Never raises — fail-open telemetry."""
+        try:
+            from polyaxon_tpu_torch.obs import history as obs_history
+            from polyaxon_tpu_torch.obs import metrics as obs_metrics
+
+            history = obs_history.default_history()
+            now = time.monotonic()
+            if (self._history_refresh_t is not None
+                    and now - self._history_refresh_t < history.cadence):
+                return
+            self._history_refresh_t = now
+            usage = obs_metrics.project_usage()
+            limit = obs_metrics.project_quota_limit()
+            live = self.admission.usage_snapshot()
+            quotas = {q["project"]: q
+                      for q in self.plane.store.list_quotas()}
+            for project in set(live) | set(quotas):
+                used = live.get(project) or {}
+                quota = quotas.get(project) or {}
+                usage.set(float(used.get("runs", 0)),
+                          project=project, resource="runs")
+                usage.set(float(used.get("chips", 0)),
+                          project=project, resource="chips")
+                limit.set(float(quota.get("max_runs") or 0),
+                          project=project, resource="runs")
+                limit.set(float(quota.get("max_chips") or 0),
+                          project=project, resource="chips")
+            history.sample()
+        except Exception:  # noqa: BLE001 — fail-open observability
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "metrics-history sampling pass failed", exc_info=True)
+
     def reconcile_once(self) -> int:
         actions = self.scheduler.tick()
         actions += self.executor.poll()
         self._notify_terminal_runs()
+        self._sample_history()
+        self._evaluate_alerts()
         # Kind filter pushed into SQL (ISSUE 8): at 10k queued trials a
         # Python-side filter would deserialize every record per tick.
         queued = self.plane.list_runs(

@@ -49,8 +49,7 @@ Plan JSON::
 fire starting there. ``op: "*"`` matches every op of the seam.
 
 Port of ``polyaxon_tpu/chaos/plan.py``, the same code under the port's
-module names, without the metrics-history window a firing fault opens
-(``obs.history``, ROADMAP.md, Queue 1 item 9).
+module names.
 """
 
 from __future__ import annotations
@@ -151,9 +150,21 @@ class ChaosPlan:
                                          detail=detail, event=fault.seen)
                     except ImportError:  # pragma: no cover
                         pass
-                    # The JAX package also brackets the fault's active
-                    # stretch as a metrics-history window here; the
-                    # ring is ROADMAP.md, Queue 1 item 9.
+                    # Bracket the fault's active stretch as a named
+                    # history window (``chaos.<seam>``): opened on its
+                    # first firing, closed when its budget exhausts, so
+                    # during-window oracle invariants can scope to the
+                    # drill. Fail-open like the trace annotation.
+                    try:
+                        from polyaxon_tpu_torch.obs import history as _history
+
+                        hist = _history.default_history()
+                        if fault.fired == 1:
+                            hist.mark_window(f"chaos.{seam}", start=True)
+                        if fault.exhausted:
+                            hist.mark_window(f"chaos.{seam}", end=True)
+                    except Exception:  # noqa: BLE001
+                        pass
                     return fault
         return None
 

@@ -7,9 +7,7 @@ network hop. An HTTP facade can wrap this class 1:1 later; the CLI and
 tuner consume it directly.
 
 Port of ``polyaxon_tpu/controlplane/service.py``, the same code under
-the port's module names, except ``report`` and ``verify``: they need
-``obs.analyze`` and ``obs.oracle`` and raise until those are ported
-(ROADMAP.md, Queue 1 item 9).
+the port's module names.
 """
 
 from __future__ import annotations
@@ -464,20 +462,29 @@ class ControlPlane:
                               trace_id=run_uuid)
 
     def report(self, run_uuid: str) -> dict:
-        """Performance attribution report. The JAX package builds it with
-        ``obs.analyze``, which the port does not have yet: ROADMAP.md,
-        Queue 1 item 9."""
-        raise NotImplementedError(
-            "ControlPlane.report needs obs.analyze, which is not ported "
-            "yet: ROADMAP.md, Queue 1 item 9")
+        """Performance attribution report (obs.analyze): the run's wall
+        clock decomposed into phases, step-time trend with anomaly
+        flags, and retry/chaos/requeue annotations per phase — plus the
+        run's status and any alerts that fired on it."""
+        from polyaxon_tpu_torch.obs.analyze import analyze_timeline
+
+        record = self.store.get_run(run_uuid)
+        report = analyze_timeline(self.timeline(run_uuid))
+        report["status"] = record.status.value
+        report["retries"] = record.retries
+        report["alerts"] = (record.meta or {}).get("alerts") or []
+        return report
 
     def verify(self, run_uuid: Optional[str] = None) -> dict:
-        """Telemetry-oracle verdicts. The JAX package judges them with
-        ``obs.oracle``, which the port does not have yet: ROADMAP.md,
-        Queue 1 item 9."""
-        raise NotImplementedError(
-            "ControlPlane.verify needs obs.oracle, which is not ported "
-            "yet: ROADMAP.md, Queue 1 item 9")
+        """Telemetry-oracle verdicts (obs.oracle): the committed
+        invariant set judged against this plane's end state —
+        scoped to one run when ``run_uuid`` is given, fleet-wide
+        otherwise."""
+        from polyaxon_tpu_torch.obs.oracle import verify_plane
+
+        if run_uuid is not None:
+            self.store.get_run(run_uuid)  # raises for an unknown uuid
+        return verify_plane(self, run_uuid=run_uuid)
 
     # -- cross-run lineage -------------------------------------------------
     def _upstream_edges(

@@ -1,5 +1,8 @@
 """Checkpoint interop: a HuggingFace Llama state dict ↔ the port's llama
-tree (port of ``polyaxon_tpu/models/convert.py``).
+tree (port of ``polyaxon_tpu/models/convert.py``), and a params tree
+read from an Orbax checkpoint of the JAX package → the port's store
+(:func:`params_to_store`; ``scripts/convert_orbax_to_torch.py`` does the
+Orbax half where JAX is installed).
 
 Both sides use the rotate-half RoPE convention, so projections transfer
 by transpose alone (HF ``[out, in]`` → ``[in, out]``), and per-layer
@@ -96,3 +99,41 @@ def to_hf_llama(params: Mapping[str, Any], cfg: LlamaConfig
         out["lm_head.weight"] = np.ascontiguousarray(
             _to_numpy(params["lm_head"]).T)
     return out
+
+
+def _check_shapes(template: Mapping[str, Any], tree: Any, path: str = ""
+                  ) -> None:
+    """Raises ValueError unless ``tree`` has ``template``'s keys and
+    leaf shapes."""
+    if not isinstance(tree, Mapping) or set(tree) != set(template):
+        got = sorted(tree) if isinstance(tree, Mapping) else type(tree)
+        raise ValueError(f"params at '{path or '/'}' have keys {got}, the "
+                         f"model expects {sorted(template)}")
+    for key, ref in template.items():
+        sub = f"{path}/{key}"
+        if isinstance(ref, Mapping):
+            _check_shapes(ref, tree[key], sub)
+        elif tuple(np.shape(tree[key])) != tuple(ref.shape):
+            raise ValueError(f"{sub} has shape {tuple(np.shape(tree[key]))}"
+                             f", the model expects {tuple(ref.shape)}")
+
+
+def params_to_store(params: Mapping[str, Any], model: str, directory: str,
+                    step: int = 0) -> str:
+    """Write a params tree of numpy arrays (bare, or a LoRA state's
+    ``{"base", "lora"}`` with its ``_meta``) as committed step ``step``
+    of the port's store under ``directory``, as ``{"params": ...}``, the
+    layout ``serving.server.load_params`` reads (a LoRA state is merged
+    there, as the port's own are). The tree (a LoRA state's ``base``)
+    must have ``model``'s keys and shapes; dtypes are kept. Returns the
+    step's directory."""
+    from polyaxon_tpu_torch.models import family_of
+    from polyaxon_tpu_torch.runtime.checkpoint import write_tree
+
+    family = family_of(model)
+    cfg = family.CONFIGS[model]
+    template = family.init(cfg, torch.Generator(), device="meta",
+                           param_dtype=cfg.dtype)["params"]
+    lora = isinstance(params, Mapping) and set(params) == {"base", "lora"}
+    _check_shapes(template, params["base"] if lora else params)
+    return write_tree(directory, step, {"params": params})

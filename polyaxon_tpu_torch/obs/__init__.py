@@ -1,12 +1,12 @@
 """Observability (port of ``polyaxon_tpu/obs``): run-lifecycle tracing
-(``obs.trace``), the Prometheus metrics registry (``obs.metrics``), the
-failure flight recorder (``obs.flight``), serving-request span trees
-(``obs.reqtrace``) and their phase summary (``obs.analyze``'s
-``request_phases``). The rest of the JAX package's analysis plane
-(``rules``, ``history``, the run report of ``analyze``, ``oracle``) is
-ROADMAP.md, Queue 1 item 9."""
+(``obs.trace``), the Prometheus metrics registry (``obs.metrics``), and
+the analysis plane that reads them: declarative alert rules with SLO
+burn-rate support (``obs.rules``), the metrics-history ring
+(``obs.history``), per-run attribution reports (``obs.analyze``), the
+telemetry oracle (``obs.oracle``), the failure flight recorder
+(``obs.flight``) and serving-request span trees (``obs.reqtrace``)."""
 
-from polyaxon_tpu_torch.obs import flight, metrics, trace
+from polyaxon_tpu_torch.obs import analyze, flight, metrics, reqtrace, rules, trace
 from polyaxon_tpu_torch.obs.metrics import (
     Counter,
     Gauge,
@@ -25,8 +25,11 @@ from polyaxon_tpu_torch.obs.trace import (
 )
 
 __all__ = [
+    "analyze",
     "flight",
     "metrics",
+    "reqtrace",
+    "rules",
     "trace",
     "Counter",
     "Gauge",

@@ -30,8 +30,7 @@ byte-identical to before: the component dimension only appears on a
 family once something scoped lands in it.
 
 Port of ``polyaxon_tpu/obs/metrics.py``, the same code under the port's
-module names; ``reset`` does not drop a metrics-history ring, which the
-port does not have yet (``obs.history``, ROADMAP.md, Queue 1 item 9).
+module names.
 """
 
 from __future__ import annotations
@@ -584,10 +583,14 @@ class MetricsRegistry:
         process-global REGISTRY otherwise leaks series across tests —
         get-or-create re-creates families fresh on next touch, so a
         reset between tests is safe for every accessor-style caller.
-        (The JAX package also drops its metrics-history ring here; the
-        ring is ROADMAP.md, Queue 1 item 9.)"""
+        The default metrics-history ring is derived state over this
+        registry, so resetting the global REGISTRY drops it too."""
         with self._lock:
             self._metrics.clear()
+        if self is REGISTRY:
+            from polyaxon_tpu_torch.obs import history as obs_history
+
+            obs_history.reset_default()
 
     def render(self) -> str:
         """The whole registry in Prometheus text-format 0.0.4."""

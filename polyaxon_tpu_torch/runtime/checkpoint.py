@@ -310,6 +310,40 @@ def load_tree(directory: str, step: Optional[int] = None, *,
     return step, tree
 
 
+def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``arr``'s bytes (copied only when ``arr`` is
+    read-only or strided). numpy has no bf16: a bfloat16 array (the
+    ``ml_dtypes`` type JAX hands out) is taken as its 16-bit words."""
+    bf16 = arr.dtype.name == "bfloat16"
+    if bf16:
+        arr = arr.view(np.uint16)
+    out = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+    return out.view(torch.bfloat16) if bf16 else out
+
+
+def write_tree(directory: str, step: int, tree: Any) -> str:
+    """Write ``tree`` (nested dicts and lists of numpy arrays and ints)
+    as one committed store step ``step`` under ``directory``, with the
+    manifest and CRC-32s every port reader checks; returns the step's
+    directory. Refuses a directory that already holds a committed
+    step."""
+    leaves = iter([leaf if isinstance(leaf, int)
+                   else _tensor_from_numpy(np.asarray(leaf))
+                   for _, leaf in flatten(tree)])
+    state = _rebuild(tree, leaves)
+    existing = _list_store_steps(os.path.abspath(directory))
+    if existing:
+        raise FileExistsError(f"{directory} already holds checkpoint step "
+                              f"{existing[0]}")
+    manager = CheckpointManager(directory, CheckpointSpec(async_save=False,
+                                                          max_to_keep=None))
+    try:
+        manager.save(int(step), state, force=True)
+    finally:
+        manager.close()
+    return os.path.join(manager.directory, str(int(step)))
+
+
 class _HostBuffer:
     """The flat host buffer snapshots are taken into, page-locked
     (``cudaHostRegister``) when the state lives on a GPU, so the device →
@@ -384,10 +418,17 @@ class CheckpointManager:
 
     # --------------------------------------------------------- timing
     def _observe_save(self, tier: str, seconds: float) -> None:
+        """One tier's commit time, kept here and sampled into the
+        catalogued ``polyaxon_checkpoint_save_seconds{tier, mode}``: the
+        store's mode is the spec's, the cheap tiers always commit on the
+        publisher thread."""
         self.save_seconds.setdefault(tier, []).append(seconds)
+        sync = tier == tiers.TIER_STORE and not self.spec.async_save
+        tiers._observe_save(tier, "sync" if sync else "async", seconds)
 
     def _observe_restore(self, tier: str, seconds: float) -> None:
         self.restore_seconds.setdefault(tier, []).append(seconds)
+        tiers._observe_restore(tier, seconds)
 
     # ----------------------------------------------------------- spec
     @property
@@ -643,6 +684,11 @@ class CheckpointManager:
         steps = self._list_steps()
         if not steps:
             raise FileNotFoundError(f"No checkpoint under {self.directory}")
+        from polyaxon_tpu_torch import chaos
+
+        plan = chaos.active_plan()
+        if plan is not None:
+            plan.corrupt_checkpoint(self.directory, steps)
         last_error: Optional[Exception] = None
         for candidate in list(steps):
             try:
@@ -788,6 +834,9 @@ class TieredCheckpointManager(CheckpointManager):
         self.last_restore_skipped = []
         self.last_restore_tier = None
         t_restore = time.perf_counter()
+        # Chaos fallback drill: a due tier0-loss fault drops the memory
+        # replica AND the spill before we even look at them.
+        tiers.tier0_loss_due(self.directory)
         replica = tiers.TIER0.lookup(self.directory)
         spill_steps = set(self._spill.steps())
         store_steps = self._list_steps()
@@ -797,6 +846,24 @@ class TieredCheckpointManager(CheckpointManager):
             reverse=True)
         if not candidates:
             raise FileNotFoundError(f"No checkpoint under {self.directory}")
+        from polyaxon_tpu_torch import chaos
+
+        plan = chaos.active_plan()
+        if plan is not None and store_steps:
+            target = plan.corrupt_checkpoint(self.directory, store_steps)
+            if target is not None:
+                # The fault models the newest step's bytes rotting
+                # wherever they are replicated: the cheap tiers lose
+                # that step too, so the drill still proves the
+                # fall-back-to-older-step path. (The spill's copy of
+                # that step links the corrupted files; an older spill
+                # step links only its own store step's files.)
+                if replica is not None and int(replica["step"]) == target:
+                    tiers.TIER0.drop(self.directory)
+                    replica = None
+                if target in spill_steps:
+                    self._spill.cull(target)
+                    spill_steps.discard(target)
         last_error: Optional[Exception] = None
         for candidate in candidates:
             if replica is not None and int(replica["step"]) == candidate:

@@ -50,13 +50,15 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-# Tier labels, as the run's outputs report them (`restore_tier`).
+# Tier labels as they appear in metrics (`polyaxon_checkpoint_restore_
+# seconds{tier=...}`) and the run's outputs (`restore_tier`).
 TIER_MEMORY = "0"
 TIER_LOCAL = "1"
 TIER_STORE = "2"
 
-# The reference's restore-budget floor (wall seconds, p99). Reported
-# beside the port's restore times; nothing here enforces it.
+# The restore-budget floor (wall seconds, p99). Mirrored by
+# obs/rules.json `checkpoint-restore-slow` and obs/oracle.json
+# `restore-budget-during-storm`; change all three together.
 RESTORE_BUDGET_P99_SECONDS = 2.5
 
 SPILL_DIRNAME = ".tier1"
@@ -75,6 +77,27 @@ LOAD_WORKERS = 4
 # commit: the atomic-commit protocol's failure mode, drilled for real.
 # Readers then never see the step.
 WEDGE_TIER0_COMMITS = False
+
+
+def _observe_restore(tier: str, seconds: float) -> None:
+    """Catalogued restore wall time; fail-open like every telemetry
+    garnish — a broken metrics plane must never fail a restore."""
+    try:
+        from polyaxon_tpu_torch.obs import metrics as obs_metrics
+
+        obs_metrics.checkpoint_restore_hist().observe(seconds, tier=tier)
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def _observe_save(tier: str, mode: str, seconds: float) -> None:
+    try:
+        from polyaxon_tpu_torch.obs import metrics as obs_metrics
+
+        obs_metrics.checkpoint_save_hist().observe(seconds, tier=tier,
+                                                   mode=mode)
+    except Exception:  # noqa: BLE001
+        pass
 
 
 def write_npy(fh, arr: np.ndarray) -> None:
@@ -353,6 +376,23 @@ class LocalSpill:
                 _remove(os.path.join(self.path, name))
                 gone.append(name)
         return gone
+
+
+def tier0_loss_due(directory: str) -> bool:
+    """Consult the chaos ``tier0-loss`` seam for this checkpoint dir;
+    when a fault fires, kill BOTH cheap tiers — the memory replica and
+    the local spill — so the restore drills the store fallback instead
+    of assuming it."""
+    from polyaxon_tpu_torch import chaos
+
+    plan = chaos.active_plan()
+    if plan is None or not plan.tier0_loss_due(directory):
+        return False
+    TIER0.drop(directory)
+    LocalSpill(directory).drop_all()
+    logger.warning("chaos: tier-0 replica and local spill dropped for %s",
+                   directory)
+    return True
 
 
 def warm(directory: str) -> Optional[int]:

@@ -40,9 +40,9 @@ from polyaxon_tpu_torch.obs import reqtrace
 from polyaxon_tpu_torch.obs.trace import Span
 from polyaxon_tpu_torch.serving.router import FleetRouter
 
-# Rule ids whose firing state means "add capacity": the autoscaler takes
-# the alert engine's active rule ids (obs/rules.py in the JAX package;
-# the port's is ROADMAP.md, Queue 1 item 9, so callers pass them).
+# Rule ids whose firing state means "add capacity". The autoscaler
+# consumes AlertEngine.active() — telemetry driving placement, not
+# only verdicts.
 SCALE_UP_RULES = frozenset((
     "fleet-replica-hot",
     "serving-queue-saturation",

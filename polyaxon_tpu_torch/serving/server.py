@@ -30,12 +30,15 @@ API (JSON over HTTP):
                                engine streams tokens as they decode, the
                                static engine emits one burst per batch.
 
-``GET /alerts`` answers 501: the alert rules (``obs/rules.py``) are
-ROADMAP.md, Queue 1 item 9. The llama and MoE decoders and the t5
-encoder-decoder are served (t5's prompt is the encoder input, and its
-generation starts from BOS). Weights come from a seeded random init, or
-from the latest step of a checkpoint the port's training wrote (a LoRA
-fine-tune merged at load), and may be quantized to int8 at load
+``GET /alerts`` evaluates the committed alert rules (``obs/rules.py``)
+against this process's registry and returns the engine's state. The
+llama and MoE decoders and the t5 encoder-decoder are served (t5's
+prompt is the encoder input, and its generation starts from BOS).
+Weights come from a seeded random init, or from the latest step of a
+checkpoint in the port's store (written by the port's training, or
+converted from the JAX package's Orbax format by
+``scripts/convert_orbax_to_torch.py``; a LoRA fine-tune merged at
+load), and may be quantized to int8 at load
 (``serving/quantize.py``). Sampled draws
 come from torch generators seeded by the request, so they differ from
 the JAX package's; greedy output is the same.
@@ -85,8 +88,9 @@ def load_params(model: str, checkpoint: Optional[str] = None, seed: int = 0,
     the device, with alpha and rank from the checkpoint's ``_meta``
     (``lora_alpha`` is the fallback for a tree without one). A checkpoint
     must match the model's tree and shapes. ``quantize="int8"`` quantizes
-    the matrices at load. Orbax trees written by the JAX package are not
-    read (ROADMAP.md, Queue 1 item 3c)."""
+    the matrices at load. An Orbax checkpoint of the JAX package is read
+    once converted to the port's store by
+    ``scripts/convert_orbax_to_torch.py`` (params only)."""
     family = _family(model)
     cfg = family.CONFIGS[model]
     dev = resolve_device(device)
@@ -452,9 +456,14 @@ class _Handler(BaseHTTPRequestHandler):
             self.wfile.write(body)
             return
         if self.path == "/alerts":
-            return self._json(
-                {"error": "alert rules (obs/rules.py) are not ported yet "
-                          "(ROADMAP.md, Queue 1 item 9)"}, status=501)
+            # The serving process evaluates the same committed ruleset
+            # (obs.rules) against ITS registry — the request-p99 and
+            # queue-saturation rules live where those series do.
+            from polyaxon_tpu_torch.obs import rules as obs_rules
+
+            alert_engine = obs_rules.default_engine()
+            alert_engine.evaluate()
+            return self._json(alert_engine.to_json())
         if self.path == "/v1/models":
             return self._json({"models": [self.engine.model]})
         if self.path == "/v1/stats":

@@ -348,12 +348,21 @@ class TestRefusals:
 
     @pytest.mark.parametrize("method", ["report", "verify"])
     def test_report_and_verify_name_item_9(self, method, tmp_path):
+        """Item 9 is ported: ``report`` and ``verify`` answer for a run
+        that has not started, and refuse an unknown uuid as the JAX
+        plane does."""
         from polyaxon_tpu_torch.controlplane import ControlPlane
 
         plane = ControlPlane(str(tmp_path))
         record = plane.submit(script_job("print(1)"))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            getattr(plane, method)(record.uuid)
+        out = getattr(plane, method)(record.uuid)
+        if method == "report":
+            assert out["status"] == "created" and out["attempts"] == 0
+        else:
+            assert out["run_uuid"] == record.uuid
+            assert len(out["verdicts"]) == 16
+        with pytest.raises(KeyError):
+            getattr(plane, method)("no-such-run")
 
     def test_compile_cache_env_sets_nothing(self, tmp_path, monkeypatch):
         """The JAX executor resolves POLYAXON_TPU_COMPILE_CACHE=1 to a

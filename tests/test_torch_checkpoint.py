@@ -4,8 +4,10 @@ CPU.
 
 - The tier cases mirror ``tests/test_checkpoint_tiers.py``
   (``TestCrossTierFallback``, ``TestTierMechanics``) on the port's
-  manager; the port has no chaos plan, so the tests corrupt bytes
-  directly.
+  manager. Where the reference installs a chaos fault
+  (``tier0-loss``, ``checkpoint/corrupt_latest``) the port's is
+  installed; the cases that damage one tier's bytes on purpose do so by
+  hand, as the reference's do.
 - Resume against JAX: ``run_jaxjob`` and ``run_torchjob(device="cpu")``
   on the same spec (llama_tiny, f32, JAX's initial weights through
   ``params_from_numpy``, the same packed batches), each stopped by
@@ -318,15 +320,21 @@ class TestTierMechanics:
         mgr.close()
 
     def test_tier0_loss_drops_both_cheap_tiers(self, tmp_path):
-        """The reference drills this through its chaos seam; here the
-        replica and the spill are dropped by hand, as a new process on a
-        new host would find them."""
+        """The chaos ``tier0-loss`` seam drops the replica and the spill,
+        as a new process on a new host would find them."""
+        from polyaxon_tpu_torch import chaos
+
         mgr = manager(tmp_path)
         mgr.save(4, state(4), force=True)
         mgr.wait()
-        tiers.TIER0.drop(mgr.directory)
-        mgr._spill.drop_all()
-        restored = mgr.restore(state(0))
+        chaos.install(chaos.ChaosPlan.from_dict({"faults": [
+            {"seam": "tier0-loss", "op": "drop"}]}))
+        try:
+            restored = mgr.restore(state(0))
+            assert chaos.active_plan().done
+        finally:
+            chaos.uninstall()
+        assert mgr._spill.steps() == []
         assert_state(restored, 4)
         assert mgr.last_restore_tier == tiers.TIER_STORE
         # The store win does not re-promote; the next save refills the
@@ -658,21 +666,10 @@ def _torch_run(art, monkeypatch, params0, should_stop=None):
     return result, {s: v["loss"] for s, v in seen.items() if "loss" in v}
 
 
-def _corrupt_torch_latest(art, step):
-    """What the JAX side's chaos ``corrupt_latest`` does to a tiered
-    store, by hand: the step's store bytes rot, and the memory replica
-    and the spill lose that step."""
-    directory = os.path.join(str(art), "checkpoints")
-    flip_byte(os.path.join(directory, str(step), "leaf_1.npy"))
-    replica = tiers.TIER0.lookup(directory)
-    assert replica is not None and replica["step"] == step
-    tiers.TIER0.drop(directory)
-    tiers.LocalSpill(directory).cull(step)
-
-
 def test_resume_matches_uninterrupted_and_jax(tmp_path, monkeypatch,
                                               jax_params0):
-    from polyaxon_tpu import chaos
+    from polyaxon_tpu import chaos as jax_chaos
+    from polyaxon_tpu_torch import chaos as torch_chaos
 
     runs = {}
     for name, fn in (("jax", lambda art, stop=None: _jax_run(art, stop)),
@@ -682,18 +679,17 @@ def test_resume_matches_uninterrupted_and_jax(tmp_path, monkeypatch,
         cut, _ = fn(tmp_path / name / "cut", _stop_after(3))
         resumed, resumed_losses = fn(tmp_path / name / "cut")
         # The same interrupted run again, its latest step then corrupted
-        # in every tier: the restore falls back a step.
+        # in every tier by each package's chaos ``corrupt_latest``: the
+        # restore falls back a step.
         fn(tmp_path / name / "bad", _stop_after(3))
-        if name == "jax":
-            chaos.install(chaos.ChaosPlan.from_dict({"faults": [
-                {"seam": "checkpoint", "op": "corrupt_latest"}]}))
-            try:
-                fallback, fallback_losses = fn(tmp_path / name / "bad")
-            finally:
-                chaos.uninstall()
-        else:
-            _corrupt_torch_latest(tmp_path / name / "bad", 3)
+        chaos = jax_chaos if name == "jax" else torch_chaos
+        chaos.install(chaos.ChaosPlan.from_dict({"faults": [
+            {"seam": "checkpoint", "op": "corrupt_latest"}]}))
+        try:
             fallback, fallback_losses = fn(tmp_path / name / "bad")
+            assert chaos.active_plan().done
+        finally:
+            chaos.uninstall()
         runs[name] = (full, full_losses, cut, resumed, resumed_losses,
                       fallback, fallback_losses)
 
