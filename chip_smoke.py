@@ -160,8 +160,8 @@ Phases, each of which must pass:
    memory (a cut is printed).
 
 11. MoE training: ``examples/moe_expert_parallel.yaml`` compiled by the
-   port with the gpu preset (one device for its dp2 x ep8 mesh: the
-   parallel layer is ROADMAP item 7) and run by the port's launcher in
+   port with the gpu preset (one device for its dp2 x ep8 mesh: this
+   machine has one H100) and run by the port's launcher in
    this process: moe_8x200m at full width and depth, lm_synthetic, seq
    2048, global batch 32 in MOE_ACCUM microbatches, ragged dispatch,
    MOE_STEPS steps; losses and router_aux finite, each flash kernel once
@@ -232,6 +232,24 @@ Phases, each of which must pass:
    registry. Prints the restore seconds by tier, the report's phases and
    step trend, every verdict, the passes' counts and times, and the time
    of ``report``, ``verify``, an alert pass and a history sample.
+17. Data and context parallelism (lines ``17a.`` to ``17d.``). (a)
+   ``examples/longcontext_ring.yaml`` compiled by the port with the gpu
+   preset (one device for its dp2 x cp8 mesh; global batch 16 cut to 1,
+   1,000 steps to LONGCTX_STEPS) and run by the port's launcher with a
+   one-process bootstrap env: a real one-rank NCCL group, the parameters
+   DTensors on a one-device mesh; llama3_1b at full width and depth,
+   32,768 tokens, ring attention, remat full. The flash kernels must
+   launch 6 forward and 3 of each backward per layer and step, and the
+   launcher must leave no process group behind. (b) One 32,768-token row
+   through ``attention_impl="ring"`` against ``"flash"``: the loss and
+   every leaf's gradient within phase 5's tolerances. (c) The zigzag's
+   schedule at cp = 2, 4 and 8 and (d) Ulysses' n = 4 head split,
+   replayed in one process through the kernels at that row, forward and
+   backward, against ``flash_attention`` on the whole row (and at
+   RING_PLAIN_SEQ against the plain versions); 17d also calls
+   ``dot_product_attention(impl="ulysses")`` on a one-rank mesh, which
+   must launch the flash kernel. Phase 1 also holds the
+   kernels at the ring's block shapes (``PATH_CASES``).
 
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
@@ -242,6 +260,7 @@ without a GPU or outside a checkout.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -419,14 +438,19 @@ def _flash_inputs(torch, gen, B, S, H, KV, D):
 
 
 def hold_flash(torch, flash, label, q, k, v, *, seg=None, window=None,
-               causal=True):
-    """The forward kernel against ``flash_fwd_plain``; fails on a
+               causal=True, heads=None):
+    """The forward kernel against ``flash_fwd_plain`` (on the first
+    ``heads`` query heads and their KV heads when given); fails on a
     disagreement, returns the max abs error of o."""
-    D = q.shape[-1]
+    D, H, KV = q.shape[-1], q.shape[2], k.shape[2]
     o, lse = flash.flash_attention_with_lse(q, k, v, causal=causal,
                                             window=window, segment_ids=seg)
     torch.cuda.synchronize()
-    po, plse = flash.flash_fwd_plain(q, k, v, causal=causal,
+    h = heads or H
+    kvh = h * KV // H
+    o, lse = o[:, :, :h], lse[:, :h]
+    po, plse = flash.flash_fwd_plain(q[:, :, :h], k[:, :, :kvh],
+                                     v[:, :, :kvh], causal=causal,
                                      scale=D ** -0.5, window=window,
                                      segment_ids=seg)
     torch.cuda.synchronize()
@@ -438,26 +462,30 @@ def hold_flash(torch, flash, label, q, k, v, *, seg=None, window=None,
         fail(f"flash kernel disagrees with its plain version ({label}): "
              f"o max abs err {err_o} (atol {OUT_ATOL} + rtol {OUT_RTOL}), "
              f"lse err {err_lse} (tol {FLASH_LSE_ATOL})")
+    held = f" (first {h} of {H} heads)" if h < H else ""
     print(f"flash {label}{' packed' if seg is not None else ''}: "
-          f"max_abs_err o={err_o:.3e} lse={err_lse:.3e}", flush=True)
+          f"max_abs_err o={err_o:.3e} lse={err_lse:.3e}{held}", flush=True)
     del o, lse, po, plse
     torch.cuda.empty_cache()
     return err_o
 
 
 def time_flash(torch, flash, peaks, label, q, k, v, *, window=None,
-               causal=True):
+               causal=True, heads=None):
     """Kernel, plain and (without a window) SDPA times of the forward,
-    and its bound; returns the record."""
+    and its bound; returns the record. With ``heads``, the plain version
+    runs on that many query heads and its time is scaled to all."""
     import torch.nn.functional as F
 
     B, S, H, D = q.shape
     KV = k.shape[2]
+    h = heads or H
+    kvh = h * KV // H
     ms = time_ms(lambda: flash.flash_attention_with_lse(
         q, k, v, causal=causal, window=window), reps=20)
     plain_ms = time_ms(lambda: flash.flash_fwd_plain(
-        q, k, v, causal=causal, scale=D ** -0.5, window=window), reps=3,
-        warmup=1)
+        q[:, :, :h], k[:, :, :kvh], v[:, :, :kvh], causal=causal,
+        scale=D ** -0.5, window=window), reps=3, warmup=1) * H / h
     lib_ms = None
     if window is None:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -474,8 +502,10 @@ def time_flash(torch, flash, peaks, label, q, k, v, *, window=None,
     bound_ms = max(flops / peaks[0], nbytes / peaks[1]) * 1e3
     by = "operations" if flops / peaks[0] >= nbytes / peaks[1] else "bytes"
     lib = f"{lib_ms:.4f}" if lib_ms is not None else "none"
+    scaled = f" ({H // h} x {h} heads)" if h < H else ""
     print(f"flash {label} B={B} H={H} KV={KV}: kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} sdpa_ms={lib} bound_ms={bound_ms:.4f} "
+          f"plain_ms={plain_ms:.4f}{scaled} sdpa_ms={lib} "
+          f"bound_ms={bound_ms:.4f} "
           f"({by}) kernel_TFLOPs={flops / ms / 1e9:.1f}", flush=True)
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -889,23 +919,52 @@ def time_flash_bwd(torch, flash, peaks, gen, B, S, H, KV, D, seg):
     return recs
 
 
-# The flash kernels at the shapes phases 11-13 give them (D=64): t5's
-# encoder, non-causal, in training (t5_base at S=512, 12:12 heads, the
-# microbatch of phase 13) and served (one ragged encoder length); t5's
-# decoder self-attention, causal, at the same microbatch; moe_8x200m's
-# training microbatch (B=4, S=2048, 16:8 heads), causal.
+# The flash kernels at the shapes phases 11-13 and 17 give them (D=64):
+# t5's encoder, non-causal, in training (t5_base at S=512, 12:12 heads,
+# the microbatch of phase 13) and served (one ragged encoder length);
+# t5's decoder self-attention, causal, at the same microbatch;
+# moe_8x200m's training microbatch (B=4, S=2048, 16:8 heads), causal;
+# and the ring's blocks at llama3_1b's 32,768-token row (32:8 heads):
+# at cp=1 the half-row causal diagonals and the non-causal hi-lo block
+# (S_loc/2 = 16,384), at cp=4 the 4,096-row diagonals and ring-step
+# blocks.
 PATH_CASES = (("t5_base encoder training B=32 S=512", 32, 512, 12, 12, False),
               ("t5_base served encoder S=300", 1, 300, 12, 12, False),
               ("t5_base decoder training B=32 S=512", 32, 512, 12, 12, True),
-              ("moe_8x200m training B=4 S=2048", 4, 2048, 16, 8, True))
+              ("moe_8x200m training B=4 S=2048", 4, 2048, 16, 8, True),
+              ("ring cp=1 diagonal S=16384", 1, 16384, 32, 8, True),
+              ("ring cp=1 hi-lo block S=16384", 1, 16384, 32, 8, False),
+              ("ring cp=4 diagonal S=4096", 1, 4096, 32, 8, True),
+              ("ring cp=4 step block S=4096", 1, 4096, 32, 8, False))
+# The plain versions hold f32 [B, h, S, S] scores: past this many bytes
+# they run on the first KV group's heads only (the kernels run on all of
+# them; the plain time is scaled up to all heads).
+PLAIN_SCORE_BYTES = 8e9
+
+
+def plain_heads(B: int, S: int, H: int, KV: int) -> int:
+    """Query heads the plain versions hold: all, or whole KV groups
+    within PLAIN_SCORE_BYTES (at least one)."""
+    group = H // KV
+    fit = int(PLAIN_SCORE_BYTES // (4.0 * B * S * S * group))
+    return H if fit >= KV else group * max(fit, 1)
+
+
+def _head_slice(args, h: int, H: int, KV: int):
+    """The backward's (q, k, v, seg, o, lse, do, dlse) on the first h
+    query heads and their KV heads."""
+    kvh = h * KV // H
+    q, k, v, seg, o, lse, do, dlse = args
+    return (q[:, :, :h], k[:, :, :kvh], v[:, :, :kvh], seg, o[:, :, :h],
+            lse[:, :h], do[:, :, :h], None if dlse is None else dlse[:, :h])
 
 
 def check_path_shapes(torch, flash, peaks, gen):
     """The forward and the backward pair at PATH_CASES: each against its
     plain version, then timed beside SDPA (``is_causal`` as the case),
     the bounds counting the visible pairs (all S^2 without a causal
-    mask). Returns the worst errors {"fwd", "dkdv", "dq"} and the
-    records."""
+    mask); the plain versions on ``plain_heads`` of the heads. Returns
+    the worst errors {"fwd", "dkdv", "dq"} and the records."""
     import torch.nn.functional as F
 
     worst = {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
@@ -913,19 +972,22 @@ def check_path_shapes(torch, flash, peaks, gen):
     D = 64
     for label, B, S, H, KV, causal in PATH_CASES:
         mask = "causal" if causal else "non-causal"
+        h = plain_heads(B, S, H, KV)
+        kvh = h * KV // H
         args = _flash_inputs(torch, gen, B, S, H, KV, D)
         worst["fwd"] = max(worst["fwd"], hold_flash(
-            torch, flash, f"{label} {mask}", *args, causal=causal))
+            torch, flash, f"{label} {mask}", *args, causal=causal, heads=h))
         recs[f"fwd {label}"] = time_flash(torch, flash, peaks,
                                           f"{label} {mask}", *args,
-                                          causal=causal)
+                                          causal=causal, heads=h)
         del args
         args = _bwd_inputs(torch, flash, gen, B, S, H, KV, D, None,
                            dlse=True, causal=causal)
         kw = dict(causal=causal, scale=D ** -0.5)
         got = flash.flash_bwd_cuda(*args, **kw)
+        got = (got[0][:, :, :h], got[1][:, :, :kvh], got[2][:, :, :kvh])
         torch.cuda.synchronize()
-        want = flash.flash_bwd_plain(*args, **kw)
+        want = flash.flash_bwd_plain(*_head_slice(args, h, H, KV), **kw)
         torch.cuda.synchronize()
         errs = {}
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -940,17 +1002,20 @@ def check_path_shapes(torch, flash, peaks, gen):
                      f"{BWD_ATOL_REL} * max|plain| + rtol {BWD_RTOL})")
         worst["dq"] = max(worst["dq"], errs["dq"])
         worst["dkdv"] = max(worst["dkdv"], errs["dk"], errs["dv"])
+        held = f" (first {h} of {H} heads)" if h < H else ""
         print(f"flash_bwd {label} {mask}: max_abs_err "
-              f"dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e}",
-              flush=True)
+              f"dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e}"
+              f"{held}", flush=True)
         del got, want, args
         args = _bwd_inputs(torch, flash, gen, B, S, H, KV, D, None,
                            dlse=False, causal=causal)
         run_dkdv, run_dq, _ = flash._bwd_launchers(*args, **kw)
         dkdv_ms = time_ms(run_dkdv, reps=20)
         dq_ms = time_ms(run_dq, reps=20)
-        plain_ms = time_ms(lambda: flash.flash_bwd_plain(*args, **kw),
-                           reps=3, warmup=1)
+        sliced = _head_slice(args, h, H, KV)
+        plain_ms = time_ms(lambda: flash.flash_bwd_plain(*sliced, **kw),
+                           reps=3, warmup=1) * H / h
+        del sliced
         q, k, v, _, _, _, do, _ = args
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
@@ -3397,8 +3462,8 @@ def compile_example(path: str, label: str, *, params=None, axes=None,
     if plan.num_processes != 1:
         fail(f"{label}: the plan has {plan.num_processes} processes")
     job = json.loads(plan.processes[0].env[ENV_JAXJOB_SPEC])
-    cut = f"; cut: one device for its mesh {sorted(axes)} (the parallel " \
-          "layer is ROADMAP item 7)" if axes else ""
+    cut = f"; cut: one device for its mesh {sorted(axes)} (this machine " \
+          "has one H100)" if axes else ""
     print(f"{label}: {path} compiled by the port: runtime "
           f"{job['runtime']}, mesh {job.get('mesh')}{cut}", flush=True)
     return job
@@ -4511,6 +4576,266 @@ def chaos_restore(torch, llama):
           f"{time.perf_counter() - t_phase:.1f}", flush=True)
 
 
+# Phase 17: examples/longcontext_ring.yaml on the card (dp2 x cp8 cut to
+# one device; its global batch of 16 rows to 1; 1,000 steps to 4); the
+# ring's schedule at cp = 2, 4 and 8 and Ulysses' head split at n = 4,
+# replayed in one process at the example's row.
+LONGCTX_EXAMPLE = "examples/longcontext_ring.yaml"
+LONGCTX_STEPS = 4
+LONGCTX_SEQ = 32_768
+RING_REPLAY_CPS = (2, 4, 8)
+RING_PLAIN_SEQ = 4096     # the replays also held against the plain path
+ULYSSES_N = 4
+
+
+def longcontext_training(torch, flash, paged):
+    """Phase 17a: the example compiled by the port with the gpu preset
+    and run by its launcher with a one-process bootstrap env: a real
+    one-rank NCCL group, the parameters DTensors on a one-device
+    {dp: 1, cp: 1} mesh, llama3_1b at full width and depth, seq 32,768,
+    ``attention_impl: ring``, ``remat: full``, ``loss_chunk`` 256. Per
+    step and layer the zigzag at cp=1 runs three flash blocks (the two
+    half-row causal diagonals and the non-causal hi-lo block) and one
+    merge, the forward twice under full remat: 6 forward and 3 of each
+    backward kernel. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from polyaxon_tpu_torch.models import llama
+    from polyaxon_tpu_torch.parallel import bootstrap
+
+    label = "17a. longcontext ring"
+    t_phase = time.perf_counter()
+    layers = llama.CONFIGS["llama3_1b"].n_layers
+    job = compile_example(LONGCTX_EXAMPLE, label, axes=("dp", "cp"),
+                          runtime={"steps": LONGCTX_STEPS,
+                                   "global_batch_size": 1, "log_every": 1})
+    rt = job["runtime"]
+    if (rt["seq_len"], rt["attention_impl"], rt["remat"], rt["model"]) != (
+            LONGCTX_SEQ, "ring", "full", "llama3_1b"):
+        fail(f"{label}: the example's runtime changed: {rt}")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ring-")
+    env = {bootstrap.ENV_NUM_PROCESSES: "1", bootstrap.ENV_PROCESS_ID: "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        _zero(flash, paged)
+        torch.cuda.reset_peak_memory_stats()
+        emitted, outputs, launches, wall = launch_in_process(job, tmp, label)
+        counts = _counts(flash, paged)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        fail(f"{label}: the launcher left its process group behind")
+    _check_emissions(label, emitted, LONGCTX_STEPS)
+    per_step = {"flash_fwd": 6 * layers, "flash_bwd_dkdv": 3 * layers,
+                "flash_bwd_dq": 3 * layers, "paged_decode": 0}
+    want = {k: v * LONGCTX_STEPS for k, v in per_step.items()}
+    if counts != launches or counts != want:
+        fail(f"{label}: launches {counts} (launcher's line {launches}); "
+             f"want {want} ({per_step} per step)")
+    for vals in emitted:
+        print(f"{label} step {vals['step']}: loss={vals['loss']:.5f} "
+              f"grad_norm={vals['grad_norm']:.4f} step_ms="
+              f"{vals['step_time_ms']:.1f} tokens_per_s="
+              f"{vals['tokens_per_sec']:.1f} mfu={vals.get('mfu')}",
+              flush=True)
+    print(f"{label}: llama3_1b {layers} layers, seq {LONGCTX_SEQ} x 1 row "
+          f"(cuts: mesh dp2 x cp8 to one H100, global batch 16 to 1, "
+          f"steps 1000 to {LONGCTX_STEPS}); tokens_per_s="
+          f"{outputs['throughput']:.1f} step_ms="
+          f"{emitted[-1]['step_time_ms']:.1f} first_step_s="
+          f"{outputs['compile_time_s']:.1f} wall_s={wall:.1f} "
+          f"max_memory_allocated_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches per step "
+          f"{per_step} phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return counts
+
+
+def ring_parity(torch, llama):
+    """Phase 17b: one 32,768-token row of llama3_1b (full width and
+    depth, remat full) through ``attention_impl="ring"`` on a one-device
+    {dp: 1, cp: 1} mesh against ``"flash"``: the same function,
+    decomposed into half-row blocks and merged. The loss to
+    TRAIN_LOSS_REL_TOL and every leaf's gradient to TRAIN_GRAD_REL_TOL
+    (relative Frobenius norm), phase 5's tolerances."""
+    from polyaxon_tpu_torch.parallel import bootstrap
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, use_mesh
+    from polyaxon_tpu_torch.runtime.data import lm_synthetic
+
+    label = "17b. ring parity"
+    t_phase = time.perf_counter()
+    base = dataclasses.replace(llama.CONFIGS["llama3_1b"], remat="full")
+    params = llama.init(base, torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")["params"]
+    for t in _leaves(params):
+        t.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(lm_synthetic(
+        1, seq_len=LONGCTX_SEQ, vocab_size=base.vocab_size,
+        seed=SEED + 2)).items()}
+
+    def run(impl):
+        cfg = dataclasses.replace(base, attention_impl=impl)
+        loss, _, _ = llama.apply(cfg, {"params": params, "state": {}}, batch)
+        loss.backward()
+        grads = {}
+        for path, t in _named_leaves(params):
+            grads[path] = t.grad.float()
+            t.grad = None
+        torch.cuda.synchronize()
+        return loss.item(), grads
+
+    with bootstrap.process_group("cuda"):
+        mesh = build_mesh(axes={"dp": 1, "cp": 1}, device_type="cuda")
+        with use_mesh(mesh):
+            ring_loss, ring = run("ring")
+    flash_loss, want = run("flash")
+    loss_rel = abs(ring_loss - flash_loss) / abs(flash_loss)
+    rels = {k: ((g - want[k]).norm() / want[k].norm()).item()
+            for k, g in ring.items()}
+    worst = max(rels, key=rels.get)
+    print(f"{label}: loss ring={ring_loss:.6f} flash={flash_loss:.6f} "
+          f"rel={loss_rel:.3e}; grad rel over {len(rels)} leaves: worst "
+          f"{worst}={rels[worst]:.3e}, median "
+          f"{sorted(rels.values())[len(rels) // 2]:.3e} (tolerances "
+          f"TRAIN_LOSS_REL_TOL={TRAIN_LOSS_REL_TOL}, TRAIN_GRAD_REL_TOL="
+          f"{TRAIN_GRAD_REL_TOL}) phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    if not all(map(math.isfinite, rels.values())) or \
+            loss_rel > TRAIN_LOSS_REL_TOL or rels[worst] > TRAIN_GRAD_REL_TOL:
+        fail(f"{label}: loss rel {loss_rel}, grad rel {rels}")
+    del params, ring, want
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _named_leaves(v, path)
+        else:
+            yield path, v
+
+
+def _hold_replay(torch, label, got, want, bwd=False):
+    """Fail unless ``got`` agrees with ``want`` (forward: the flash
+    output tolerances; backward: the gradient tolerances)."""
+    for name, g, w in zip(("o",) if not bwd else ("dq", "dk", "dv"),
+                          got, want):
+        if not torch.isfinite(g).all():
+            fail(f"{label}: non-finite {name}")
+        ok = _bwd_close(g, w) if bwd else close(g, w)
+        if not ok:
+            fail(f"{label}: {name} max abs err "
+                 f"{(g.float() - w.float()).abs().max().item()}, max |want| "
+                 f"{w.float().abs().max().item()}")
+    return max((g.float() - w.float()).abs().max().item()
+               for g, w in zip(got, want))
+
+
+def replays(torch, flash):
+    """Phases 17c and 17d: at llama3_1b's row (B=1, S=32,768, 32:8 heads,
+    D=64, bf16), every rank's zigzag schedule at cp = 2, 4 and 8
+    (``ring.replay_zigzag``: the package's per-rank diagonal and step
+    functions, each permute replaced by the rotation it performs) and
+    Ulysses' n = 4 head split (``ulysses.replay_ulysses``), forward and
+    backward, through the flash kernels, against ``flash_attention`` on
+    the whole row (the outputs to OUT_ATOL/OUT_RTOL, the gradients to
+    BWD_ATOL_REL/BWD_RTOL); at S = RING_PLAIN_SEQ also against the plain
+    versions of the whole row."""
+    from polyaxon_tpu_torch.ops.ring import replay_zigzag
+    from polyaxon_tpu_torch.ops.ulysses import replay_ulysses
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    D, H, KV = 64, 32, 8
+
+    def grads(fn, q, k, v, do):
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = fn(q, k, v)
+        return (o,), torch.autograd.grad(o, (q, k, v), do)
+
+    def whole(q, k, v):
+        return flash.flash_attention(q, k, v, causal=True)
+
+    def plain(q, k, v):  # the plain forward, differentiated by autograd
+        return flash.flash_fwd_plain(q, k, v, causal=True,
+                                     scale=D ** -0.5)[0]
+
+    for S in (LONGCTX_SEQ, RING_PLAIN_SEQ):
+        q, k, v, do = (torch.randn(1, S, n, D, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16)
+                       for n in (H, KV, KV, H))
+        refs = {"flash": grads(whole, q, k, v, do)}
+        if S == RING_PLAIN_SEQ:
+            refs["plain"] = grads(plain, q, k, v, do)
+        cases = [(f"17c. zigzag replay cp={cp}",
+                  functools.partial(replay_zigzag, cp=cp))
+                 for cp in RING_REPLAY_CPS]
+        cases.append((f"17d. ulysses replay n={ULYSSES_N}",
+                      functools.partial(replay_ulysses, n=ULYSSES_N,
+                                        attn_impl="flash")))
+        for label, fn in cases:
+            (o,), g = grads(fn, q, k, v, do)
+            errs = []
+            for ref, ((ro,), rg) in refs.items():
+                errs.append(f"vs {ref}: o "
+                            f"{_hold_replay(torch, label, (o,), (ro,)):.3e}"
+                            f" grads "
+                            f"{_hold_replay(torch, label, g, rg, True):.3e}")
+            ms = time_ms(lambda: grads(fn, q, k, v, do), reps=3, warmup=1)
+            print(f"{label} S={S} B=1 H={H} KV={KV} D={D}: forward+backward "
+                  f"ms={ms:.2f} (whole-row flash "
+                  f"{time_ms(lambda: grads(whole, q, k, v, do), reps=3, warmup=1):.2f}); "
+                  f"max abs err {'; '.join(errs)}", flush=True)
+        if S == LONGCTX_SEQ:
+            ulysses_dispatch(torch, flash, q, k, v, refs["flash"][0][0])
+        del q, k, v, do, refs
+        torch.cuda.empty_cache()
+
+
+def ulysses_dispatch(torch, flash, q, k, v, want):
+    """Phase 17d: ``dot_product_attention(impl="ulysses")`` on the card,
+    as a job with ``attention_impl: ulysses`` calls it (a one-rank NCCL
+    group, a {dp: 1, cp: 1} mesh): one flash forward launch, the output
+    held against ``flash_attention`` on the whole row."""
+    from polyaxon_tpu_torch.ops.attention import dot_product_attention
+    from polyaxon_tpu_torch.parallel import bootstrap
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, use_mesh
+
+    label = "17d. ulysses dispatch"
+    with bootstrap.process_group("cuda"):
+        mesh = build_mesh(axes={"dp": 1, "cp": 1}, device_type="cuda")
+        with use_mesh(mesh), torch.no_grad():
+            before = flash.launches
+            o = dot_product_attention(q, k, v, causal=True, impl="ulysses")
+            launched = flash.launches - before
+    if launched != 1:
+        fail(f"{label}: {launched} flash forward launches, want 1")
+    err = _hold_replay(torch, label, (o,), (want,))
+    print(f"{label}: impl=ulysses on one rank, flash forward launches "
+          f"{launched}, max abs err vs whole-row flash {err:.3e}",
+          flush=True)
+
+
+def context_parallel(torch, llama, flash, paged):
+    """Phase 17; returns 17a's launches."""
+    t0 = time.perf_counter()
+    counts = longcontext_training(torch, flash, paged)
+    torch.cuda.empty_cache()
+    ring_parity(torch, llama)
+    torch.cuda.empty_cache()
+    replays(torch, flash)
+    print(f"phase 17: {time.perf_counter() - t0:.1f}s", flush=True)
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -4605,16 +4930,17 @@ def main() -> None:
     family_counts = families(torch, llama, flash, paged_attention)
     release(torch)
     chaos_restore(torch, llama)
+    ring_counts = context_parallel(torch, llama, flash, paged_attention)
 
     # Each kernel's launches are the sum over the main-path runs that
     # reach it (each printed above): the engine, phases a-g, the two
     # training runs,
     # the resumed launcher of the checkpoint drill, the engine serving
     # its checkpoint, the launcher the agent ran from the compiled plan,
-    # the sweep's trials and the engine serving its best trial, and the
-    # runs of phases 11-15.
+    # the sweep's trials and the engine serving its best trial, the runs
+    # of phases 11-15, and the longcontext run of phase 17.
     runs = (counts, *serve_counts, train_counts, gemma_counts, *drill_counts,
-            plan_counts, *sweep_counts, *family_counts)
+            plan_counts, *sweep_counts, *family_counts, ring_counts)
 
     def total(name):
         return sum(run.get(name, 0) for run in runs)

@@ -18,8 +18,10 @@ Port of ``polyaxon_tpu/agent/executor.py``. Left out until their ROADMAP
 items land: elastic gangs (the JAX executor runs an in-process job that
 checkpoints through ``runtime.elastic``; here ``run_torchjob`` runs it
 directly and :meth:`LocalExecutor.request_resize` raises, Queue 1 item
-7) and the persistent XLA compile cache (there is none; the env is
-accepted and nothing is set, item 8).
+7b) and the persistent XLA compile cache (there is none; the env is
+accepted and nothing is set, item 8). A multi-process gang's
+coordinator is ``127.0.0.1`` at a free port, one per gang, where the
+JAX executor keeps the plan's fixed port.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from urllib.parse import urlparse
 
 from polyaxon_tpu_torch import chaos
 from polyaxon_tpu_torch.compiler import COORDINATOR_PLACEHOLDER, ENV_JAXJOB_SPEC
-from polyaxon_tpu_torch.compiler.plan import V1LaunchPlan
+from polyaxon_tpu_torch.compiler.plan import COORDINATOR_PORT, V1LaunchPlan
 from polyaxon_tpu_torch.controlplane.service import ControlPlane
 from polyaxon_tpu_torch.lifecycle import V1Statuses
 from polyaxon_tpu_torch.obs import flight as obs_flight
@@ -304,6 +306,11 @@ class LocalExecutor:
                 )
                 gang.thread.start()
             else:
+                # A local gang's coordinator listens on a free port, so
+                # that gangs on one host never share one.
+                from polyaxon_tpu_torch.parallel.bootstrap import free_port
+
+                coordinator = f"127.0.0.1:{free_port()}"
                 for proc_spec in plan.processes:
                     env = dict(os.environ)
                     env.update(proc_spec.env)
@@ -315,7 +322,10 @@ class LocalExecutor:
                                                       gang.span.span_id))
                     for key, value in list(env.items()):
                         if isinstance(value, str) and COORDINATOR_PLACEHOLDER in value:
-                            env[key] = value.replace(COORDINATOR_PLACEHOLDER, "127.0.0.1")
+                            env[key] = value.replace(
+                                f"{COORDINATOR_PLACEHOLDER}:{COORDINATOR_PORT}",
+                                coordinator).replace(
+                                    COORDINATOR_PLACEHOLDER, "127.0.0.1")
                     cmd = list(proc_spec.command) + list(proc_spec.args)
                     if not cmd:
                         raise RuntimeError("Process has no command")
@@ -389,10 +399,10 @@ class LocalExecutor:
                        reason: str = "",
                        target_devices: Optional[int] = None) -> bool:
         """Elastic resizing (the JAX executor's ``runtime.elastic``
-        channel) is not ported: ROADMAP.md, Queue 1 item 7."""
+        channel) is not ported: ROADMAP.md, Queue 1 item 7b."""
         raise NotImplementedError(
             f"elastic resize ({direction}) of run {run_uuid}: the port has "
-            "no elastic gangs yet (ROADMAP.md, Queue 1 item 7)")
+            "no elastic gangs yet (ROADMAP.md, Queue 1 item 7b)")
 
     def _run_in_process(self, gang: _Gang) -> None:
         from polyaxon_tpu_torch.runtime.loop import run_torchjob

@@ -46,8 +46,7 @@ from polyaxon_tpu_torch.tracking.run import (
 
 ENV_JAXJOB_SPEC = "POLYAXON_JAXJOB_SPEC"
 # The multi-process bootstrap's env contract, as data (the JAX package's
-# ``parallel/bootstrap.py``; the port's parallel layer is ROADMAP.md,
-# Queue 1 item 7).
+# and the port's ``parallel/bootstrap.py``).
 ENV_COORDINATOR = "POLYAXON_TPU_COORDINATOR"
 ENV_NUM_PROCESSES = "POLYAXON_TPU_NUM_PROCESSES"
 ENV_PROCESS_ID = "POLYAXON_TPU_PROCESS_ID"

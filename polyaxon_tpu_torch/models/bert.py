@@ -115,6 +115,25 @@ def apply(cfg: BertConfig, variables: Variables, batch: dict,
     return loss, {"loss": loss, "accuracy": acc}, variables["state"]
 
 
+def logical_axes(cfg: BertConfig) -> Variables:
+    return {
+        "params": {
+            "tok_embed": ("vocab", "embed"),
+            "pos_embed": ("seq", "embed"),
+            "type_embed": (None, "embed"),
+            "embed_ln_scale": ("embed",),
+            "embed_ln_bias": ("embed",),
+            "layers": encoder.layers_logical_axes(),
+            "mlm_dense": ("embed", "embed"),
+            "mlm_bias": ("embed",),
+            "mlm_ln_scale": ("embed",),
+            "mlm_ln_bias": ("embed",),
+            "mlm_out_bias": ("vocab",),
+        },
+        "state": {},
+    }
+
+
 def model_def(name: str, **overrides) -> ModelDef:
     cfg = dataclasses.replace(CONFIGS[name], **overrides)
     return ModelDef(
@@ -123,4 +142,6 @@ def model_def(name: str, **overrides) -> ModelDef:
         apply=functools.partial(apply, cfg),
         unit="tokens",
         config=cfg,
+        logical_axes=functools.partial(logical_axes, cfg),
+        layer_stacks=("layers",),
     )

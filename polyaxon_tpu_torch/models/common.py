@@ -32,11 +32,12 @@ Batch = dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
-    """A model as the runtime sees it (the JAX package's convention,
-    without ``logical_axes``: the port does not shard).
+    """A model as the runtime sees it (the JAX package's convention).
 
     - ``init(generator, device=...) -> Variables`` (f32 master weights);
-    - ``apply(variables, batch, train, rng) -> (loss, metrics, state)``.
+    - ``apply(variables, batch, train, rng) -> (loss, metrics, state)``;
+    - ``logical_axes() -> Variables``-shaped tree of logical-axis tuples,
+      which the rule tables map onto the mesh (``parallel/sharding.py``).
     """
 
     name: str
@@ -51,6 +52,14 @@ class ModelDef:
     # also returns it as the differentiable ``loss_unweighted`` metric,
     # so that the accumulated gradient stays exact.
     uniform_metrics: tuple = ()
+    logical_axes: Optional[Callable[[], Variables]] = None
+    # Top-level parameter keys holding stacked [L, ...] layers that the
+    # model reads through ``unstack`` inside a ``remat_body``: a leaf
+    # sharded over fsdp there is gathered one layer at a time, at use
+    # (``parallel/fsdp.py``); elsewhere a sharded leaf is gathered whole.
+    layer_stacks: tuple = ()
+    # ``apply`` computes its sequence shard under a cp mesh axis above 1.
+    context_parallel: bool = False
 
 
 def truncated_normal_init(shape, generator: torch.Generator, *,
@@ -150,7 +159,9 @@ def tree_from_numpy(tree: dict, *, device, param_dtype: torch.dtype,
 
 def unstack(layers: dict):
     """Per-layer views of stacked ``[L, ...]`` tensors (one ``unbind``
-    per tensor: its backward stacks the L layer gradients once)."""
+    per tensor: its backward stacks the L layer gradients once). A
+    ``parallel.fsdp.ShardedStack`` yields per-layer shards, gathered
+    where the layer body starts."""
     per_layer = {name: t.unbind(0) for name, t in layers.items()}
     for i in range(len(next(iter(per_layer.values())))):
         yield {name: views[i] for name, views in per_layer.items()}
@@ -171,7 +182,13 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def remat_body(body, remat: str):
     """A per-layer function under the JAX package's remat policies
-    (none | full | dots), mapped onto ``torch.utils.checkpoint``."""
+    (none | full | dots), mapped onto ``torch.utils.checkpoint``. Sharded
+    layer weights are gathered inside the body, so a recomputed layer
+    gathers again; the body runs under the mesh current at this call
+    (``parallel.fsdp.gather_args``)."""
+    from polyaxon_tpu_torch.parallel.fsdp import gather_args
+
+    body = gather_args(body)
     if remat == "none":
         return body
     if remat == "full":

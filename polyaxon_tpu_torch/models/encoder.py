@@ -47,6 +47,21 @@ class EncoderConfig:
         return self.dim // self.n_heads
 
 
+def layers_logical_axes() -> dict:
+    return {
+        "ln1_scale": ("layers", "embed"),
+        "ln1_bias": ("layers", "embed"),
+        "wqkv": ("layers", "embed", "heads"),
+        "wo": ("layers", "heads", "embed"),
+        "ln2_scale": ("layers", "embed"),
+        "ln2_bias": ("layers", "embed"),
+        "w_up": ("layers", "embed", "mlp"),
+        "b_up": ("layers", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+        "b_down": ("layers", "embed"),
+    }
+
+
 def init_layers(cfg: EncoderConfig, generator: torch.Generator, *, device,
                 param_dtype: torch.dtype = torch.float32) -> dict:
     """The stacked layer parameters (the JAX ``init_layers``' shapes and

@@ -63,6 +63,7 @@ from polyaxon_tpu_torch.ops.attention import (
     dot_product_attention,
     repeat_kv,
 )
+from polyaxon_tpu_torch.parallel.mesh import seq_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,6 +228,27 @@ def params_from_numpy(cfg: LlamaConfig, tree: dict, *, device,
     return out
 
 
+def logical_axes(cfg: LlamaConfig) -> Variables:
+    params = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "mlp_norm": ("layers", "embed"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = ("embed", "vocab")
+    return {"params": params, "state": {}}
+
+
 def _layers(params: dict):
     """Per-layer views of ``params["layers"]``."""
     return unstack(params["layers"])
@@ -330,7 +352,7 @@ def _check_not_pipelined(cfg: LlamaConfig) -> None:
     if cfg.pipeline_stages > 1:
         raise NotImplementedError(
             f"pipeline_stages={cfg.pipeline_stages}: pipeline parallelism "
-            "is not ported yet (ROADMAP.md, Queue 1, 'The parallel layer')")
+            "is not ported yet (ROADMAP.md, Queue 1 item 7b)")
 
 
 def hidden_states(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
@@ -385,18 +407,39 @@ def apply(cfg: LlamaConfig, variables: Variables, batch: dict,
     """Next-token LM loss of ``batch["tokens"]`` [B, S] (optional
     ``segments`` [B, S] for packed rows, ``mask`` [B, S]). Each packed
     segment starts from BOS 0, so no token leaks across a boundary.
-    Returns (loss, {"loss", "accuracy"}, state)."""
+    Returns (loss, {"loss", "accuracy"}, state).
+
+    Under a mesh with ``cp`` > 1 the batch holds whole rows and this rank
+    computes its contiguous sequence shard (``parallel.mesh.seq_shard``):
+    the shift happens on the whole row first (the shard's first input is
+    the previous shard's last token), RoPE positions stay global, and
+    attention must be ``ring`` or ``ulysses``. The loss is the shard's
+    mean; the train step weights the ranks into the global mean."""
     tokens = batch["tokens"]
     inputs = shift_right(tokens)
     segments = batch.get("segments")
     if segments is not None:
         inputs = torch.where(segment_starts(segments),
                              torch.zeros_like(inputs), inputs)
+    mask = batch.get("mask")
+    positions = None
+    shard = seq_shard(tokens.shape[1])
+    if shard is not None:
+        if cfg.attention_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                "a cp mesh axis above 1 needs attention_impl 'ring' or "
+                f"'ulysses', got `{cfg.attention_impl}`")
+        B, S = tokens.shape
+        positions = (segment_positions(segments) if segments is not None
+                     else _positions(B, S, tokens.device))[:, shard]
+        inputs, tokens = inputs[:, shard], tokens[:, shard]
+        segments = segments[:, shard] if segments is not None else None
+        mask = mask[:, shard] if mask is not None else None
     params = variables["params"]
-    x = hidden_states(cfg, params, inputs, segment_ids=segments)
+    x = hidden_states(cfg, params, inputs, positions=positions,
+                      segment_ids=segments)
     head = lm_head(cfg, params).to(cfg.dtype)
-    loss, acc = chunked_lm_loss(x, head, tokens, batch.get("mask"),
-                                chunk=cfg.loss_chunk)
+    loss, acc = chunked_lm_loss(x, head, tokens, mask, chunk=cfg.loss_chunk)
     return loss, {"loss": loss, "accuracy": acc}, variables["state"]
 
 
@@ -409,6 +452,9 @@ def model_def(name: str, **overrides) -> ModelDef:
         apply=functools.partial(apply, cfg),
         unit="tokens",
         config=cfg,
+        logical_axes=functools.partial(logical_axes, cfg),
+        layer_stacks=("layers",),
+        context_parallel=True,
     )
 
 

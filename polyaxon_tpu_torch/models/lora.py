@@ -172,6 +172,21 @@ def merge_saved(base: dict, lora: dict, alpha: Optional[float] = None,
         return _map(base, rebuild)
 
 
+def _lora_logical_axes(base_logical: dict, targets) -> dict:
+    """Adapter axes from the base leaf's logical axes (the JAX
+    package's rule): A keeps the row axis, B the column axis, the rank
+    axis is unsharded; ``_meta``'s scalars are replicated."""
+    out = {}
+    for path, axes in _flatten(base_logical):
+        if len(axes) < 2 or not _match(path, targets):
+            continue
+        *stack, row, col = axes
+        out["/".join(path)] = {"a": tuple(stack) + (row, None),
+                               "b": tuple(stack) + (None, col)}
+    out["_meta"] = {"alpha": (), "rank": ()}
+    return out
+
+
 def lora_model_def(model_def: ModelDef, rank: int, alpha: float,
                    targets: Optional[tuple] = None) -> ModelDef:
     """Wrap a ModelDef for LoRA: the same step, loop and checkpoint
@@ -192,8 +207,18 @@ def lora_model_def(model_def: ModelDef, rank: int, alpha: float,
         return model_def.apply({**variables, "params": merged}, batch, train,
                                rng)
 
-    return dataclasses.replace(model_def, name=f"{model_def.name}+lora{rank}",
-                               init=init, apply=apply)
+    def logical_axes():
+        logical = model_def.logical_axes()
+        base = logical["params"]
+        return {**logical, "params": {
+            "base": base, "lora": _lora_logical_axes(base, targets)}}
+
+    # The adapted projections are merged where the model reads them
+    # (``LoraWeight``), so sharded base leaves are gathered whole.
+    return dataclasses.replace(
+        model_def, name=f"{model_def.name}+lora{rank}", init=init,
+        apply=apply, layer_stacks=(),
+        logical_axes=logical_axes if model_def.logical_axes else None)
 
 
 def lora_optimizer_mask(params: dict) -> dict:

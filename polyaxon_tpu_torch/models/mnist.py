@@ -81,6 +81,22 @@ def apply(cfg: MnistConfig, variables: Variables, batch: dict,
     return loss, {"loss": loss, "accuracy": acc}, variables["state"]
 
 
+def logical_axes(cfg: MnistConfig) -> Variables:
+    return {
+        "params": {
+            "conv1": (None, None, "conv_in", "conv_out"),
+            "conv1_b": ("conv_out",),
+            "conv2": (None, None, "conv_in", "conv_out"),
+            "conv2_b": ("conv_out",),
+            "dense1": (None, "mlp"),
+            "dense1_b": ("mlp",),
+            "dense2": ("mlp", "classes"),
+            "dense2_b": ("classes",),
+        },
+        "state": {},
+    }
+
+
 def model_def(name: str = "mnist_cnn", **overrides) -> ModelDef:
     cfg = dataclasses.replace(CONFIGS[name], **overrides)
     return ModelDef(
@@ -89,4 +105,5 @@ def model_def(name: str = "mnist_cnn", **overrides) -> ModelDef:
         apply=functools.partial(apply, cfg),
         unit="examples",
         config=cfg,
+        logical_axes=functools.partial(logical_axes, cfg),
     )

@@ -15,10 +15,10 @@ Two dispatch formulations, as in the JAX package:
   one-hot masks) and moved by gather and scatter; the expert FFN is one
   batched product ``[E, C, D] x [E, D, F]``. The JAX package runs it per
   ``ep`` shard with all-to-alls over the mesh; one device is its
-  ``ep == 1`` case, and an ``ep`` axis is the parallel layer's (ROADMAP.md,
-  Queue 1 item 7). The JAX scatters drop out-of-range writes
-  (``mode="drop"``); here each dropped write goes to one spare row or
-  slot that is sliced off afterwards.
+  ``ep == 1`` case, and an ``ep`` axis is the model-parallel half of
+  the parallel layer (ROADMAP.md, Queue 1 item 7b). The JAX scatters
+  drop out-of-range writes (``mode="drop"``); here each dropped write
+  goes to one spare row or slot that is sliced off afterwards.
 - ``dense``: GShard one-hot dispatch and combine tensors ``[T, E, C]``
   and three products. Decode, the verify chunk and the suffix prefill
   always take it, with the capacity floored at the group size
@@ -406,6 +406,30 @@ def apply(cfg: MoEConfig, variables: Variables, batch: dict,
                   "accuracy": acc}, variables["state"]
 
 
+def logical_axes(cfg: MoEConfig) -> Variables:
+    del cfg
+    return {
+        "params": {
+            "embed": ("vocab", "embed"),
+            "layers": {
+                "attn_norm": ("layers", "embed"),
+                "wq": ("layers", "embed", "heads"),
+                "wk": ("layers", "embed", "kv_heads"),
+                "wv": ("layers", "embed", "kv_heads"),
+                "wo": ("layers", "heads", "embed"),
+                "moe_norm": ("layers", "embed"),
+                "router": ("layers", "embed", "expert"),
+                "w_gate": ("layers", "expert", "embed", "mlp"),
+                "w_up": ("layers", "expert", "embed", "mlp"),
+                "w_down": ("layers", "expert", "mlp", "embed"),
+            },
+            "final_norm": ("embed",),
+            "lm_head": ("embed", "vocab"),
+        },
+        "state": {},
+    }
+
+
 def model_def(name: str, **overrides) -> ModelDef:
     cfg = dataclasses.replace(CONFIGS[name], **overrides)
     return ModelDef(
@@ -415,6 +439,8 @@ def model_def(name: str, **overrides) -> ModelDef:
         unit="tokens",
         config=cfg,
         uniform_metrics=("router_aux",),
+        logical_axes=functools.partial(logical_axes, cfg),
+        layer_stacks=("layers",),
     )
 
 

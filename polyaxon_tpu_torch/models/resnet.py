@@ -195,6 +195,25 @@ def apply(cfg: ResNetConfig, variables: Variables, batch: dict,
     return loss, {"loss": loss, "accuracy": acc}, new_state
 
 
+def logical_axes(cfg: ResNetConfig) -> Variables:
+    """The JAX package's rule over the init tree's leaves (drawn on the
+    meta device: shapes only)."""
+    variables = init(cfg, torch.Generator(), device="meta")
+
+    def walk(tree, names):
+        if isinstance(tree, dict):
+            return {k: walk(v, names + (k,)) for k, v in tree.items()}
+        if "head" in names and "head_bias" not in names:
+            return ("embed", "classes")
+        if names[-1] == "head_bias":
+            return ("classes",)
+        if tree.ndim == 4:
+            return (None, None, "conv_in", "conv_out")
+        return ("conv_out",) if tree.ndim == 1 else (None,) * tree.ndim
+
+    return walk(variables, ())
+
+
 def model_def(name: str = "resnet50", **overrides) -> ModelDef:
     cfg = dataclasses.replace(CONFIGS[name], **overrides)
     return ModelDef(
@@ -203,4 +222,5 @@ def model_def(name: str = "resnet50", **overrides) -> ModelDef:
         apply=functools.partial(apply, cfg),
         unit="examples",
         config=cfg,
+        logical_axes=functools.partial(logical_axes, cfg),
     )

@@ -255,6 +255,39 @@ def apply(cfg: T5Config, variables: Variables, batch: dict,
     return loss, {"loss": loss, "accuracy": acc}, variables["state"]
 
 
+def _decoder_logical_axes() -> dict:
+    return {
+        "self_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "heads"),
+        "wv": ("layers", "embed", "heads"),
+        "wo": ("layers", "heads", "embed"),
+        "cross_norm": ("layers", "embed"),
+        "xq": ("layers", "embed", "heads"),
+        "xkv": ("layers", "embed", "heads"),
+        "xo": ("layers", "heads", "embed"),
+        "mlp_norm": ("layers", "embed"),
+        "w_gate": ("layers", "embed", "mlp"),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+    }
+
+
+def logical_axes(cfg: T5Config) -> Variables:
+    return {
+        "params": {
+            "embed": ("vocab", "embed"),
+            "enc_pos": ("seq", "embed"),
+            "enc_layers": encoder.layers_logical_axes(),
+            "enc_norm": ("embed",),
+            "dec_layers": _decoder_logical_axes(),
+            "dec_norm": ("embed",),
+            "lm_head": ("embed", "vocab"),
+        },
+        "state": {},
+    }
+
+
 def model_def(name: str, **overrides) -> ModelDef:
     cfg = dataclasses.replace(CONFIGS[name], **overrides)
     return ModelDef(
@@ -263,6 +296,8 @@ def model_def(name: str, **overrides) -> ModelDef:
         apply=functools.partial(apply, cfg),
         unit="tokens",
         config=cfg,
+        logical_axes=functools.partial(logical_axes, cfg),
+        layer_stacks=("enc_layers", "dec_layers"),
     )
 
 

@@ -119,6 +119,23 @@ def apply(cfg: ViTConfig, variables: Variables, batch: dict,
     return loss, {"loss": loss, "accuracy": acc}, variables["state"]
 
 
+def logical_axes(cfg: ViTConfig) -> Variables:
+    return {
+        "params": {
+            "patch_embed": (None, "embed"),
+            "patch_bias": ("embed",),
+            "cls_token": (None, None, "embed"),
+            "pos_embed": (None, "seq", "embed"),
+            "layers": encoder.layers_logical_axes(),
+            "final_ln_scale": ("embed",),
+            "final_ln_bias": ("embed",),
+            "head": ("embed", "classes"),
+            "head_bias": ("classes",),
+        },
+        "state": {},
+    }
+
+
 def model_def(name: str, **overrides) -> ModelDef:
     cfg = dataclasses.replace(CONFIGS[name], **overrides)
     return ModelDef(
@@ -127,4 +144,6 @@ def model_def(name: str, **overrides) -> ModelDef:
         apply=functools.partial(apply, cfg),
         unit="examples",
         config=cfg,
+        logical_axes=functools.partial(logical_axes, cfg),
+        layer_stacks=("layers",),
     )

@@ -9,7 +9,9 @@
   (``ops/flash.py``); on CPU tensors its plain PyTorch version;
 - ``"auto"``  the flash kernel when the tensors are on CUDA, the einsum
   path on the CPU;
-- ``"ring"`` / ``"ulysses"`` are not ported yet and raise.
+- ``"ring"`` / ``"ulysses"`` context parallelism over the ``cp`` axis
+  of the mesh the caller entered (``ops/ring.py``, ``ops/ulysses.py``);
+  without one they raise ``ValueError``.
 
 All impls take [B, S, H, D] and GQA (n_kv_heads <= n_heads) layouts.
 """
@@ -133,8 +135,17 @@ def dot_product_attention(
     if window is not None:
         raise ValueError(
             f"sliding window is supported by impl='xla'/'flash', got `{impl}`")
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"impl='{impl}' (context parallelism over a device mesh) is not "
-            "ported yet: ROADMAP.md, Queue 1, 'The parallel layer'")
+    if impl == "ring":
+        from polyaxon_tpu_torch.ops.ring import ring_attention
+
+        return ring_attention(q, k, v, causal=causal,
+                              axis_name=axis_name or "cp")
+    if impl == "ulysses":
+        from polyaxon_tpu_torch.ops.ulysses import ulysses_attention
+
+        # Each rank's head group goes through the flash kernel on the
+        # card, as "auto" picks for single-device attention.
+        return ulysses_attention(q, k, v, causal=causal,
+                                 axis_name=axis_name or "cp",
+                                 attn_impl="flash" if q.is_cuda else "xla")
     raise ValueError(f"Unknown attention impl `{impl}`")

@@ -152,6 +152,34 @@ def check_leaves(manifest: dict, state_like: Any) -> list[tuple[str, Any]]:
     return like
 
 
+def _is_sharded(leaf: Any) -> bool:
+    return (hasattr(leaf, "placements")
+            and any(pl.is_shard() for pl in leaf.placements))
+
+
+def _fill_target(leaf: torch.Tensor) -> Optional[torch.Tensor]:
+    """The tensor a restore fills in place: the leaf, or a placed leaf's
+    local tensor when it is replicated (the whole leaf); None for a
+    sharded leaf, which takes its piece of the whole array instead."""
+    if not hasattr(leaf, "placements"):
+        return leaf
+    return None if _is_sharded(leaf) else leaf.detach().to_local()
+
+
+def _place_piece(leaf: torch.Tensor, arr: np.ndarray) -> None:
+    """Copy this rank's piece of the whole stored array into a sharded
+    leaf: a checkpoint holds whole leaves, so it restores onto any
+    mesh."""
+    full = torch.from_numpy(arr)
+    if leaf.dtype == torch.bfloat16:
+        full = full.view(torch.bfloat16)
+    mesh, coords = leaf.device_mesh, leaf.device_mesh.get_coordinate()
+    for i, pl in enumerate(leaf.placements):
+        if pl.is_shard():
+            full = full.chunk(mesh.size(i), dim=pl.dim)[coords[i]]
+    leaf.detach().to_local().copy_(full)
+
+
 def _on_gpu(leaves: list[tuple[str, Any]]) -> bool:
     return any(isinstance(leaf, torch.Tensor) and leaf.is_cuda
                for _, leaf in leaves)
@@ -386,6 +414,9 @@ class CheckpointManager:
     reads one back into a state of the same structure."""
 
     _tiered = False  # whether every save goes through the publisher
+    # A gang's ranks all snapshot (the gathers of sharded leaves are
+    # collective); only the writer (rank 0) commits.
+    writer = True
 
     def __init__(self, directory: str, spec: Optional[CheckpointSpec] = None):
         self.spec = spec or CheckpointSpec()
@@ -472,7 +503,10 @@ class CheckpointManager:
                     dst = torch.from_numpy(host)
                     if leaf.dtype == torch.bfloat16:
                         dst = dst.view(torch.bfloat16)
-                    dst.copy_(leaf.detach(), non_blocking=leaf.is_cuda)
+                    # A placed leaf is gathered whole, one leaf at a time.
+                    src = (leaf.full_tensor() if hasattr(leaf, "placements")
+                           else leaf)
+                    dst.copy_(src.detach(), non_blocking=leaf.is_cuda)
                 if leaf.is_cuda:
                     streams.add(torch.cuda.current_stream(leaf.device))
             else:
@@ -527,6 +561,8 @@ class CheckpointManager:
         self.wait()
         t1 = time.perf_counter()
         arrays, manifest = self._snapshot(step, state)
+        if not self.writer:
+            return
         t2 = time.perf_counter()
         self.save_wait_seconds.append(t1 - t0)
         self.snapshot_seconds.append(t2 - t1)
@@ -626,10 +662,14 @@ class CheckpointManager:
 
         def load(i: int, stager: Optional[_Stager]) -> Any:
             entry, (_, leaf) = manifest["leaves"][i], like[i]
-            dst = leaf if entry["kind"] == "tensor" else None
+            dst = _fill_target(leaf) if entry["kind"] == "tensor" else None
             arr = _read_npy_into(os.path.join(step_dir, f"leaf_{i}.npy"),
                                  entry, dst, stager)
-            return leaf if entry["kind"] == "tensor" else int(arr)
+            if entry["kind"] != "tensor":
+                return int(arr)
+            if dst is None:
+                _place_piece(leaf, arr)
+            return leaf
 
         return _rebuild(state_like, iter(self._map_leaves(load, like)))
 
@@ -814,13 +854,16 @@ class TieredCheckpointManager(CheckpointManager):
             arr, want, leaf = arrays[f"leaf_{i}"], wants[i], like[i][1]
             if want["kind"] == "int":
                 return int(arr)
-            if leaf.is_cuda and self._buffer.holds(arr):
+            dst = _fill_target(leaf)
+            if dst is None:
+                _place_piece(leaf, arr)
+            elif dst.is_cuda and self._buffer.holds(arr):
                 src = torch.from_numpy(arr)  # page-locked already
-                if leaf.dtype == torch.bfloat16:
+                if dst.dtype == torch.bfloat16:
                     src = src.view(torch.bfloat16)
-                leaf.copy_(src, non_blocking=True)
+                dst.copy_(src, non_blocking=True)
             else:
-                _fill(leaf, arr, stager)
+                _fill(dst, arr, stager)
             return leaf
 
         return _rebuild(state_like, iter(self._map_leaves(fill, like)))

@@ -18,11 +18,12 @@ one JSON line on stdout, and last the process's kernel launches,
 ``ops/paged_attention.py``; the executor writes stdout to
 ``<artifacts>/logs/main-<i>.log``). With ``checkpointing`` in the spec the run
 saves under ``<artifacts>/checkpoints`` and, started again on the same
-directory, resumes from the newest committed step. A plan of more than
-one process (``POLYAXON_TPU_NUM_PROCESSES`` > 1) fails: the port trains
-on one device, and each process would otherwise train its own copy into
-the same directory. Exit codes: 2 without a spec, 0 on success, 1 on a
-failure (after printing the traceback).
+directory, resumes from the newest committed step. Every process of a
+gang runs this entry: it starts the process group from the plan's env
+contract (``parallel/bootstrap.py``: NCCL on the card, gloo on the CPU;
+one process is a one-rank group) and destroys it at the end; rank 0
+alone keeps the tracking record. Exit codes: 2 without a spec, 0 on
+success, 1 on a failure (after printing the traceback).
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ import traceback
 ENV_JAXJOB_SPEC = "POLYAXON_JAXJOB_SPEC"
 ENV_ARTIFACTS_PATH = "POLYAXON_RUN_ARTIFACTS_PATH"
 ENV_RUN_UUID = "POLYAXON_RUN_UUID"
-ENV_NUM_PROCESSES = "POLYAXON_TPU_NUM_PROCESSES"
 
 
 def _emit(step: int, vals: dict) -> None:
@@ -65,15 +65,20 @@ def main(device=None) -> int:
         print(f"{ENV_JAXJOB_SPEC} is not set", file=sys.stderr)
         return 2
     from polyaxon_tpu_torch.lifecycle import V1Statuses
+    from polyaxon_tpu_torch.parallel import bootstrap
     from polyaxon_tpu_torch.tracking.run import Run
 
     run_uuid = os.environ.get(ENV_RUN_UUID, "local")
     artifacts_dir = os.environ.get(ENV_ARTIFACTS_PATH) or os.path.join(
         os.getcwd(), ".plx-runs", run_uuid)
     os.makedirs(artifacts_dir, exist_ok=True)
-    tracking = Run(run_uuid, artifacts_dir, collect_system_metrics=True)
-    tracking.log_status(V1Statuses.RUNNING)
-    log_metrics = tracking.log_metrics_cb()
+
+    group = bootstrap.read_env_contract()
+    tracking = None
+    if group.process_id == 0:
+        tracking = Run(run_uuid, artifacts_dir, collect_system_metrics=True)
+        tracking.log_status(V1Statuses.RUNNING)
+        log_metrics = tracking.log_metrics_cb()
 
     def on_metrics(step: int, vals: dict) -> None:
         log_metrics(step, vals)
@@ -82,15 +87,13 @@ def main(device=None) -> int:
     try:
         from polyaxon_tpu_torch.runtime.loop import run_torchjob
 
-        n_proc = int(os.environ.get(ENV_NUM_PROCESSES) or 1)
-        if n_proc > 1:
-            raise RuntimeError(
-                f"the plan starts {n_proc} processes ({ENV_NUM_PROCESSES}); "
-                "the port trains on one device in one process (the "
-                "multi-process bootstrap is ROADMAP.md, Queue 1 item 7)")
+        bootstrap.initialize(group, device=device)
         job = json.loads(spec_json)
         result = run_torchjob(job, artifacts_dir=artifacts_dir,
-                              on_metrics=on_metrics, device=device)
+                              on_metrics=on_metrics if tracking else None,
+                              device=device)
+        if tracking is None:
+            return 0
         tracking.log_outputs(
             steps=result.steps,
             throughput=result.throughput,
@@ -110,11 +113,14 @@ def main(device=None) -> int:
         return 0
     except Exception as exc:  # noqa: BLE001 — reported, then the exit code says so
         traceback.print_exc()
-        tracking.log_failed(reason=type(exc).__name__,
-                            message=str(exc)[:2000])
+        if tracking is not None:
+            tracking.log_failed(reason=type(exc).__name__,
+                                message=str(exc)[:2000])
         return 1
     finally:
-        tracking.close()
+        if tracking is not None:
+            tracking.close()
+        bootstrap.shutdown()
         _emit_launches()
 
 

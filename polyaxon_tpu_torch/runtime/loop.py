@@ -1,5 +1,13 @@
 """The training loop (port of ``polyaxon_tpu/runtime/loop.py``): job
-spec → model → data → train step → metrics, on one device.
+spec → mesh → model → data → train step → metrics.
+
+The job's ``mesh`` (and ``topology`` for multi-slice placement) resolves
+over the ranks of the process group — a gang's, started by the launcher
+(``parallel/bootstrap.py``), or a one-rank group the loop starts for an
+in-process run and destroys after it — and the parameters are placed on
+it (``runtime/step.py``). ``dp``, ``fsdp`` and ``cp`` are ported; each
+process drives one device. Emissions, tracking and checkpoint writes
+come from rank 0.
 
 ``run_torchjob`` takes the job as a dict (the JSON form of a jaxjob run
 spec: ``runtime``, and optionally ``mesh`` and ``checkpointing``) and
@@ -30,12 +38,22 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from polyaxon_tpu_torch.device import resolve_device
 from polyaxon_tpu_torch.models import family_of, get_model
 from polyaxon_tpu_torch.obs import flight as obs_flight
 from polyaxon_tpu_torch.obs import metrics as obs_metrics
 from polyaxon_tpu_torch.obs import trace as obs_trace
+from polyaxon_tpu_torch.parallel import bootstrap
+from polyaxon_tpu_torch.parallel.compat import axis_size
+from polyaxon_tpu_torch.parallel.mesh import (build_mesh, canonical_axes,
+                                              use_mesh)
+from polyaxon_tpu_torch.parallel.sharding import (param_bytes,
+                                                  require_ported,
+                                                  rules_for_mesh)
+from polyaxon_tpu_torch.polyflow.environment import V1TpuTopology
+from polyaxon_tpu_torch.polyflow.runs import V1MeshSpec
 from polyaxon_tpu_torch.runtime import data as data_lib
 from polyaxon_tpu_torch.runtime.checkpoint import (CheckpointSpec,
                                                    TieredCheckpointManager)
@@ -43,7 +61,7 @@ from polyaxon_tpu_torch.runtime.config import RuntimeConfig
 from polyaxon_tpu_torch.runtime.flops import peak_flops, train_flops_per_token
 from polyaxon_tpu_torch.runtime.optim import build_optimizer, tree_leaves
 from polyaxon_tpu_torch.runtime.step import (build_eval_step, build_init,
-                                             build_train_step)
+                                             build_train_step, place_state)
 
 logger = logging.getLogger(__name__)
 
@@ -75,16 +93,19 @@ class TrainResult:
     checkpoint: dict = dataclasses.field(default_factory=dict)
 
 
-def _check_single_device(job: dict) -> None:
-    axes = (job.get("mesh") or {}).get("axes") or {}
-    size = 1
-    for name, n in axes.items():
-        if n != -1:
-            size *= int(n)
-    if size != 1:
-        raise ValueError(
-            f"mesh axes {axes} need {size} devices; the port trains on one "
-            "device (the parallel layer is ROADMAP.md, Queue 1 item 7)")
+def _job_mesh(job: dict, device: torch.device):
+    """The job's mesh over the process group's ranks (every rank when the
+    job names none, as the JAX loop's ``{"dp": n}``). Axes the port does
+    not place raise first, before anything is built."""
+    mesh_spec = (V1MeshSpec.from_dict(job["mesh"]) if job.get("mesh")
+                 else None)
+    if mesh_spec is not None:
+        require_ported(canonical_axes(mesh_spec.axes))
+    topology = (V1TpuTopology.from_dict(job["topology"])
+                if job.get("topology") else None)
+    mesh = build_mesh(mesh_spec, topology, device_type=device.type)
+    require_ported(mesh.shape)
+    return mesh
 
 
 def _dataset_kwargs(cfg: RuntimeConfig, model_cfg, batch: int) -> dict:
@@ -173,6 +194,17 @@ class _StepProfiler:
         logger.info("profile of one step written to %s", self.path)
 
 
+def _save(ckpt: TieredCheckpointManager, step: int, state, n_proc: int,
+          force: bool = False) -> None:
+    """Every rank gathers the state leaf by leaf; rank 0 writes it. With
+    several processes the save is committed before any rank goes on (a
+    barrier), so a restarted gang finds a step every rank saved."""
+    ckpt.save(step, state, force=force)
+    if n_proc > 1:
+        ckpt.wait()
+        dist.barrier()
+
+
 def _span(tracer: Optional[obs_trace.RunTracer], name: str, **attrs):
     """Span when tracing is on, nullcontext (yielding None) when off."""
     if tracer is None:
@@ -186,9 +218,10 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
                  device=None,
                  tracer: Optional[obs_trace.RunTracer] = None
                  ) -> TrainResult:
-    """Train the job's ``runtime`` section on one device (``cuda`` unless
-    the caller names another; raises without a GPU). The mesh must
-    resolve to one device. With an artifacts dir, ``checkpointing``
+    """Train the job's ``runtime`` section (on ``cuda`` unless the caller
+    names another device; raises without a GPU) over the job's mesh,
+    which must resolve to the process group's ranks. With an artifacts
+    dir, ``checkpointing``
     saves to and restores from ``<artifacts>/checkpoints`` and
     ``profile_steps`` traces to ``<artifacts>/profile``. ``lora_rank >
     0`` trains LoRA adapters over a frozen base (``models/lora.py``);
@@ -204,32 +237,38 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
         raise ValueError("run_torchjob requires a jaxjob with a `runtime` "
                          "section")
     cfg = RuntimeConfig.from_dict(job["runtime"])
-    _check_single_device(job)
     ckpt_job = job.get("checkpointing")
     ckpt_spec = (CheckpointSpec.from_dict(ckpt_job) if ckpt_job is not None
                  else CheckpointSpec(enabled=False))
     device = resolve_device(device)
 
-    close_tracer = False
-    if tracer is None and artifacts_dir:
-        tracer = obs_trace.RunTracer.from_env(artifacts_dir,
-                                              component="runtime")
-        close_tracer = True
-    try:
-        with _span(tracer, "runtime", model=cfg.model, steps=cfg.steps,
-                   devices=1) as run_span:
-            return _run_torchjob(job, cfg, ckpt_spec, device,
-                                 artifacts_dir=artifacts_dir,
-                                 on_metrics=on_metrics,
-                                 should_stop=should_stop, tracer=tracer,
-                                 run_span=run_span)
-    finally:
-        if close_tracer:
-            tracer.close()
+    with bootstrap.process_group(device):
+        mesh = _job_mesh(job, device)
+        lead = bootstrap.rank() == 0
+        if not lead:  # rank 0 emits, tracks and traces
+            on_metrics = tracer = None
+        close_tracer = False
+        if tracer is None and artifacts_dir and lead:
+            tracer = obs_trace.RunTracer.from_env(artifacts_dir,
+                                                  component="runtime")
+            close_tracer = True
+        try:
+            with use_mesh(mesh), _span(
+                    tracer, "runtime", model=cfg.model, steps=cfg.steps,
+                    devices=mesh.size) as run_span:
+                return _run_torchjob(job, cfg, ckpt_spec, device, mesh,
+                                     artifacts_dir=artifacts_dir,
+                                     on_metrics=on_metrics,
+                                     should_stop=should_stop, tracer=tracer,
+                                     run_span=run_span)
+        finally:
+            if close_tracer:
+                tracer.close()
 
 
 def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
-                  device: torch.device, *, artifacts_dir: Optional[str],
+                  device: torch.device, mesh, *,
+                  artifacts_dir: Optional[str],
                   on_metrics: Optional[MetricsCallback],
                   should_stop: Optional[Callable[[], bool]],
                   tracer: Optional[obs_trace.RunTracer],
@@ -245,15 +284,39 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
     if hasattr(family, "check_kernel_shapes"):
         family.check_kernel_shapes(model_cfg, device, training=True)
 
-    global_batch = cfg.global_batch_size or (cfg.batch_size or 8)
+    rules = rules_for_mesh(mesh)
+    logger.info("mesh axes=%s devices=%d", mesh.shape, mesh.size)
+    if axis_size(mesh, "cp") > 1 and not model_def.context_parallel:
+        raise NotImplementedError(
+            f"model `{cfg.model}` does not shard sequences over a cp axis "
+            "(the port's context parallelism is the llama family's)")
+
+    n_proc = bootstrap.world_size()
+    global_batch = cfg.global_batch_size or (cfg.batch_size or 8) * mesh.size
+    if global_batch % n_proc:
+        raise ValueError(
+            f"global batch {global_batch} must divide process count {n_proc}")
+    # Every process draws its rows from the same seed, as the JAX loop's
+    # processes do (ROADMAP.md, Queue 3: the reference's duplicated
+    # per-process data). A process drives one device, so its rows are its
+    # dp/fsdp batch shard as they stand (the reference's
+    # `shard_batches` lays them out the same way); under cp every rank
+    # keeps the whole rows and the model cuts its sequence shard after
+    # the next-token shift, so the cp ranks of a batch shard train the
+    # same rows and a step trains global_batch / cp of them.
+    per_host_batch = global_batch // n_proc
     accum = max(int(cfg.grad_accum_steps or 1), 1)
-    if global_batch % accum:
-        raise ValueError(f"grad_accum_steps {accum} must divide the global "
-                         f"batch {global_batch}")
+    if per_host_batch % accum:
+        raise ValueError(f"grad_accum_steps {accum} must divide the "
+                         f"per-process batch {per_host_batch} (global batch "
+                         f"{global_batch})")
     dataset_name = cfg.dataset or data_lib.dataset_for_model(cfg.model)
-    ds_kwargs = _dataset_kwargs(cfg, model_cfg, global_batch)
+    ds_kwargs = _dataset_kwargs(cfg, model_cfg, per_host_batch)
     seq = ds_kwargs.get("seq_len", 1)
-    units_per_step = global_batch * (seq if model_def.unit == "tokens" else 1)
+    # The units a step trains (throughput and MFU count these; the JAX
+    # loop counts global_batch x seq under cp too: ROADMAP.md, Queue 3).
+    units_per_step = (global_batch // axis_size(mesh, "cp")
+                      * (seq if model_def.unit == "tokens" else 1))
 
     optimizer = build_optimizer(cfg)
     if cfg.lora_rank:
@@ -265,11 +328,14 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
         optimizer = wrap_optimizer(optimizer)
         logger.info("lora: rank=%d alpha=%s targets=%s", cfg.lora_rank,
                     cfg.lora_alpha, cfg.lora_targets or "default")
-    state = build_init(model_def, optimizer, device=device)(cfg.seed)
-    train_step = build_train_step(model_def, optimizer, accum_steps=accum)
+    state = place_state(build_init(model_def, optimizer, device=device)(
+        cfg.seed), model_def, optimizer, mesh, rules)
+    train_step = build_train_step(model_def, optimizer, accum_steps=accum,
+                                  mesh=mesh)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    logger.info("model=%s params=%.2fM device=%s accum=%d", cfg.model,
-                n_params / 1e6, device, accum)
+    logger.info("model=%s params=%.2fM bytes=%.1fMB device=%s accum=%d",
+                cfg.model, n_params / 1e6,
+                param_bytes(state["params"]) / 1e6, device, accum)
     if cfg.steps <= 0:
         return TrainResult(steps=0, final_metrics={}, throughput=0.0,
                            unit=model_def.unit, units_per_step=0,
@@ -283,6 +349,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
     if artifacts_dir and ckpt_spec.enabled:
         ckpt = TieredCheckpointManager(
             os.path.join(artifacts_dir, "checkpoints"), ckpt_spec)
+        ckpt.writer = bootstrap.rank() == 0
         ckpt_bytes = _log_checkpoint_budget(ckpt, state)
         if ckpt_spec.restore_on_start and ckpt.latest_step() is not None:
             with _span(tracer, "restore") as sp:
@@ -325,7 +392,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
         batches = data_lib.device_batches(host, device)
         run_eval = None
         if cfg.eval_every:
-            eval_step = build_eval_step(model_def)
+            eval_step = build_eval_step(model_def, mesh=mesh)
             eval_kwargs = dict(ds_kwargs, seed=cfg.seed + 104_729)
             if cfg.extras.get("eval_path"):  # a held-out corpus
                 eval_kwargs["path"] = cfg.extras["eval_path"]
@@ -407,7 +474,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
                     vals["step_time_ms"] = 1e3 * window / steps_since_emit
                     vals["input_wait_ms"] = 1e3 * wait_window / steps_since_emit
                     if flops_unit:
-                        achieved = ups * flops_unit
+                        achieved = ups * flops_unit / mesh.size
                         vals["tflops_per_sec_per_chip"] = achieved / 1e12
                         if peak:
                             vals["mfu"] = achieved / peak
@@ -460,7 +527,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
                 # copy) is kept off the training clock, as eval is.
                 t_save = time.perf_counter()
                 with _span(tracer, "checkpoint", step=step):
-                    ckpt.save(step, state)
+                    _save(ckpt, step, state, n_proc)
                 dt_save = time.perf_counter() - t_save
                 t_emit += dt_save
                 t_emit_wall = time.time()
@@ -498,7 +565,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
                 attributes=attrs)
         if ckpt:
             with _span(tracer, "checkpoint", step=final_step, final=True):
-                ckpt.save(final_step, state, force=True)
+                _save(ckpt, final_step, state, n_proc, force=True)
     finally:
         if prefetcher is not None:
             prefetcher.close()

@@ -1,11 +1,24 @@
 """Train and eval steps (port of ``polyaxon_tpu/runtime/step.py``).
 
-One device, no sharding: a step is eager PyTorch. Gradients accumulate
-in each parameter's ``.grad`` (f32, like the master weights) across
-microbatches, with the JAX package's exact weighting (the masked and
-the ``loss_unweighted`` parts of the loss apart), and the optimizer
-updates the parameters in place. The model's mutable ``state`` (ResNet's
-batch statistics) is threaded from microbatch to microbatch.
+A step is eager PyTorch. Gradients accumulate in each parameter's
+``.grad`` (f32, like the master weights) across microbatches, with the
+JAX package's exact weighting (the masked and the ``loss_unweighted``
+parts of the loss apart), and the optimizer updates the parameters in
+place. The model's mutable ``state`` (ResNet's batch statistics) is
+threaded from microbatch to microbatch.
+
+With a ``mesh`` the parameters are DTensors placed by the model's
+logical axes and the mesh's rules (``state_placements``, the JAX
+package's ``state_shardings``); the optimizer's moments follow them.
+The model computes on ``parallel.fsdp.model_view`` (plain tensors,
+fsdp leaves gathered at use). Every rank's batch piece — its rows, and
+under ``cp`` its sequence shard — is one more microbatch of the global
+batch: its masked loss is scaled by its share of the global valid
+tokens (an all-reduce), its ``loss_unweighted`` part by one over the
+number of pieces, and the gradients, summed over the ranks by
+``reduce_grads``, are exactly the global batch's. The global norm and
+clipping use the full reduction; the optimizer runs on the local
+shards; metrics are reduced with the same weights.
 """
 
 from __future__ import annotations
@@ -14,15 +27,38 @@ from typing import Any, Callable, Optional
 
 import torch
 
+import torch.distributed as dist
+
 from polyaxon_tpu_torch.models.common import ModelDef
+from polyaxon_tpu_torch.parallel import fsdp
+from polyaxon_tpu_torch.parallel.sharding import (Rules, distribute,
+                                                  rules_for_mesh,
+                                                  tree_placements)
 from polyaxon_tpu_torch.runtime.optim import Optimizer, global_norm, tree_leaves
 
 TrainState = dict[str, Any]  # {"params", "state", "opt_state", "step"}
 
 
+def state_placements(model_def: ModelDef, mesh, rules: Rules) -> dict:
+    """DTensor placements of the parameters and the mutable state."""
+    if model_def.logical_axes is None:
+        raise ValueError(f"model `{model_def.name}` declares no logical "
+                         "axes, so it cannot be placed on a mesh")
+    logical = model_def.logical_axes()
+    return {"params": tree_placements(logical["params"], mesh, rules),
+            "state": tree_placements(logical.get("state", {}), mesh,
+                                     rules)}
+
+
+def _optimizer_kind(optimizer) -> Optional[str]:
+    return getattr(optimizer, "kind", None) or getattr(
+        getattr(optimizer, "inner", None), "kind", None)
+
+
 def build_init(model_def: ModelDef, optimizer: Optimizer, *, device,
                params: Optional[dict] = None,
-               state: Optional[dict] = None
+               state: Optional[dict] = None, mesh=None,
+               rules: Optional[Rules] = None
                ) -> Callable[[int], TrainState]:
     """``init_fn(seed)``: f32 parameters (and the model's mutable
     ``state``, e.g. ResNet's batch statistics) from a generator seeded
@@ -30,7 +66,10 @@ def build_init(model_def: ModelDef, optimizer: Optimizer, *, device,
     (e.g. the JAX package's initial weights through a family's
     ``params_from_numpy``), and a fresh optimizer state. The leaves the
     optimizer trains (all, or its ``mask``'s, e.g. LoRA's adapters)
-    require grad; the rest are frozen."""
+    require grad; the rest are frozen. With a ``mesh``, the parameters
+    are placed as DTensors (each rank keeps its chunk of the same draw)
+    and the optimizer state follows them; the mutable state stays
+    replicated."""
 
     def init_fn(seed: int) -> TrainState:
         if params is None:
@@ -44,10 +83,33 @@ def build_init(model_def: ModelDef, optimizer: Optimizer, *, device,
                  else [True] * len(tree_leaves(p)))
         for t, train in zip(tree_leaves(p), flags):
             t.requires_grad_(bool(train))
-        return {"params": p, "state": mutable, "opt_state": optimizer.init(p),
-                "step": 0}
+        fresh = {"params": p, "state": mutable, "step": 0}
+        if mesh is not None:
+            return place_state(fresh, model_def, optimizer, mesh, rules)
+        return {**fresh, "opt_state": optimizer.init(p)}
 
     return init_fn
+
+
+def place_state(state: TrainState, model_def: ModelDef,
+                optimizer: Optimizer, mesh,
+                rules: Optional[Rules] = None) -> TrainState:
+    """A fresh state's parameters placed on ``mesh`` as DTensors (each
+    rank keeps its chunk of the same full tensors) by ``rules`` (the
+    mesh's, by default) and the optimizer state built on them, so its
+    moments follow their placements. The mutable state stays
+    replicated."""
+    rules = rules if rules is not None else rules_for_mesh(mesh)
+    params = distribute(state["params"],
+                        state_placements(model_def, mesh, rules)["params"],
+                        mesh)
+    if _optimizer_kind(optimizer) == "adafactor" and any(
+            pl.is_shard() for t in tree_leaves(params) for pl in t.placements):
+        raise NotImplementedError(
+            "adafactor over fsdp-sharded parameters (its factored moments "
+            "and block RMS span whole leaves) is not ported: ROADMAP.md, "
+            "Queue 1 item 7b")
+    return {**state, "params": params, "opt_state": optimizer.init(params)}
 
 
 def _detached(tree):
@@ -56,8 +118,32 @@ def _detached(tree):
     return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
+def _piece_weights(model_def: ModelDef, batch: dict, k: int, mesh
+                   ) -> torch.Tensor:
+    """Valid tokens of each of this rank's ``k`` microbatches (its cp
+    sequence shard of the mask, for a model that shards sequences), or
+    ones without a mask."""
+    mask = batch.get("mask")
+    if mask is None:
+        device = next(iter(batch.values())).device
+        return torch.ones(k, dtype=torch.float32, device=device)
+    if mesh is not None and model_def.context_parallel:
+        from polyaxon_tpu_torch.parallel.mesh import seq_shard
+
+        shard = seq_shard(mask.shape[1], mesh=mesh)
+        if shard is not None:
+            mask = mask[:, shard]
+    return mask.reshape(k, -1).to(torch.float32).sum(1)
+
+
+def _all_reduce(t: torch.Tensor, world: int) -> torch.Tensor:
+    if world > 1:
+        dist.all_reduce(t)
+    return t
+
+
 def build_train_step(model_def: ModelDef, optimizer: Optimizer,
-                     accum_steps: int = 1
+                     accum_steps: int = 1, *, mesh=None
                      ) -> Callable[..., tuple[TrainState, dict]]:
     """One optimizer update per call. With ``accum_steps > 1`` the batch
     (the full per-update batch) is split into that many microbatches and
@@ -71,14 +157,28 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
     reported with the same weights: mask-weighted means, plain means for
     ``uniform_metrics``, and ``loss`` recombined from its two parts;
     ``grad_norm`` is the global norm of the unclipped grads. Only the
-    leaves that require grad are updated (LoRA freezes the base).
-    Returns ``train_step(state, batch, rng=None) -> (state, metrics)``,
-    the state updated in place; metrics stay on the device."""
+    leaves that require grad are updated (LoRA freezes the base). With a
+    ``mesh`` of more than one rank, the ranks' pieces join the
+    microbatches (module docstring). Returns ``train_step(state, batch,
+    rng=None) -> (state, metrics)``, the state updated in place; metrics
+    stay on the device."""
     uniform_keys = set(model_def.uniform_metrics) | {"loss_unweighted"}
+    world = mesh.size if mesh is not None else 1
+    if world > 1 and model_def.logical_axes is not None and \
+            model_def.logical_axes().get("state"):
+        raise NotImplementedError(
+            f"model `{model_def.name}` keeps batch statistics, which would "
+            "need a reduction across ranks (synchronized batch norm); the "
+            "port trains it on one rank")
+
+    def params_view(state):
+        if mesh is None:
+            return state["params"]
+        return fsdp.model_view(state["params"], mesh, model_def.layer_stacks)
 
     def backward(state, batch, scales=None) -> dict:
         loss, metrics, new_mutable = model_def.apply(
-            {"params": state["params"], "state": state["state"]}, batch,
+            {"params": params_view(state), "state": state["state"]}, batch,
             True, None)
         if scales is None:
             loss_out = loss
@@ -101,44 +201,53 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
         state["state"] = _detached(new_mutable)
         return {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(state: TrainState, batch: dict, rng=None):
+    def microbatches(batch):
         if accum_steps == 1:
-            metrics = backward(state, batch)
-        else:
-            micro = [{k: v.reshape(accum_steps, v.shape[0] // accum_steps,
-                                   *v.shape[1:])[i]
-                      for k, v in batch.items()} for i in range(accum_steps)]
-            mask = batch.get("mask")
-            if mask is not None:
-                w_micro = mask.reshape(accum_steps, -1).to(
-                    torch.float32).sum(1)
-            else:
-                device = next(iter(batch.values())).device
-                w_micro = torch.ones(accum_steps, dtype=torch.float32,
-                                     device=device)
-            w_total = w_micro.sum().clamp(min=1.0)
-            seq = [backward(state, mb, (w_micro[i] / w_total,
-                                        1.0 / accum_steps))
-                   for i, mb in enumerate(micro)]
-            stacked = {k: torch.stack([m[k] for m in seq]) for k in seq[0]}
+            return [batch]
+        return [{k: v.reshape(accum_steps, v.shape[0] // accum_steps,
+                              *v.shape[1:])[i]
+                 for k, v in batch.items()} for i in range(accum_steps)]
 
-            def agg_masked(v):
-                return (w_micro * v).sum() / w_total
+    def metrics_of(state, batch) -> dict:
+        if accum_steps == 1 and world == 1:
+            return backward(state, batch)
+        micro = microbatches(batch)
+        w_micro = _piece_weights(model_def, batch, accum_steps, mesh)
+        w_total = _all_reduce(w_micro.sum(), world).clamp(min=1.0)
+        n_pieces = accum_steps * world
+        seq = [backward(state, mb, (w_micro[i] / w_total, 1.0 / n_pieces))
+               for i, mb in enumerate(micro)]
+        stacked = {k: torch.stack([m[k] for m in seq]) for k in seq[0]}
+        unweighted = stacked.get("loss_unweighted")
+        if unweighted is not None:
+            stacked["loss"] = stacked["loss"] - unweighted
+        keys = list(stacked)
+        uniform = [k in uniform_keys and unweighted is not None
+                   for k in keys]
+        parts = torch.stack([
+            stacked[k].sum() / n_pieces if u
+            else (w_micro * stacked[k]).sum() / w_total
+            for k, u in zip(keys, uniform)])
+        parts = _all_reduce(parts, world)
+        metrics = dict(zip(keys, parts.unbind(0)))
+        if unweighted is not None:
+            metrics["loss"] = metrics["loss"] + metrics["loss_unweighted"]
+        return metrics
 
-            metrics = {k: agg_masked(v) for k, v in stacked.items()}
-            unweighted = stacked.get("loss_unweighted")
-            if unweighted is not None:
-                for key in uniform_keys & set(stacked):
-                    metrics[key] = stacked[key].mean()
-                metrics["loss"] = (agg_masked(stacked["loss"] - unweighted)
-                                   + unweighted.mean())
-
+    def train_step(state: TrainState, batch: dict, rng=None):
+        metrics = metrics_of(state, batch)
         leaves = [p for p in tree_leaves(state["params"]) if p.requires_grad]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in leaves]
-        grad_norm = global_norm(grads)
-        optimizer.update(state["params"], grads, state["opt_state"],
+        grads = fsdp.reduce_grads(leaves, mesh)
+        grad_norm = (global_norm(grads) if world == 1
+                     else fsdp.global_norm(leaves, grads, mesh))
+        # The optimizer updates the local tensors in place; its step count
+        # comes back on the local tree.
+        opt_state = fsdp.local_tree(state["opt_state"])
+        optimizer.update(fsdp.local_tree(state["params"]), grads, opt_state,
                          grad_norm=grad_norm)
+        state["opt_state"].update(
+            {k: v for k, v in opt_state.items()
+             if not isinstance(v, (dict, list, torch.Tensor))})
         for p in leaves:
             p.grad = None
         metrics["grad_norm"] = grad_norm
@@ -148,13 +257,27 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
     return train_step
 
 
-def build_eval_step(model_def: ModelDef) -> Callable[[TrainState, dict],
-                                                     dict]:
+def build_eval_step(model_def: ModelDef, *, mesh=None
+                    ) -> Callable[[TrainState, dict], dict]:
+    """Metrics of one batch; over a mesh of several ranks, each rank's
+    piece weighted by its valid tokens, as the train step weights
+    them."""
+    world = mesh.size if mesh is not None else 1
+
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
+        params = (state["params"] if mesh is None else fsdp.model_view(
+            state["params"], mesh, model_def.layer_stacks))
         _, metrics, _ = model_def.apply(
-            {"params": state["params"], "state": state["state"]}, batch,
-            False, None)
-        return metrics
+            {"params": params, "state": state["state"]}, batch, False, None)
+        if world == 1:
+            return metrics
+        w = _piece_weights(model_def, batch, 1, mesh)[0]
+        w_total = _all_reduce(w.clone(), world).clamp(min=1.0)
+        keys = list(metrics)
+        parts = _all_reduce(torch.stack(
+            [metrics[k].to(torch.float32) * w / w_total for k in keys]),
+            world)
+        return dict(zip(keys, parts.unbind(0)))
 
     return eval_step

@@ -6,7 +6,7 @@ The flags and defaults are those of ``python -m polyaxon_tpu.serving``
 It serves the llama, MoE and t5 families, and a LoRA checkpoint (the
 adapters merged at load, ``--lora-alpha`` the fallback for a checkpoint
 without metadata). ``--mesh`` parses and is refused (ROADMAP.md, Queue 1
-item 7). SIGINT and SIGTERM stop the server and exit with 0.
+item 7b). SIGINT and SIGTERM stop the server and exit with 0.
 """
 
 from __future__ import annotations
@@ -16,25 +16,7 @@ import logging
 import signal
 import threading
 
-
-def parse_mesh_axes(spec: str) -> dict[str, int]:
-    """``"tp=4,dp=2"`` / ``"fsdp=-1"`` → an axes dict (the JAX package's
-    CLI format); raises ValueError on a malformed string."""
-    axes: dict[str, int] = {}
-    for part in spec.split(","):
-        name, _, size = part.partition("=")
-        name = name.strip()
-        if name in axes:
-            raise ValueError(f"mesh axis {name!r} given twice")
-        try:
-            axes[name] = int(size)
-        except ValueError:
-            raise ValueError(
-                f"mesh axes expect name=size pairs "
-                f"(e.g. 'tp=4,dp=2'), got {part.strip()!r}") from None
-        if not name:
-            raise ValueError(f"mesh axis in {part.strip()!r} has no name")
-    return axes
+from polyaxon_tpu_torch.parallel.mesh import parse_mesh_axes
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -18,7 +18,8 @@ launch plan → the port's launcher, against the JAX package.
   equal to the JAX package's, from ``start_batch`` 0 and 3, whichever
   package wrote the token cache; their refusals are the JAX package's.
 - A held-out ``eval_path`` is evaluated as the JAX package evaluates it.
-- A plan of two processes fails in the launcher before it trains.
+- A plan of two processes without its coordinator address fails in the
+  launcher before it trains.
 """
 
 import copy
@@ -263,9 +264,11 @@ def test_eval_path_matches_jax(tmp_path, monkeypatch):
 
 def test_launcher_refuses_a_multi_process_plan(tmp_path, monkeypatch,
                                                capsys):
-    """The example's 2x4 topology compiles to two processes; the port's
-    launcher fails each without training (no second, independent copy
-    writing into the same directory)."""
+    """The example's 2x4 topology compiles to two processes. The port's
+    launcher starts the gang's process group from the plan's env
+    contract, and refuses a plan whose coordinator address is missing as
+    the JAX package's bootstrap refuses it, before training (gangs that
+    train: ``tests/test_torch_gang.py``)."""
     from polyaxon_tpu_torch.runtime import launch
 
     op = tpf.check_polyaxonfile(
@@ -275,20 +278,21 @@ def test_launcher_refuses_a_multi_process_plan(tmp_path, monkeypatch,
         tpf.resolve_operation_context(op, run_uuid="two"), run_uuid="two",
         artifacts_root=str(tmp_path / "runs"))
     assert plan.num_processes == 2
-    for key, value in plan.processes[1].env.items():
+    for key, value in plan.processes[0].env.items():
         monkeypatch.setenv(key, value)
+    monkeypatch.delenv("POLYAXON_TPU_COORDINATOR")
     assert launch.main(device="cpu") == 1
-    assert "Queue 1 item 7" in capsys.readouterr().err
+    assert "POLYAXON_TPU_COORDINATOR is unset" in capsys.readouterr().err
     statuses = StreamsService(str(tmp_path / "runs")).get_statuses("two")
     assert [s["status"] for s in statuses] == ["running", "failed"]
-    assert "Queue 1 item 7" in statuses[-1]["message"]
+    assert "POLYAXON_TPU_COORDINATOR is unset" in statuses[-1]["message"]
     assert statuses[-1]["reason"] == "RuntimeError"
     assert not os.path.exists(os.path.join(plan.artifacts_dir,
                                            "checkpoints"))
     monkeypatch.setenv("POLYAXON_TPU_NUM_PROCESSES", "1")
     monkeypatch.setenv("POLYAXON_JAXJOB_SPEC", "{}")
     assert launch.main(device="cpu") == 1  # past the check: no runtime
-    assert "Queue 1 item 7" not in capsys.readouterr().err
+    assert "is unset" not in capsys.readouterr().err
 
 
 # ----------------------------------------------------------------- data

@@ -490,7 +490,10 @@ def test_launcher_trains_llama_200m(gen, tmp_path):
     assert [x["step"] for x in steps] == [1, 2]
     assert all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
                and 0 < x["mfu"] < 1 for x in steps)
-    assert lines[-1]["outputs"]["steps"] == 3
+    # The result line, then the kernel launches as the last line.
+    outputs = next(x["outputs"] for x in lines if "outputs" in x)
+    assert outputs["steps"] == 3
+    assert lines[-1]["launches"]["flash_fwd"] > 0
 
 
 def test_dense_static_and_int8_engines_on_the_card(gen):

@@ -105,8 +105,10 @@ class TestAttention:
         q = torch.zeros(1, 4, 2, 8)
         with pytest.raises(ValueError, match="require"):
             tattn.dot_product_attention(q, q, q, impl="xla", block_q=64)
+        # Without a cp mesh in context, ring and Ulysses raise JAX's
+        # ValueError (``ring_attention``/``ulysses_attention``).
         for impl in ("ring", "ulysses"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(ValueError, match="needs mesh axis `cp`"):
                 tattn.dot_product_attention(q, q, q, impl=impl)
         with pytest.raises(ValueError, match="Unknown"):
             tattn.dot_product_attention(q, q, q, impl="bogus")

@@ -1,0 +1,310 @@
+"""Per-rank bodies of the port's multi-process CPU tests, run by
+``tests/torch_dist.py`` in spawned gloo ranks (this module imports no
+JAX, so the ranks never load it). Each takes numpy inputs and returns
+numpy results; the test files hold them against the JAX package."""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+
+from polyaxon_tpu_torch.parallel.compat import axis_size
+
+
+def _shard_rows_seq(mesh, rank: int, x: np.ndarray, seq: bool = True):
+    """This rank's [dp rows, cp sequence] block of a [B, S, ...] array."""
+    import torch
+
+    coords = mesh.coords(rank)
+    dp, cp = axis_size(mesh, "dp"), axis_size(mesh, "cp")
+    b = x.shape[0] // dp
+    i = coords.get("dp", 0)
+    x = x[i * b:(i + 1) * b]
+    if seq:
+        s = x.shape[1] // cp
+        j = coords.get("cp", 0)
+        x = x[:, j * s:(j + 1) * s]
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def attention_cases(rank: int, world: int, axes: dict, cases: dict,
+                    llama: dict | None = None) -> dict:
+    """Ring and Ulysses attention on this rank's shard of each case's
+    q/k/v: the output shard, and with ``grad`` the gradients of
+    ``sum(out ** 2)``; the number of point-to-point exchanges of a ring
+    call forward and backward; the warnings each case raised. With
+    ``llama``, the llama_tiny forward (``attention_impl="ring"``) of this
+    rank's token shard at its global positions."""
+    import torch
+
+    from polyaxon_tpu_torch.ops import ring
+    from polyaxon_tpu_torch.ops.attention import dot_product_attention
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, use_mesh
+
+    mesh = build_mesh(axes=axes)
+    exchanges = [0]
+    p2p = ring._p2p
+
+    def counting(*args, **kwargs):
+        exchanges[0] += 1
+        return p2p(*args, **kwargs)
+
+    ring._p2p = counting
+    out: dict = {}
+    with use_mesh(mesh):
+        for name, case in cases.items():
+            q, k, v = (_shard_rows_seq(mesh, rank, case[x]).requires_grad_()
+                       for x in "qkv")
+            exchanges[0] = 0
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if case["kind"] == "inside":
+                    o = ring._ring_attention_sharded(
+                        q, k, v, causal=True, scale=q.shape[-1] ** -0.5,
+                        axis=ring._Axis(mesh, "cp"))
+                else:
+                    o = dot_product_attention(q, k, v, causal=case["causal"],
+                                              impl=case["kind"])
+            res = {"out": o.detach().numpy(), "fwd_exchanges": exchanges[0],
+                   "warnings": [str(w.message) for w in caught
+                                if w.category is RuntimeWarning]}
+            if case.get("grad"):
+                exchanges[0] = 0
+                (o ** 2).sum().backward()
+                res.update(dq=q.grad.numpy(), dk=k.grad.numpy(),
+                           dv=v.grad.numpy(), bwd_exchanges=exchanges[0])
+            out[name] = res
+        if llama is not None:
+            import dataclasses
+
+            from polyaxon_tpu_torch.models import llama as tllama
+
+            cfg = dataclasses.replace(
+                tllama.CONFIGS["llama_tiny"], max_seq_len=256,
+                dtype=torch.float32, attention_impl="ring")
+            params = tllama.params_from_numpy(cfg, llama["params"],
+                                              device="cpu")
+            tokens = llama["tokens"]
+            local = _shard_rows_seq(mesh, rank, tokens)
+            positions = _shard_rows_seq(
+                mesh, rank, np.broadcast_to(
+                    np.arange(tokens.shape[1], dtype=np.int32),
+                    tokens.shape))
+            with torch.no_grad():
+                out["llama"] = tllama.forward(cfg, params, local.long(),
+                                              positions).numpy()
+    ring._p2p = p2p
+    return out
+
+
+def stitch(results: list, axes: dict, key) -> np.ndarray:
+    """The global [B, S, ...] array from each rank's block (``key`` picks
+    the block out of a rank's result)."""
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(axes=axes, devices=range(len(results)))
+    dp, cp = axis_size(mesh, "dp"), axis_size(mesh, "cp")
+    rows = []
+    for i in range(dp):
+        cols = []
+        for j in range(cp):
+            coords = {"dp": i, "cp": j}
+            index = tuple(coords.get(a, 0) for a in mesh.axis_names)
+            cols.append(key(results[int(mesh.devices[index])]))
+        rows.append(np.concatenate(cols, axis=1))
+    return np.concatenate(rows, axis=0)
+
+
+# ------------------------------------------------------------- training
+def _job(axes: dict, steps: int, **runtime) -> dict:
+    return {"kind": "jaxjob", "mesh": {"axes": axes},
+            "runtime": {"model": "llama_tiny", "dataset": "lm_synthetic",
+                        "steps": steps, "seq_len": 64, "log_every": 1,
+                        "learning_rate": 3e-3, "warmup_steps": 0,
+                        "lr_schedule": "constant", "optimizer": "adamw",
+                        "grad_clip_norm": 1.0, "dtype": "float32",
+                        "prefetch": 0, **runtime}}
+
+
+def _numpy_tree(tree):
+    from polyaxon_tpu_torch.parallel.fsdp import local
+
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
+    if hasattr(tree, "full_tensor"):
+        return tree.full_tensor().detach().numpy()
+    return local(tree).detach().numpy() if hasattr(tree, "numpy") else tree
+
+
+def train_steps(rank: int, world: int, axes: dict, params0: dict,
+                batches: list, impl: str) -> dict:
+    """The port's train step over ``axes`` from ``params0`` (JAX's
+    names), each rank on ``batches`` (this process's rows, equal on
+    every rank as the reference draws them): the losses and grad norms
+    of each step and the full parameters after the last."""
+    import torch
+
+    from polyaxon_tpu_torch.models import get_model
+    from polyaxon_tpu_torch.models import llama as tllama
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, use_mesh
+    from polyaxon_tpu_torch.parallel.sharding import rules_for_mesh
+    from polyaxon_tpu_torch.runtime.config import RuntimeConfig
+    from polyaxon_tpu_torch.runtime.optim import build_optimizer
+    from polyaxon_tpu_torch.runtime.step import build_init, build_train_step
+
+    spec = _job(axes, len(batches))["runtime"]
+    mesh = build_mesh(axes=axes)
+    rules = rules_for_mesh(mesh)
+    model_def = get_model("llama_tiny", dtype=torch.float32,
+                          attention_impl=impl, loss_chunk=16)
+    opt = build_optimizer(RuntimeConfig.from_dict(spec))
+    params = tllama.params_from_numpy(model_def.config, params0,
+                                      device="cpu")
+    out = {"loss": [], "grad_norm": []}
+    with use_mesh(mesh):
+        state = build_init(model_def, opt, device="cpu", params=params,
+                           mesh=mesh, rules=rules)(0)
+        step = build_train_step(model_def, opt, mesh=mesh)
+        for batch in batches:
+            state, metrics = step(state, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()})
+            out["loss"].append(float(metrics["loss"]))
+            out["grad_norm"].append(float(metrics["grad_norm"]))
+        out["params"] = _numpy_tree(state["params"])
+    return out
+
+
+def run_job(rank: int, world: int, job: dict, artifacts_dir: str) -> dict:
+    """``run_torchjob`` on this rank (the loop of every gang process):
+    the emitted losses (rank 0 emits), the steps, the step restored
+    from and the units a step trains."""
+    from polyaxon_tpu_torch.runtime.loop import run_torchjob
+
+    losses: dict = {}
+    result = run_torchjob(job, artifacts_dir=artifacts_dir, device="cpu",
+                          on_metrics=lambda s, v: losses.__setitem__(
+                              s, v["loss"]) if "loss" in v else None)
+    return {"losses": losses, "steps": result.steps,
+            "restored_from_step": result.restored_from_step,
+            "units_per_step": result.units_per_step}
+
+
+def replaced_run(rank: int, world: int, axes_a: dict, axes_b: dict,
+                 split: int, steps: int) -> dict:
+    """The uninterrupted counterpart of a checkpoint that moves meshes:
+    the loop's first ``split`` steps over ``axes_a``, the state gathered
+    and placed over ``axes_b`` in memory, and the rest of the steps
+    there; the full parameters and moments at the end."""
+    import torch
+
+    from polyaxon_tpu_torch.models import get_model
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, use_mesh
+    from polyaxon_tpu_torch.parallel.sharding import (distribute,
+                                                      rules_for_mesh)
+    from polyaxon_tpu_torch.runtime import data as data_lib
+    from polyaxon_tpu_torch.runtime.config import RuntimeConfig
+    from polyaxon_tpu_torch.runtime.loop import _dataset_kwargs
+    from polyaxon_tpu_torch.runtime.optim import build_optimizer
+    from polyaxon_tpu_torch.runtime.step import (build_init,
+                                                 build_train_step,
+                                                 state_placements)
+
+    cfg = RuntimeConfig.from_dict(_job(axes_a, steps)["runtime"])
+    model_def = get_model("llama_tiny", dtype=torch.float32)
+    opt = build_optimizer(cfg)
+    per_host = (cfg.global_batch_size or 8 * world) // world
+    batches = data_lib.get_dataset(
+        "lm_synthetic", start_batch=0,
+        **_dataset_kwargs(cfg, model_def.config, per_host))
+
+    def place(state, mesh):
+        rules = rules_for_mesh(mesh)
+        pl = state_placements(model_def, mesh, rules)["params"]
+        full = _torch_tree(state)
+        params = distribute(full["params"], pl, mesh)
+        opt_state = {k: ([distribute(t, p, mesh) for t, p in zip(
+            v, _leaves(pl))] if isinstance(v, list) else v)
+            for k, v in full["opt_state"].items()}
+        return {**state, "params": params, "opt_state": opt_state}
+
+    mesh = build_mesh(axes=axes_a)
+    with use_mesh(mesh):
+        state = build_init(model_def, opt, device="cpu", mesh=mesh,
+                           rules=rules_for_mesh(mesh))(cfg.seed)
+        step = build_train_step(model_def, opt, mesh=mesh)
+        for _ in range(split):
+            state, _ = step(state, {k: torch.from_numpy(v)
+                                    for k, v in next(batches).items()})
+    mesh = build_mesh(axes=axes_b)
+    with use_mesh(mesh):
+        state = place(state, mesh)
+        step = build_train_step(model_def, opt, mesh=mesh)
+        for _ in range(split, steps):
+            state, _ = step(state, {k: torch.from_numpy(v)
+                                    for k, v in next(batches).items()})
+    return {"params": _numpy_tree(state["params"]),
+            "opt_state": _numpy_tree(state["opt_state"])}
+
+
+def _leaves(tree):
+    from polyaxon_tpu_torch.runtime.optim import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _torch_tree(state):
+    """A placed state's tensors gathered whole (requires_grad kept)."""
+    import torch
+
+    def full(t):
+        if hasattr(t, "full_tensor"):
+            return t.full_tensor().detach().requires_grad_(t.requires_grad)
+        return t
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return full(tree) if isinstance(tree, torch.Tensor) else tree
+
+    return walk(state)
+
+
+# ----------------------------------------------------------------- gangs
+ENV_START_PARAMS = "POLYAXON_TEST_START_PARAMS"
+
+# A gang process's command in the CPU tests: the launcher on the CPU (the
+# plan's own command runs on the card).
+CPU_LAUNCHER = "from tests.torch_dist_cases import cpu_launch; cpu_launch()"
+
+
+def cpu_launch() -> None:
+    """``launch.main(device="cpu")``; with ``POLYAXON_TEST_START_PARAMS``
+    (a pickle of JAX's initial llama weights as numpy) the loop starts
+    from those weights, as ``run_jaxjob`` does from its own draw."""
+    import os
+    import pickle
+    import sys
+
+    from polyaxon_tpu_torch.runtime import launch
+
+    path = os.environ.get(ENV_START_PARAMS)
+    if path:
+        from polyaxon_tpu_torch.models import llama
+        from polyaxon_tpu_torch.runtime import loop, step
+
+        with open(path, "rb") as fh:
+            params0 = pickle.load(fh)
+
+        def build_init(model_def, optimizer, *, device):
+            return step.build_init(model_def, optimizer, device=device,
+                                   params=llama.params_from_numpy(
+                                       model_def.config, params0,
+                                       device=device))
+
+        loop.build_init = build_init
+    sys.exit(launch.main(device="cpu"))
