@@ -250,6 +250,27 @@ Phases, each of which must pass:
    ``dot_product_attention(impl="ulysses")`` on a one-rank mesh, which
    must launch the flash kernel. Phase 1 also holds the
    kernels at the ring's block shapes (``PATH_CASES``).
+18. Tensor, expert and pipeline parallelism (lines ``18a.`` to
+   ``18d.``), replayed in this process (this machine has one H100):
+   (a) llama3_8b at full width and depth (random bf16 weights) on one
+   4,096-token row split tp = 2, 4 and 8 ways: each rank's
+   vocab-parallel embedding, column-parallel projections, local heads
+   through the flash kernels (8:2 at tp4) and row-parallel partials,
+   summed in place of the all-reduce, and the vocab-parallel cross
+   entropy, against the unsplit model (phase 5's tolerances); (b)
+   moe_8x200m's training microbatch (4 x 2,048 tokens) through the ragged
+   dispatch at ep = 2, 4 and 8, every rank's send buffers built here and
+   each all-to-all done as its transpose, forward and backward against
+   ep = 1 at no-drop capacity (phase 11's routing replay), and the drops
+   per ep at the default capacity; (c) llama3_1b's layers as a 4-stage
+   GPipe schedule of 4 microbatches of one 4,096-token row, single- and
+   double-buffered, against the unpipelined layers, the two schedules'
+   outputs equal bit for bit; (d) ``examples/longcontext_ring.yaml``
+   compiled with a {dp: 1, tp: 1, pp: 1, ep: 1} mesh and
+   ``pipeline_stages: 1`` and run by the launcher on a one-rank NCCL
+   group (no collective runs) for 2 steps, no group left behind. Phase 1
+   also holds the kernels at the tp-local shapes (``PATH_CASES``:
+   llama3_8b and llama3_1b at tp4, 8:2 heads).
 
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
@@ -928,14 +949,21 @@ def time_flash_bwd(torch, flash, peaks, gen, B, S, H, KV, D, seg):
 # at cp=1 the half-row causal diagonals and the non-causal hi-lo block
 # (S_loc/2 = 16,384), at cp=4 the 4,096-row diagonals and ring-step
 # blocks.
-PATH_CASES = (("t5_base encoder training B=32 S=512", 32, 512, 12, 12, False),
-              ("t5_base served encoder S=300", 1, 300, 12, 12, False),
-              ("t5_base decoder training B=32 S=512", 32, 512, 12, 12, True),
-              ("moe_8x200m training B=4 S=2048", 4, 2048, 16, 8, True),
-              ("ring cp=1 diagonal S=16384", 1, 16384, 32, 8, True),
-              ("ring cp=1 hi-lo block S=16384", 1, 16384, 32, 8, False),
-              ("ring cp=4 diagonal S=4096", 1, 4096, 32, 8, True),
-              ("ring cp=4 step block S=4096", 1, 4096, 32, 8, False))
+# And the tp-local heads of phase 18 and of the four-card tp4 gangs:
+# llama3_8b at tp4 (8:2 heads, D=128, one 4,096-token row) and llama3_1b
+# at tp4 (8:2 heads, D=64, four rows).
+PATH_CASES = (("t5_base encoder training B=32 S=512", 32, 512, 12, 12, False,
+               64),
+              ("t5_base served encoder S=300", 1, 300, 12, 12, False, 64),
+              ("t5_base decoder training B=32 S=512", 32, 512, 12, 12, True,
+               64),
+              ("moe_8x200m training B=4 S=2048", 4, 2048, 16, 8, True, 64),
+              ("ring cp=1 diagonal S=16384", 1, 16384, 32, 8, True, 64),
+              ("ring cp=1 hi-lo block S=16384", 1, 16384, 32, 8, False, 64),
+              ("ring cp=4 diagonal S=4096", 1, 4096, 32, 8, True, 64),
+              ("ring cp=4 step block S=4096", 1, 4096, 32, 8, False, 64),
+              ("llama3_8b tp4 B=1 S=4096", 1, 4096, 8, 2, True, 128),
+              ("llama3_1b tp4 B=4 S=4096", 4, 4096, 8, 2, True, 64))
 # The plain versions hold f32 [B, h, S, S] scores: past this many bytes
 # they run on the first KV group's heads only (the kernels run on all of
 # them; the plain time is scaled up to all heads).
@@ -969,8 +997,7 @@ def check_path_shapes(torch, flash, peaks, gen):
 
     worst = {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
     recs = {}
-    D = 64
-    for label, B, S, H, KV, causal in PATH_CASES:
+    for label, B, S, H, KV, causal, D in PATH_CASES:
         mask = "causal" if causal else "non-causal"
         h = plain_heads(B, S, H, KV)
         kvh = h * KV // H
@@ -4836,6 +4863,369 @@ def context_parallel(torch, llama, flash, paged):
     return counts
 
 
+# Phase 18: tensor, expert and pipeline parallelism replayed on one card.
+TP_REPLAY_NS = (2, 4, 8)
+TP_MODEL = "llama3_8b"
+TP_SEQ = 4096
+EP_REPLAY_NS = (2, 4, 8)
+EP_BATCH, EP_SEQ = 4, 2048   # moe_8x200m's training microbatch
+PP_MODEL = "llama3_1b"
+PP_STAGES = 4
+PP_MICRO = 4
+PP_SEQ = 4096
+ENTRY_STEPS = 2
+# Phase 18d's spec: llama3_1b on a mesh of every new axis at one device.
+ENTRY_SPEC = """version: 1.1
+kind: operation
+name: llama-model-parallel-axes
+component:
+  name: llama-mp
+  run:
+    kind: jaxjob
+    topology: {accelerator: v5e, topology: 2x2, slices: 1}
+    mesh:
+      axes: {dp: 1, tp: 1, pp: 1, ep: 1}
+    runtime:
+      model: llama3_1b
+      dataset: lm_synthetic
+      steps: %d
+      seq_len: 4096
+      global_batch_size: 1
+      attention_impl: flash
+      remat: dots
+      pipeline_stages: 1
+      log_every: 1
+""" % ENTRY_STEPS
+
+
+def _tp_shard(cfg, layer: dict, n: int, j: int) -> dict:
+    """tp rank ``j``'s views of one layer's weights (the rule tables'
+    placements): column slices of the heads and mlp projections, row
+    slices of ``wo`` and ``w_down``, the norms whole (and K/V whole where
+    the KV heads do not split, as the package gathers them)."""
+    cols = ("wq", "w_gate", "w_up") + (
+        ("wk", "wv") if cfg.n_kv_heads % n == 0 else ())
+    out = {}
+    for key, w in layer.items():
+        if key in cols:
+            c = w.shape[-1] // n
+            out[key] = w[:, j * c:(j + 1) * c]
+        elif key in ("wo", "w_down"):
+            r = w.shape[0] // n
+            out[key] = w[j * r:(j + 1) * r]
+        else:
+            out[key] = w
+    return out
+
+
+def _grad_rels(torch, got: dict, want: dict) -> dict:
+    """Relative Frobenius error of each gradient (``want`` may be held on
+    the host: each leaf comes to the device in turn)."""
+    rels = {}
+    for k, g in got.items():
+        w = want[k].to(g.device).float()
+        rels[k] = ((g.float() - w).norm() / w.norm()).item()
+        del w
+    return rels
+
+
+def _hold_training(label, loss, want_loss, rels) -> str:
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    worst = max(rels, key=rels.get)
+    if not all(map(math.isfinite, rels.values())) or \
+            loss_rel > TRAIN_LOSS_REL_TOL or rels[worst] > TRAIN_GRAD_REL_TOL:
+        fail(f"{label}: loss rel {loss_rel}, grad rel {rels}")
+    return (f"loss rel {loss_rel:.3e}, grad rel over {len(rels)} leaves "
+            f"worst {worst}={rels[worst]:.3e}")
+
+
+def tp_replay(torch, llama, flash):
+    """Phase 18a: llama3_8b (random bf16 weights from SEED, full width
+    and depth, flash) on one TP_SEQ-token row, forward and backward, and
+    every tp = 2, 4, 8 split of it in this process: each rank's
+    vocab-parallel embedding rows, its column-parallel q/k/v and
+    gate/up projections, its local heads through ``flash_attention``
+    (8:2 at tp4) and its row-parallel ``wo``/``w_down`` partials, summed
+    in place of the all-reduce (``parallel.tensor.replay_tp`` around the
+    package's ``_attn_out`` and ``_mlp_out``, each rank's block
+    recomputed in the backward), then the vocab-parallel
+    cross entropy of its head columns (``replay_vocab_ce``). Held
+    against the unsplit model's ``apply``: the loss to
+    TRAIN_LOSS_REL_TOL and every leaf's gradient to TRAIN_GRAD_REL_TOL."""
+    from polyaxon_tpu_torch.models.common import shift_right
+    from polyaxon_tpu_torch.parallel import tensor
+    from polyaxon_tpu_torch.runtime.data import lm_synthetic
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(llama.CONFIGS[TP_MODEL],
+                              attention_impl="flash")
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda", param_dtype=torch.bfloat16)["params"]
+    for t in _leaves(params):
+        t.requires_grad_(True)
+    tokens = torch.from_numpy(next(lm_synthetic(
+        1, seq_len=TP_SEQ, vocab_size=cfg.vocab_size,
+        seed=SEED + 4))["tokens"]).cuda().long()
+
+    def grads_of(loss):
+        loss.backward()
+        out = {}
+        for path, t in _named_leaves(params):
+            out[path] = t.grad
+            t.grad = None
+        torch.cuda.synchronize()
+        return loss.item(), out
+
+    want_loss, want = grads_of(llama.apply(
+        cfg, {"params": params, "state": {}}, {"tokens": tokens})[0])
+    # The unsplit gradients wait on the host: 16 GB of weights, their
+    # gradients and a split pass's activations fill the card.
+    want = {k: g.to("cpu") for k, g in want.items()}
+    inputs = shift_right(tokens)
+    positions = llama._positions(1, TP_SEQ, "cuda")
+    V = cfg.vocab_size
+    for n in TP_REPLAY_NS:
+        t0 = time.perf_counter()
+        rows = V // n
+        x = tensor.replay_tp(
+            lambda table: llama._embed(cfg, {"embed": table}, inputs,
+                                       cfg.dtype), n,
+            lambda j: (params["embed"][j * rows:(j + 1) * rows],))
+        # Each rank's block is recomputed in the backward: the n ranks'
+        # replicated norms would not fit beside the weights at tp8.
+        for layer in llama._layers(params):
+            x = x + tensor.replay_tp(
+                functools.partial(llama._attn_out, cfg), n,
+                lambda j: (x, _tp_shard(cfg, layer, n, j), positions),
+                remat=True)
+            x = x + tensor.replay_tp(
+                functools.partial(llama._mlp_out, cfg), n,
+                lambda j: (x, _tp_shard(cfg, layer, n, j)), remat=True)
+        x = llama._norm(cfg, x, params["final_norm"])
+        head = params["lm_head"]
+        nll, _ = tensor.replay_vocab_ce(
+            [(x @ head[:, j * rows:(j + 1) * rows]).float()
+             for j in range(n)], tokens)
+        loss, got = grads_of(nll.mean())
+        held = _hold_training(f"18a. tp replay tp={n}", loss, want_loss,
+                              _grad_rels(torch, got, want))
+        print(f"18a. tp replay tp={n}: {TP_MODEL} {cfg.n_layers} layers "
+              f"(no depth cut; the unsplit gradients held on the host), "
+              f"1 x {TP_SEQ} tokens, {cfg.n_heads // n}:"
+              f"{cfg.n_kv_heads // n} heads per rank, D={cfg.head_dim}; loss "
+              f"{loss:.6f} vs unsplit {want_loss:.6f}; {held}; "
+              f"fwd+bwd_s={time.perf_counter() - t0:.2f}", flush=True)
+        del got, x, nll
+    del params, want
+    torch.cuda.empty_cache()
+    print(f"18a: {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def ep_replay(torch, flash):
+    """Phase 18b: moe_8x200m's training microbatch (EP_BATCH x EP_SEQ
+    tokens, D=1024, 8 experts, top-2, bf16; layer 0's weights from SEED,
+    the tokens random) through the ragged dispatch at ep = 2, 4 and 8,
+    every rank's send buffers built in this process and each all-to-all
+    done as the transpose it performs (``moe.replay_ep``), forward and
+    backward, against the ep = 1 dispatch at no-drop capacity (8.0), the
+    routing replayed from the ep = 1 run where a rounding flips a
+    near-tie (``_Routing``): the output to OUT_ATOL/OUT_RTOL, the router
+    aux to TRAIN_LOSS_REL_TOL, the gradients to TRAIN_GRAD_REL_TOL. At
+    the default capacity (1.25) prints the drops per ep."""
+    from polyaxon_tpu_torch.models import moe
+
+    t_phase = time.perf_counter()
+    base = dataclasses.replace(moe.CONFIGS["moe_8x200m"], n_layers=1)
+    params = moe.init(base, torch.Generator(device="cuda").manual_seed(SEED),
+                      device="cuda", param_dtype=torch.bfloat16)["params"]
+    layer = {k: v[0].detach().requires_grad_(True)
+             for k, v in params["layers"].items()
+             if k in ("router", "w_gate", "w_up", "w_down")}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x = torch.randn(EP_BATCH * EP_SEQ, base.dim, generator=gen,
+                    device="cuda", dtype=torch.bfloat16).requires_grad_(True)
+    do = torch.randn(x.shape, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    weights = (layer["router"], layer["w_gate"], layer["w_up"],
+               layer["w_down"])
+    leaves = (x, *weights)
+
+    def run(fn):
+        out, aux = fn()
+        grads = torch.autograd.grad((out.float() * do.float()).sum() + aux,
+                                    leaves)
+        torch.cuda.synchronize()
+        return out.detach(), aux.item(), grads
+
+    cfg = dataclasses.replace(base, capacity_factor=8.0)
+    with _Routing(torch, moe) as rec:
+        want_out, want_aux, want_g = run(
+            lambda: moe._moe_ragged_sharded(cfg, x, *weights))
+    for n in EP_REPLAY_NS:
+        t0 = time.perf_counter()
+        t_loc = x.shape[0] // n
+        replay = [rec.calls[0][i * t_loc:(i + 1) * t_loc] for i in range(n)]
+        with _Routing(torch, moe, replay=replay) as routed:
+            out, aux, g = run(lambda: moe.replay_ep(cfg, x, *weights, n))
+        label = f"18b. ep replay ep={n}"
+        err = _hold_replay(torch, label, (out,), (want_out,))
+        aux_rel = abs(aux - want_aux) / abs(want_aux)
+        rels = {name: ((a.float() - b.float()).norm()
+                       / b.float().norm()).item()
+                for name, a, b in zip(("x", "router", "w_gate", "w_up",
+                                       "w_down"), g, want_g)}
+        if aux_rel > TRAIN_LOSS_REL_TOL or \
+                max(rels.values()) > TRAIN_GRAD_REL_TOL:
+            fail(f"{label}: aux rel {aux_rel}, grad rel {rels}")
+        drops = {}
+        with torch.no_grad():
+            moe.replay_ep(base, x, *weights, n, drops)
+        print(f"{label}: {EP_BATCH}x{EP_SEQ} tokens, {base.n_experts // n} "
+              f"experts per rank; capacity 8.0: out max abs err {err:.3e}, "
+              f"aux rel {aux_rel:.3e}, grad rel "
+              f"{ {k: float(f'{v:.3e}') for k, v in rels.items()} }, routing "
+              f"flips replayed {sum(routed.flips)}; capacity "
+              f"{base.capacity_factor}: dropped pairs {drops}; "
+              f"fwd+bwd_s={time.perf_counter() - t0:.2f}", flush=True)
+    del params, layer, x
+    torch.cuda.empty_cache()
+    print(f"18b: {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def pp_replay(torch, llama, flash):
+    """Phase 18c: llama3_1b's layers (full width and depth, bf16 weights
+    from SEED, flash, remat full) on PP_MICRO rows of PP_SEQ tokens as a
+    PP_STAGES-stage GPipe schedule replayed in this process
+    (``pipeline.replay_pipeline`` over the package's ``stage_fn``), single-
+    and double-buffered, forward and backward, against the unpipelined
+    layers: the output to OUT_ATOL/OUT_RTOL, the gradients of the input
+    and every layer leaf to TRAIN_GRAD_REL_TOL; the two schedules'
+    outputs equal bit for bit."""
+    from polyaxon_tpu_torch.parallel.pipeline import (replay_pipeline,
+                                                      stack_stages)
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(llama.CONFIGS[PP_MODEL],
+                              attention_impl="flash", remat="full")
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda", param_dtype=torch.bfloat16)["params"]
+    layers = params["layers"]
+    for t in _leaves(layers):
+        t.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    x = torch.randn(PP_MICRO, PP_SEQ, cfg.dim, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_(True)
+    do = torch.randn(x.shape, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    body = llama._layer_body(cfg)
+    leaves = [x, *(t for _, t in _named_leaves(layers))]
+    names = ["x", *(p for p, _ in _named_leaves(layers))]
+
+    def run(fn):
+        out = fn()
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        return out.detach(), dict(zip(names, grads))
+
+    def unpiped():
+        return llama.stage_fn(body)(layers, x)
+
+    want_out, want = run(unpiped)
+    outs = {}
+    for double in (False, True):
+        t0 = time.perf_counter()
+        label = f"18c. pp replay {'double' if double else 'single'}"
+        out, got = run(lambda: replay_pipeline(
+            llama.stage_fn(body), stack_stages(layers, PP_STAGES), x,
+            n_microbatches=PP_MICRO, n_stages=PP_STAGES,
+            double_buffer=double))
+        err = _hold_replay(torch, label, (out,), (want_out,))
+        rels = _grad_rels(torch, got, want)
+        worst = max(rels, key=rels.get)
+        if not all(map(math.isfinite, rels.values())) or \
+                rels[worst] > TRAIN_GRAD_REL_TOL:
+            fail(f"{label}: grad rel {rels}")
+        outs[double] = out
+        print(f"{label}-buffered: {PP_MODEL} {cfg.n_layers} layers in "
+              f"{PP_STAGES} stages, {PP_MICRO} microbatches of 1 x {PP_SEQ}; "
+              f"out max abs err {err:.3e}; grad rel over {len(rels)} leaves "
+              f"worst {worst}={rels[worst]:.3e}; fwd+bwd_s="
+              f"{time.perf_counter() - t0:.2f}", flush=True)
+        del got
+    if not torch.equal(outs[False], outs[True]):
+        fail("18c. pp replay: the two schedules' outputs differ")
+    print("18c. pp replay: single- and double-buffered outputs equal bit "
+          "for bit", flush=True)
+    del params, layers, x, want, outs
+    torch.cuda.empty_cache()
+    print(f"18c: {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def entry_point(torch, flash, paged):
+    """Phase 18d: ENTRY_SPEC (its mesh {dp: 1, tp: 1, pp: 1, ep: 1}: the
+    new axes, one device each; ``pipeline_stages: 1``; llama3_1b at full
+    width and depth on one 4,096-token row, flash, remat dots) compiled
+    by the port with the gpu preset and run for ENTRY_STEPS steps by the
+    port's launcher with a one-process bootstrap env: a real one-rank
+    NCCL group, which runs no collective here. Finite losses, every
+    flash kernel launched, no process group left behind. Returns the
+    launches."""
+    import shutil
+    import tempfile
+
+    from polyaxon_tpu_torch.parallel import bootstrap
+
+    label = "18d. entry point"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-entry-")
+    spec = os.path.join(tmp, "model_parallel.yaml")
+    with open(spec, "w") as fh:
+        fh.write(ENTRY_SPEC)
+    job = compile_example(spec, label)
+    if job["mesh"]["axes"] != {"dp": 1, "tp": 1, "pp": 1, "ep": 1}:
+        fail(f"{label}: the compiled mesh is {job['mesh']}")
+    env = {bootstrap.ENV_NUM_PROCESSES: "1", bootstrap.ENV_PROCESS_ID: "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        _zero(flash, paged)
+        emitted, outputs, launches, wall = launch_in_process(job, tmp, label)
+        counts = _counts(flash, paged)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        fail(f"{label}: the launcher left its process group behind")
+    _check_emissions(label, emitted, ENTRY_STEPS)
+    if counts != launches or not all(counts[k] for k in (
+            "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")):
+        fail(f"{label}: launches {counts} (launcher's line {launches})")
+    print(f"{label}: mesh {job['mesh']['axes']}, one-rank NCCL group (no "
+          f"collective runs), {ENTRY_STEPS} steps, losses "
+          f"{[round(v['loss'], 5) for v in emitted]}, tokens_per_s="
+          f"{outputs['throughput']:.1f}, launches {counts}, wall_s="
+          f"{wall:.1f} phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return counts
+
+
+def model_parallel(torch, llama, flash, paged):
+    """Phase 18; returns 18d's launches."""
+    t0 = time.perf_counter()
+    tp_replay(torch, llama, flash)
+    ep_replay(torch, flash)
+    pp_replay(torch, llama, flash)
+    counts = entry_point(torch, flash, paged)
+    print(f"phase 18: {time.perf_counter() - t0:.1f}s", flush=True)
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -4931,6 +5321,8 @@ def main() -> None:
     release(torch)
     chaos_restore(torch, llama)
     ring_counts = context_parallel(torch, llama, flash, paged_attention)
+    torch.cuda.empty_cache()
+    entry_counts = model_parallel(torch, llama, flash, paged_attention)
 
     # Each kernel's launches are the sum over the main-path runs that
     # reach it (each printed above): the engine, phases a-g, the two
@@ -4938,9 +5330,11 @@ def main() -> None:
     # the resumed launcher of the checkpoint drill, the engine serving
     # its checkpoint, the launcher the agent ran from the compiled plan,
     # the sweep's trials and the engine serving its best trial, the runs
-    # of phases 11-15, and the longcontext run of phase 17.
+    # of phases 11-15, the longcontext run of phase 17 and the entry
+    # point's run of phase 18.
     runs = (counts, *serve_counts, train_counts, gemma_counts, *drill_counts,
-            plan_counts, *sweep_counts, *family_counts, ring_counts)
+            plan_counts, *sweep_counts, *family_counts, ring_counts,
+            entry_counts)
 
     def total(name):
         return sum(run.get(name, 0) for run in runs)

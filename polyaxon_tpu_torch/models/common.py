@@ -60,6 +60,11 @@ class ModelDef:
     layer_stacks: tuple = ()
     # ``apply`` computes its sequence shard under a cp mesh axis above 1.
     context_parallel: bool = False
+    # ``apply`` computes on its tp shards (``parallel/tensor.py``); a
+    # family without it gathers them and computes replicated over tp.
+    tensor_parallel: bool = False
+    # ``apply`` runs its layers as a pipeline over the pp mesh axis.
+    pipeline_parallel: bool = False
 
 
 def truncated_normal_init(shape, generator: torch.Generator, *,
@@ -371,24 +376,32 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _chunk_stats(hc: torch.Tensor, head: torch.Tensor, yc: torch.Tensor,
-                 mc: torch.Tensor) -> torch.Tensor:
+                 mc: torch.Tensor, vocab_shard=None) -> torch.Tensor:
     logits = (hc @ head).to(torch.float32)  # [B, chunk, V]
-    log_probs = F.log_softmax(logits, dim=-1)
-    nll = -log_probs.gather(-1, yc[..., None])[..., 0]
-    correct = (logits.argmax(-1) == yc).to(torch.float32)
+    if vocab_shard is not None:
+        from polyaxon_tpu_torch.parallel.tensor import vocab_parallel_ce
+
+        nll, correct = vocab_parallel_ce(logits, yc, vocab_shard)
+    else:
+        log_probs = F.log_softmax(logits, dim=-1)
+        nll = -log_probs.gather(-1, yc[..., None])[..., 0]
+        correct = (logits.argmax(-1) == yc).to(torch.float32)
     return torch.stack([(nll * mc).sum(), (correct * mc).sum()])
 
 
 def chunked_lm_loss(hidden: torch.Tensor, head: torch.Tensor,
                     labels: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
-                    chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+                    chunk: int = 256, vocab_shard=None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Next-token CE without materializing the [B, S, V] logits: the
     lm-head projection and log-softmax run one sequence chunk at a time
     under ``torch.utils.checkpoint``, so the backward recomputes each
     chunk's [B, chunk, V] f32 logits from the saved hidden slab. The
     chunk is ``pick_block(S, chunk)``, as in the JAX package; the numbers
-    are those of ``cross_entropy_loss`` over full logits."""
+    are those of ``cross_entropy_loss`` over full logits. With
+    ``vocab_shard`` (``parallel.tensor.vocab_shard``) ``head`` is this
+    rank's vocab columns and the CE is vocab-parallel."""
     from polyaxon_tpu_torch.ops.flash import pick_block
 
     S = hidden.shape[1]
@@ -401,7 +414,7 @@ def chunked_lm_loss(hidden: torch.Tensor, head: torch.Tensor,
     for start in range(0, S, chunk):
         part = slice(start, start + chunk)
         s = checkpoint(_chunk_stats, hidden[:, part], head,
-                       labels_clipped[:, part], mask[:, part],
+                       labels_clipped[:, part], mask[:, part], vocab_shard,
                        use_reentrant=False)
         stats = s if stats is None else stats + s
     denom = mask.sum().clamp(min=1.0)

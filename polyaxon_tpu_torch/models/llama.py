@@ -30,6 +30,17 @@ layers run as a Python loop over per-layer views of the stacked tensors
 (``torch.unbind``, so each stacked tensor's gradient is assembled once,
 not once per layer). ``remat`` maps JAX's per-layer checkpoint policies
 onto ``torch.utils.checkpoint``.
+
+Under a mesh with ``tp`` above 1 each rank computes on its shards
+(``parallel/tensor.py``): column-parallel ``wq``/``wk``/``wv``/
+``w_gate``/``w_up`` (its heads and its ``mlp`` slice, attention on its
+local heads), row-parallel ``wo``/``w_down`` followed by *reduce*, the
+vocab-parallel embedding, head and cross entropy. Where the KV heads do
+not split over tp (gemma's one KV head), every rank computes K and V
+whole and takes its query heads' group, which is what GSPMD computes
+when it splits ``kv_heads·head_dim``. With ``pipeline_stages`` above 1
+the layers run as a GPipe schedule over the ``pp`` axis
+(``parallel/pipeline.py``); the head and the loss run on the last stage.
 """
 
 from __future__ import annotations
@@ -63,7 +74,10 @@ from polyaxon_tpu_torch.ops.attention import (
     dot_product_attention,
     repeat_kv,
 )
-from polyaxon_tpu_torch.parallel.mesh import seq_shard
+from polyaxon_tpu_torch.parallel.mesh import current_mesh, seq_shard
+from polyaxon_tpu_torch.parallel.tensor import (copy_to_tp, gather_from_tp,
+                                                reduce_from_tp, tp_axis,
+                                                vocab_embed, vocab_shard)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +125,13 @@ class LlamaConfig:
     # field, not a constant, so that the reference's configs and
     # model_overrides are taken as they are.
     lm_logits_chunk: int = 4096
-    # Pipeline parallelism is not ported; >1 raises.
+    # Pipeline parallelism over the `pp` mesh axis (parallel/pipeline.py):
+    # >1 splits the layer stack into that many stages, each batch into
+    # `pipeline_microbatches`; the double-buffered schedule sends each
+    # tick's PREVIOUS output (the same per-microbatch outputs).
     pipeline_stages: int = 1
+    pipeline_microbatches: int = 4
+    pipeline_double_buffer: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -270,19 +289,29 @@ def _act(cfg):
 
 
 def _embed(cfg, params: dict, tokens: torch.Tensor, dt) -> torch.Tensor:
-    x = _embed_rows(params["embed"], tokens, dt)
+    table = params["embed"]
+    shard = (vocab_shard(cfg.vocab_size, table.shape[0])
+             if isinstance(table, torch.Tensor) else None)
+    x = (_embed_rows(table, tokens, dt) if shard is None
+         else vocab_embed(table, tokens, dt, shard))
     if getattr(cfg, "scale_embeddings", False):
         x = x * torch.tensor(cfg.dim ** 0.5, dtype=dt, device=x.device)
     return x
 
 
-def _mlp(cfg, x: torch.Tensor, layer: dict) -> torch.Tensor:
-    """The gated-MLP residual block (norm → act(gate)·up → down)."""
+def _mlp_out(cfg, x: torch.Tensor, layer: dict) -> torch.Tensor:
+    """The gated MLP's output (norm → act(gate)·up → down): under tp,
+    this rank's partial of it."""
     dt = cfg.dtype
-    h = _norm(cfg, x, layer["mlp_norm"])
+    h = copy_to_tp(_norm(cfg, x, layer["mlp_norm"]))
     gate = _act(cfg)(h @ _w(layer["w_gate"], dt))
     up = h @ _w(layer["w_up"], dt)
-    return x + (gate * up) @ _w(layer["w_down"], dt)
+    return (gate * up) @ _w(layer["w_down"], dt)
+
+
+def _mlp(cfg, x: torch.Tensor, layer: dict) -> torch.Tensor:
+    """The gated-MLP residual block, the tp partials summed."""
+    return x + reduce_from_tp(_mlp_out(cfg, x, layer))
 
 
 def _qkv(cfg, layer: dict, x: torch.Tensor, positions: torch.Tensor):
@@ -291,14 +320,41 @@ def _qkv(cfg, layer: dict, x: torch.Tensor, positions: torch.Tensor):
     pass, decode and the suffix prefill."""
     dt = cfg.dtype
     B, S, _ = x.shape
-    H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = _norm(cfg, x, layer["attn_norm"])
-    q = (h @ _w(layer["wq"], dt)).reshape(B, S, H, Hd)
-    k = (h @ _w(layer["wk"], dt)).reshape(B, S, KV, Hd)
-    v = (h @ _w(layer["wv"], dt)).reshape(B, S, KV, Hd)
+    Hd = cfg.head_dim
+    n, idx, _ = tp_axis()
+    whole_kv = n > 1 and cfg.n_kv_heads % n != 0
+    if n > 1 and cfg.n_heads % n:
+        raise ValueError(f"{cfg.n_heads} heads do not split over tp={n}")
+    h = copy_to_tp(_norm(cfg, x, layer["attn_norm"]))
+    wk, wv = _w(layer["wk"], dt), _w(layer["wv"], dt)
+    if whole_kv:
+        wk, wv = gather_from_tp(wk, -1), gather_from_tp(wv, -1)
+    # -1: the heads this rank holds (all of them without tp).
+    q = (h @ _w(layer["wq"], dt)).reshape(B, S, -1, Hd)
+    k = (h @ wk).reshape(B, S, -1, Hd)
+    v = (h @ wv).reshape(B, S, -1, Hd)
     q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+    if whole_kv:
+        k, v = _local_kv_group(cfg, k, v, n, idx)
     return q, k, v
+
+
+def _local_kv_group(cfg, k, v, n: int, idx: int):
+    """The K/V heads that tp rank ``idx``'s query heads read, from whole
+    K/V [B, S, KV, Hd]: their groups as they are when the rank's heads
+    map onto them evenly, else K/V repeated to one head per query head
+    (a plain multi-head block)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    local, rep = H // n, H // KV
+    first = idx * local
+    lo, hi = first // rep, (first + local - 1) // rep + 1
+    group = local // (hi - lo) if local % (hi - lo) == 0 else 0
+    if group and all((first + i) // rep - lo == i // group
+                     for i in range(local)):
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    return (repeat_kv(k, rep)[:, :, first:first + local],
+            repeat_kv(v, rep)[:, :, first:first + local])
 
 
 def _attention(cfg, q, k, v, segment_ids=None) -> torch.Tensor:
@@ -313,14 +369,31 @@ def _attention(cfg, q, k, v, segment_ids=None) -> torch.Tensor:
                                  bwd_impl=cfg.flash_bwd_impl)
 
 
-def _layer(cfg: LlamaConfig, x: torch.Tensor, layer: dict,
-           positions: torch.Tensor,
-           segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _attn_out(cfg, x: torch.Tensor, layer: dict, positions: torch.Tensor,
+              segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The attention block's output projection: under tp, this rank's
+    heads and its row-parallel ``wo`` partial."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, layer, x, positions)
     attn = _attention(cfg, q, k, v, segment_ids)
-    x = x + attn.reshape(B, S, -1) @ _w(layer["wo"], cfg.dtype)
-    return _mlp(cfg, x, layer)
+    return attn.reshape(B, S, -1) @ _w(layer["wo"], cfg.dtype)
+
+
+def _attn_residual(cfg, x: torch.Tensor, layer: dict,
+                   positions: torch.Tensor,
+                   segment_ids: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """The attention residual block of a training layer (the llama and
+    MoE blocks share it), the tp partials summed."""
+    return x + reduce_from_tp(_attn_out(cfg, x, layer, positions,
+                                        segment_ids))
+
+
+def _layer(cfg: LlamaConfig, x: torch.Tensor, layer: dict,
+           positions: torch.Tensor,
+           segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _mlp(cfg, _attn_residual(cfg, x, layer, positions, segment_ids),
+                layer)
 
 
 def _layer_body(cfg: LlamaConfig):
@@ -348,11 +421,60 @@ def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
     return idx - torch.cummax(starts, dim=-1).values
 
 
-def _check_not_pipelined(cfg: LlamaConfig) -> None:
-    if cfg.pipeline_stages > 1:
-        raise NotImplementedError(
-            f"pipeline_stages={cfg.pipeline_stages}: pipeline parallelism "
-            "is not ported yet (ROADMAP.md, Queue 1 item 7b)")
+def _pipelined_layers(cfg: LlamaConfig, body, layer_params: dict,
+                      x: torch.Tensor):
+    """The layer stack as a ``pp`` pipeline (``parallel/pipeline.py``):
+    (the last stage's output, None on the other stages; the schedule's
+    tail). Positions are contiguous 0..S-1 (the pretraining case): each
+    microbatch rebuilds them instead of sending them down the chain."""
+    from polyaxon_tpu_torch.parallel.pipeline import (pipeline_forward,
+                                                      stack_stages)
+
+    mesh = current_mesh()
+    if mesh is None or "pp" not in mesh.axis_names:
+        raise ValueError(
+            f"pipeline_stages={cfg.pipeline_stages} needs a mesh with a "
+            "`pp` axis in context (`parallel.mesh.use_mesh`)")
+    return pipeline_forward(mesh, stage_fn(body),
+                            stack_stages(layer_params, cfg.pipeline_stages),
+                            x, n_microbatches=cfg.pipeline_microbatches,
+                            double_buffer=cfg.pipeline_double_buffer)
+
+
+def stage_fn(body):
+    """A pipeline stage: ``body`` over its layers, at contiguous
+    positions."""
+
+    def run(local_layers, x_mb):
+        mb, S, _ = x_mb.shape
+        positions = _positions(mb, S, x_mb.device)
+        for layer in unstack(local_layers):
+            x_mb = body(x_mb, layer, positions, None)
+        return x_mb
+
+    return run
+
+
+def _check_pipelined_inputs(cfg: LlamaConfig, positions, segment_ids
+                            ) -> None:
+    if cfg.pipeline_stages > 1 and (positions is not None
+                                    or segment_ids is not None):
+        raise ValueError(
+            "the pipelined path assumes contiguous positions 0..S-1 and "
+            "cannot honor explicit `positions`/`segment_ids` (packed "
+            "sequences / decode offsets); use pipeline_stages=1 for those")
+
+
+def _pipelined_hidden(cfg: LlamaConfig, params: dict,
+                      tokens: torch.Tensor):
+    """Pipelined ``hidden_states``: (the final-norm hidden states on the
+    last stage, None elsewhere; the schedule's tail)."""
+    x = _embed(cfg, params, tokens, cfg.dtype)
+    out, tail = _pipelined_layers(cfg, _layer_body(cfg), params["layers"],
+                                  x)
+    if out is not None:
+        out = _norm(cfg, out, params["final_norm"])
+    return out, tail
 
 
 def hidden_states(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
@@ -363,9 +485,16 @@ def hidden_states(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
 
     ``segment_ids`` [B, S] enables packed-sequence training: attention
     stays within each segment and RoPE positions restart per segment
-    (derived unless ``positions`` is given)."""
-    _check_not_pipelined(cfg)
+    (derived unless ``positions`` is given). Pipelined, the last stage's
+    hidden states reach every stage of the pp group."""
+    _check_pipelined_inputs(cfg, positions, segment_ids)
     B, S = tokens.shape
+    if cfg.pipeline_stages > 1:
+        from polyaxon_tpu_torch.parallel.pipeline import from_last_stage
+
+        out, tail = _pipelined_hidden(cfg, params, tokens)
+        return from_last_stage(out, tail, (B, S, cfg.dim), cfg.dtype,
+                               tokens.device, current_mesh())
     if positions is None:
         positions = (segment_positions(segment_ids)
                      if segment_ids is not None
@@ -397,7 +526,18 @@ def decode_logits(cfg: LlamaConfig, params: dict,
 
 def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token ids → f32 logits [B, S, vocab]."""
+    """Token ids → f32 logits [B, S, vocab] (under tp, this rank's vocab
+    columns; pipelined, the last stage's logits on every stage)."""
+    if cfg.pipeline_stages > 1:
+        from polyaxon_tpu_torch.parallel.pipeline import from_last_stage
+
+        _check_pipelined_inputs(cfg, positions, None)
+        B, S = tokens.shape
+        x, tail = _pipelined_hidden(cfg, params, tokens)
+        logits = None if x is None else (
+            x @ lm_head(cfg, params).to(cfg.dtype)).to(torch.float32)
+        return from_last_stage(logits, tail, (B, S, cfg.vocab_size),
+                               torch.float32, tokens.device, current_mesh())
     x = hidden_states(cfg, params, tokens, positions)
     return (x @ lm_head(cfg, params).to(cfg.dtype)).to(torch.float32)
 
@@ -436,16 +576,38 @@ def apply(cfg: LlamaConfig, variables: Variables, batch: dict,
         segments = segments[:, shard] if segments is not None else None
         mask = mask[:, shard] if mask is not None else None
     params = variables["params"]
-    x = hidden_states(cfg, params, inputs, positions=positions,
-                      segment_ids=segments)
-    head = lm_head(cfg, params).to(cfg.dtype)
-    loss, acc = chunked_lm_loss(x, head, tokens, mask, chunk=cfg.loss_chunk)
+    if cfg.pipeline_stages > 1:
+        from polyaxon_tpu_torch.parallel.pipeline import from_last_stage
+
+        _check_pipelined_inputs(cfg, positions, segments)
+        x, tail = _pipelined_hidden(cfg, params, inputs)
+        stats = None if x is None else torch.stack(lm_loss(
+            cfg, lm_head(cfg, params).to(cfg.dtype), x, tokens, mask))
+        loss, acc = from_last_stage(stats, tail, (2,), torch.float32,
+                                    tokens.device, current_mesh()).unbind(0)
+    else:
+        x = hidden_states(cfg, params, inputs, positions=positions,
+                          segment_ids=segments)
+        loss, acc = lm_loss(cfg, lm_head(cfg, params).to(cfg.dtype), x,
+                            tokens, mask)
     return loss, {"loss": loss, "accuracy": acc}, variables["state"]
+
+
+def lm_loss(cfg, head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor]):
+    """(mean CE, accuracy) of final hidden states ``x`` against
+    ``labels`` through ``head`` [D, V] (compute dtype), by the chunked
+    loss; vocab-parallel when the head is a tp shard (the llama and MoE
+    families share it)."""
+    shard = vocab_shard(cfg.vocab_size, head.shape[1])
+    if shard is not None:
+        x = copy_to_tp(x)
+    return chunked_lm_loss(x, head, labels, mask, chunk=cfg.loss_chunk,
+                           vocab_shard=shard)
 
 
 def model_def(name: str, **overrides) -> ModelDef:
     cfg = dataclasses.replace(CONFIGS[name], **overrides)
-    _check_not_pipelined(cfg)
     return ModelDef(
         name=name,
         init=lambda generator, device: init(cfg, generator, device=device),
@@ -455,6 +617,8 @@ def model_def(name: str, **overrides) -> ModelDef:
         logical_axes=functools.partial(logical_axes, cfg),
         layer_stacks=("layers",),
         context_parallel=True,
+        tensor_parallel=True,
+        pipeline_parallel=cfg.pipeline_stages > 1,
     )
 
 

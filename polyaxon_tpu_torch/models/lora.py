@@ -187,11 +187,48 @@ def _lora_logical_axes(base_logical: dict, targets) -> dict:
     return out
 
 
+def _tp_summed(adapters: dict, logical_axes) -> dict:
+    """Under tp, each adapter factor that is whole on every tp rank while
+    its partner is a tp shard passes through *copy* (``parallel/
+    tensor.py``): a rank's merged shard ``W_j + s·A@B_j`` (or
+    ``A_j@B``) gives that factor only this rank's part of its gradient,
+    and the backward's all-reduce sums the parts, so every rank holds
+    the whole gradient its Replicate placement says. Without tp, as
+    they are."""
+    from polyaxon_tpu_torch.parallel.mesh import current_mesh
+    from polyaxon_tpu_torch.parallel.sharding import (logical_to_spec,
+                                                      rules_for_mesh)
+    from polyaxon_tpu_torch.parallel.tensor import copy_to_tp, tp_axis
+
+    mesh = current_mesh()
+    if tp_axis()[0] == 1 or mesh is None:
+        return adapters
+    rules = rules_for_mesh(mesh)
+    axes, _ = split_meta(logical_axes()["params"]["lora"])
+
+    def on_tp(logical):
+        return any(e == "tp" or (isinstance(e, tuple) and "tp" in e)
+                   for e in logical_to_spec(logical, rules, mesh=mesh))
+
+    out = {}
+    for path, ab in adapters.items():
+        a_tp, b_tp = on_tp(axes[path]["a"]), on_tp(axes[path]["b"])
+        out[path] = {"a": copy_to_tp(ab["a"]) if b_tp and not a_tp
+                     else ab["a"],
+                     "b": copy_to_tp(ab["b"]) if a_tp and not b_tp
+                     else ab["b"]}
+    return out
+
+
 def lora_model_def(model_def: ModelDef, rank: int, alpha: float,
                    targets: Optional[tuple] = None) -> ModelDef:
     """Wrap a ModelDef for LoRA: the same step, loop and checkpoint
     machinery over ``{base (frozen), lora (trained)}``."""
     targets = tuple(targets or DEFAULT_TARGETS)
+    if model_def.pipeline_parallel:
+        raise NotImplementedError(
+            "LoRA over a pipelined model (pipeline_stages > 1) is not "
+            "ported yet (ROADMAP.md, Queue 1 item 7c)")
 
     def init(generator: torch.Generator, device):
         variables = model_def.init(generator, device)
@@ -203,6 +240,8 @@ def lora_model_def(model_def: ModelDef, rank: int, alpha: float,
     def apply(variables, batch, train=True, rng=None):
         p = variables["params"]
         adapters, _ = split_meta(p["lora"])
+        if model_def.tensor_parallel:
+            adapters = _tp_summed(adapters, logical_axes)
         merged = merge_lazy(p["base"], adapters, alpha, rank)
         return model_def.apply({**variables, "params": merged}, batch, train,
                                rng)

@@ -11,14 +11,21 @@ are dropped (the residual keeps them), the capacity-factor contract.
 Two dispatch formulations, as in the JAX package:
 
 - ``ragged`` (the default for training and a full prompt pass):
-  (token, choice) pairs are placed by per-expert counts (cumsums of
-  one-hot masks) and moved by gather and scatter; the expert FFN is one
-  batched product ``[E, C, D] x [E, D, F]``. The JAX package runs it per
-  ``ep`` shard with all-to-alls over the mesh; one device is its
-  ``ep == 1`` case, and an ``ep`` axis is the model-parallel half of
-  the parallel layer (ROADMAP.md, Queue 1 item 7b). The JAX scatters
-  drop out-of-range writes (``mode="drop"``); here each dropped write
-  goes to one spare row or slot that is sliced off afterwards.
+  (token, choice) pairs are placed by per-destination and per-expert
+  counts (cumsums of one-hot masks) and moved by gather and scatter;
+  the expert FFN is one batched product ``[E, C, D] x [E, D, F]``. Under
+  a mesh with ``ep`` above 1 each ep rank holds ``E/ep`` experts and its
+  token shard: the pairs go to their experts' owners in send buffers
+  ``[ep, s_cap, D]`` through an ``all_to_all`` and come back through
+  another (``ops/ulysses.py``'s ``all_to_all``, whose backward is the
+  same exchange), with the JAX function's send cap and owner-side
+  capacity over the global batch; one device is its ``ep == 1`` case.
+  The sender decides each pair's place at its owner and sends it with
+  the pair. The JAX scatters drop out-of-range writes
+  (``mode="drop"``); here each dropped write goes to one spare row or
+  slot that is sliced off afterwards. The router aux's
+  fractions are means over every token of the global batch, as GSPMD
+  computes them: averaged over the batch axes of the mesh.
 - ``dense``: GShard one-hot dispatch and combine tensors ``[T, E, C]``
   and three products. Decode, the verify chunk and the suffix prefill
   always take it, with the capacity floored at the group size
@@ -26,6 +33,11 @@ Two dispatch formulations, as in the JAX package:
 
 ``router="expert_choice"`` lets experts pick their top-capacity tokens
 (balanced by construction, no aux loss); it cannot be decoded.
+
+Under ``tp`` the attention is the llama block's and each expert's
+``mlp`` is column-parallel ``w_gate``/``w_up`` and row-parallel
+``w_down``, its partial outputs summed (*reduce*) before the combine,
+so the router and the combine compute on whole values.
 
 The expert FFNs, dispatch and combine are plain PyTorch: the reference
 computes them in XLA, outside any Pallas kernel.
@@ -42,11 +54,13 @@ import torch
 import torch.nn.functional as F
 
 from polyaxon_tpu_torch.models import llama
+from polyaxon_tpu_torch.parallel.compat import BATCH_AXES, axes_product
+from polyaxon_tpu_torch.parallel.mesh import all_reduce_over, current_mesh
+from polyaxon_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp
 from polyaxon_tpu_torch.models.common import (
     ModelDef,
     Variables,
     _w,
-    chunked_lm_loss,
     lm_logits,
     remat_body,
     rms_norm,
@@ -194,8 +208,11 @@ def _router_aux_loss(cfg: MoEConfig, frac_tokens: torch.Tensor,
 def _exclusive_count(onehot: torch.Tensor) -> torch.Tensor:
     """For each row of a one-hot [N, E] (int), how many earlier rows
     picked its column: the slot the row takes in that column's buffer
-    (0 for an all-zero row)."""
-    return ((onehot.cumsum(0) - onehot) * onehot).sum(-1)
+    (0 for an all-zero row). The scan runs along the contiguous last
+    dimension of the transpose: on CUDA a scan down the N rows of a
+    narrow [N, E] runs one thread per column, serially."""
+    running = onehot.t().contiguous().cumsum(-1).t()
+    return ((running - onehot) * onehot).sum(-1)
 
 
 def _top_k(probs: torch.Tensor, k: int
@@ -209,71 +226,299 @@ def _top_k(probs: torch.Tensor, k: int
 
 def _experts(cfg: MoEConfig, expert_in: torch.Tensor, w_gate, w_up,
              w_down) -> torch.Tensor:
-    """The batched SwiGLU FFN: [E, C, D] → [E, C, D]."""
+    """The batched SwiGLU FFN: [E, C, D] → [E, C, D] (under tp, this
+    rank's ``mlp`` slice, the partials summed)."""
     dt = cfg.dtype
+    expert_in = copy_to_tp(expert_in)
     gate = F.silu(torch.bmm(expert_in, _w(w_gate, dt)))
     up = torch.bmm(expert_in, _w(w_up, dt))
-    return torch.bmm(gate * up, _w(w_down, dt))
+    return reduce_from_tp(torch.bmm(gate * up, _w(w_down, dt)))
+
+
+def _ep_axis() -> tuple[int, object]:
+    """(size, group) of the current mesh's ep axis; (1, None) without."""
+    mesh = current_mesh()
+    n = mesh.shape.get("ep", 1) if mesh is not None else 1
+    return (n, mesh.group("ep")) if n > 1 else (1, None)
+
+
+class _BatchMean(torch.autograd.Function):
+    """The mean over the mesh's batch axes; its backward is the same mean
+    of the gradients (every rank holds the mean)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, n):
+        ctx.mesh, ctx.n = mesh, n
+        return all_reduce_over(t.clone(), mesh, BATCH_AXES) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_reduce_over(g.contiguous().clone(), ctx.mesh, BATCH_AXES)
+                / ctx.n, None, None)
+
+
+def _batch_mean(t: torch.Tensor) -> torch.Tensor:
+    mesh = current_mesh()
+    n = axes_product(mesh, BATCH_AXES)
+    return t if n == 1 else _BatchMean.apply(t, mesh, n)
+
+
+@dataclasses.dataclass
+class _Dispatch:
+    """One rank's side of the ragged dispatch: where its (token, choice)
+    pairs go, which of them the JAX function keeps, its send buffers,
+    and what the combine needs to bring the pairs back."""
+
+    tok: torch.Tensor        # [P]: the pair's token
+    dest: torch.Tensor       # [P]: its destination rank (expert owner)
+    expert: torch.Tensor     # [P]: its expert
+    pos: torch.Tensor        # [P]: its place among this rank's pairs to dest
+    w_pair: torch.Tensor     # [P]: its routing weight
+    dest_counts: torch.Tensor  # [ep]: this rank's pairs per destination
+    frac_tokens: torch.Tensor  # [E]: this shard's top-1 fractions
+    frac_probs: torch.Tensor   # [E]: this shard's mean probabilities
+    keep: Optional[torch.Tensor] = None    # [P]: kept (send, then owner)
+    sent: Optional[torch.Tensor] = None    # [P]: kept at the send cap
+    sent_oh: Optional[torch.Tensor] = None    # [P, E]: sent, by expert
+    send_x: Optional[torch.Tensor] = None     # [ep, s, D]
+    send_code: Optional[torch.Tensor] = None  # [ep, s]: eloc·C + slot
+
+
+def _capacities(cfg: MoEConfig, T_chunk: int, ep: int) -> tuple[int, int]:
+    """(owner-side per-expert capacity, per-destination send cap) of the
+    JAX function for ep chunks of ``T_chunk`` tokens: the dense path's
+    capacity over all ``T_chunk·ep`` tokens, and the balanced
+    per-destination share times a skew margin, never more than sending
+    everything."""
+    E, K = cfg.n_experts, cfg.experts_per_token
+    capacity = max(int(math.ceil(T_chunk * ep * cfg.capacity_factor * K
+                                 / E)), K)
+    s_cap = max(int(math.ceil(T_chunk * K * cfg.capacity_factor
+                              * cfg.send_capacity_margin / ep)), K)
+    return capacity, min(s_cap, T_chunk * K)
+
+
+def _route(cfg: MoEConfig, x: torch.Tensor, router: torch.Tensor,
+           ep: int) -> _Dispatch:
+    """Route this rank's tokens x [T_loc, D] through the whole router
+    [D, E]: its (token, choice) pairs, token-major, each with its
+    destination rank (``E/ep`` experts each) and its place among this
+    rank's pairs to that rank."""
+    T_loc = x.shape[0]
+    E, K = cfg.n_experts, cfg.experts_per_token
+    dev = x.device
+    logits = (x @ router).to(torch.float32)  # [T_loc, E]
+    probs = torch.softmax(logits, dim=-1)
+    top_probs, top_idx = _top_k(probs, K)  # [T_loc, K]
+    expert = top_idx.reshape(-1)
+    dest = expert // (E // ep)
+    pairs = torch.arange(T_loc * K, device=dev)
+    if ep == 1:  # one destination: a pair's place is its index
+        pos, dest_counts = pairs, torch.full((1,), T_loc * K, device=dev)
+    else:
+        dest_oh = (dest[:, None] == torch.arange(ep, device=dev)).long()
+        pos, dest_counts = _exclusive_count(dest_oh), dest_oh.sum(0)
+    frac_tokens = (top_idx[:, 0:1] == torch.arange(E, device=dev)).to(
+        torch.float32).mean(0)
+    return _Dispatch(pairs // K, dest, expert, pos, top_probs.reshape(-1),
+                     dest_counts, frac_tokens, probs.mean(0))
+
+
+def _keep_sent(cfg: MoEConfig, d: _Dispatch,
+               send_before: Optional[torch.Tensor], s_cap: int
+               ) -> torch.Tensor:
+    """The pairs that fit the send cap, after ``send_before`` [ep] pairs
+    of the same ep chunk ahead of this rank (None: none); returns how
+    many of them go to each expert [E]."""
+    ahead = d.pos if send_before is None else d.pos + send_before[d.dest]
+    d.sent = ahead < s_cap
+    d.sent_oh = ((d.expert[:, None] == torch.arange(
+        cfg.n_experts, device=d.pos.device)) & d.sent[:, None]).long()
+    return d.sent_oh.sum(0)
+
+
+def _place(cfg: MoEConfig, d: _Dispatch, x: torch.Tensor,
+           owner_before: Optional[torch.Tensor], capacity: int, s_cap: int,
+           ep: int) -> None:
+    """Keep the sent pairs that fit their expert's capacity after
+    ``owner_before`` [E] sent pairs of the blocks ahead of this rank
+    (None: none; the owners' order: their slot there), and place the kept ones in
+    send buffers by destination [ep, s, D] at their place among this
+    rank's pairs to it (``s``, the same on every rank: the send cap, or
+    this rank's pair count where that is smaller), each with its local
+    expert and slot at the owner, ``eloc·capacity + slot``."""
+    E_loc = cfg.n_experts // ep
+    slot_e = _exclusive_count(d.sent_oh)
+    if owner_before is not None:
+        slot_e = slot_e + owner_before[d.expert]
+    d.keep = d.sent & (slot_e < capacity)
+    s = min(s_cap, d.pos.numel())
+    # Every sent pair takes its slot (a pair its owner has no room for
+    # goes with code -1): one spare slot takes only the pairs past the
+    # send cap, as every write to it contends for the same row.
+    slot = torch.where(d.sent, d.pos, torch.full_like(d.pos, s))
+    code = torch.where(d.keep, (d.expert % E_loc) * capacity + slot_e,
+                       torch.full_like(slot_e, -1))
+    d.send_x = x.new_zeros((ep, s + 1, x.shape[1])).index_put(
+        (d.dest, slot), x[d.tok])[:, :s]
+    d.send_code = torch.full((ep, s + 1), -1, dtype=torch.long,
+                             device=x.device).index_put(
+        (d.dest, slot), code)[:, :s]
+
+
+def _owner(cfg: MoEConfig, recv_x: torch.Tensor, recv_code: torch.Tensor,
+           capacity: int, w_gate, w_up, w_down) -> torch.Tensor:
+    """The owner side: the received pairs [ep, s, D] into their experts'
+    slots (``recv_code``: ``eloc·capacity + slot``, -1 empty), the
+    batched FFN of this rank's experts, the rows back in their received
+    places."""
+    ep, s, D = recv_x.shape
+    E_loc = w_gate.shape[0]
+    rx = recv_x.reshape(ep * s, D)
+    code = recv_code.reshape(ep * s)
+    kept = code >= 0
+    # An empty row goes to a spare expert, and reads back a place of its
+    # own (masked): rows sharing one place would write it, and sum into
+    # it in the backward, one after another.
+    spread = torch.arange(ep * s, device=rx.device) % (E_loc * capacity)
+    flat = torch.where(kept, code, spread)
+    expert_in = rx.new_zeros((E_loc + 1, capacity, D)).index_put(
+        (torch.where(kept, code // capacity, torch.full_like(code, E_loc)),
+         flat % capacity), rx)[:E_loc]
+    expert_out = _experts(cfg, expert_in, w_gate, w_up, w_down)
+    out_rows = torch.where(
+        kept[:, None], expert_out.reshape(E_loc * capacity, D)[flat],
+        torch.zeros((), dtype=expert_out.dtype, device=rx.device))
+    return out_rows.reshape(ep, s, D)
+
+
+def _combine(d: _Dispatch, back: torch.Tensor, T_loc: int) -> torch.Tensor:
+    """The returned rows [ep, s, D], weighted into their tokens."""
+    s = back.shape[1]
+    out_pair = torch.where(
+        d.keep[:, None], back[d.dest, d.pos.clamp(max=s - 1)],
+        torch.zeros((), dtype=back.dtype, device=back.device))
+    return back.new_zeros((T_loc, back.shape[-1])).index_add(
+        0, d.tok, out_pair * d.w_pair[:, None].to(out_pair.dtype))
+
+
+class _Blocks:
+    """This rank's row block among the global batch's: the blocks are
+    the ranks of the batch axes (dp, fsdp, ep), in that order, as the
+    batch is laid out. The JAX function cuts the global tokens into ep
+    contiguous chunks of ``n/ep`` blocks each (its ``shard_map`` over
+    ep leaves dp automatic), so a chunk's pairs take their send slots
+    block after block, and an owner takes its pairs chunk after chunk:
+    in block order."""
+
+    def __init__(self, mesh, ep: int):
+        from polyaxon_tpu_torch.parallel.compat import axes_above_one
+        from polyaxon_tpu_torch.parallel.mesh import axis_rank
+
+        self.mesh = mesh
+        self.axes = (axes_above_one(mesh, BATCH_AXES) if mesh is not None
+                     else ())
+        self.n, self.index = 1, 0
+        for name in self.axes:
+            self.n *= mesh.shape[name]
+            self.index = self.index * mesh.shape[name] + axis_rank(mesh,
+                                                                   name)
+        self.chunk_first = self.index - self.index % (self.n // ep)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` [k] of every block, [n, k] in block order."""
+        import torch.distributed as dist
+
+        out = t[None]
+        for name in reversed(self.axes):
+            parts = [torch.empty_like(out)
+                     for _ in range(self.mesh.shape[name])]
+            dist.all_gather(parts, out.contiguous(),
+                            group=self.mesh.group(name))
+            out = torch.cat(parts)
+        return out
 
 
 def _moe_ragged_sharded(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate,
                         w_up, w_down):
-    """Ragged expert dispatch for x [T, D] (token-major pairs): the JAX
-    function's ``ep == 1`` case, with the same capacities, slots and drop
-    order. Returns (out [T, D], aux f32)."""
-    T, D = x.shape
-    E, K = cfg.n_experts, cfg.experts_per_token
-    dt = cfg.dtype
-    dev = x.device
-    capacity = max(int(math.ceil(T * cfg.capacity_factor * K / E)), K)
-    s_cap = max(int(math.ceil(T * K * cfg.capacity_factor
-                              * cfg.send_capacity_margin)), K)
-    s_cap = min(s_cap, T * K)
+    """Ragged expert dispatch for this rank's token shard x [T_loc, D]
+    over the current mesh's ep axis (one shard without one), computing
+    the JAX function over the global batch: its capacities, slots and
+    drops, which span every batch block of an ep chunk (``_Blocks``),
+    from the per-destination and per-expert counts of every block; the
+    expert weights are this rank's ``E/ep`` experts and the router its
+    ``E/ep`` columns, gathered whole. Returns (out [T_loc, D], aux
+    f32)."""
+    from polyaxon_tpu_torch.ops.ulysses import _all_to_all, all_to_all
+    from polyaxon_tpu_torch.parallel.fsdp import all_gather
 
-    logits = (x @ _w(router_w, dt)).to(torch.float32)  # [T, E]
-    probs = torch.softmax(logits, dim=-1)
-    top_probs, top_idx = _top_k(probs, K)  # [T, K]
+    T_loc = x.shape[0]
+    ep, group = _ep_axis()
+    blocks = _Blocks(current_mesh(), ep)
+    capacity, s_cap = _capacities(cfg, T_loc * blocks.n // ep, ep)
+    router = _w(router_w, cfg.dtype)
+    if ep > 1:
+        router = all_gather(router, -1, group)
+    d = _route(cfg, x, router, ep)
+    first, me = blocks.chunk_first, blocks.index
+    ahead = blocks.n > 1  # else no pairs come before this rank's
+    counts = blocks.gather(d.dest_counts) if ahead else None
+    kept = _keep_sent(cfg, d, counts[first:me].sum(0) if ahead else None,
+                      s_cap)
+    _place(cfg, d, x, blocks.gather(kept)[:me].sum(0) if ahead else None,
+           capacity, s_cap, ep)
+    recv_x, recv_code = d.send_x, d.send_code
+    if ep > 1:
+        recv_x = all_to_all(recv_x, group)
+        recv_code = _all_to_all(recv_code, group)
+    back = _owner(cfg, recv_x, recv_code, capacity, w_gate, w_up, w_down)
+    if ep > 1:
+        back = all_to_all(back, group)
+    aux = _router_aux_loss(cfg, _batch_mean(d.frac_tokens),
+                           _batch_mean(d.frac_probs))
+    return _combine(d, back, T_loc), aux
 
-    # (token, choice) pairs, token-major; one destination (ep == 1).
-    P_ = T * K
-    eloc = top_idx.reshape(P_)
-    w_pair = top_probs.reshape(P_)
-    tok = torch.arange(P_, device=dev) // K
-    pos_in_dest = torch.arange(P_, device=dev)
-    keep = pos_in_dest < s_cap
-    # Send buffers with one spare slot for the pairs past s_cap.
-    slot = torch.where(keep, pos_in_dest, torch.full_like(pos_in_dest, s_cap))
-    send_x = x.new_zeros((s_cap + 1, D)).index_put((slot,), x[tok])[:s_cap]
-    send_eloc = torch.full((s_cap + 1,), -1, dtype=torch.long,
-                           device=dev).index_put((slot,), eloc)[:s_cap]
 
-    # Owner side: per-expert counts → slots → batched FFN.
-    re = send_eloc
-    e_oh = (re[:, None] == torch.arange(E, device=dev)).long()  # -1 → 0s
-    pos_in_e = _exclusive_count(e_oh)
-    keep_e = (re >= 0) & (pos_in_e < capacity)
-    slot_e = torch.where(keep_e, pos_in_e, torch.full_like(pos_in_e,
-                                                           capacity))
-    eid = torch.where(re >= 0, re, torch.zeros_like(re))
-    # One spare expert row and slot for the dropped rows.
-    expert_in = send_x.new_zeros((E + 1, capacity + 1, D)).index_put(
-        (torch.where(keep_e, eid, torch.full_like(eid, E)), slot_e),
-        send_x)[:E, :capacity]
-    expert_out = _experts(cfg, expert_in, w_gate, w_up, w_down)
-    out_rows = torch.where(
-        keep_e[:, None], expert_out[eid, slot_e.clamp(max=capacity - 1)],
-        torch.zeros((), dtype=expert_out.dtype, device=dev))
-
-    # Return trip and weighted combine.
-    out_pair = torch.where(
-        keep[:, None], out_rows[slot.clamp(max=s_cap - 1)],
-        torch.zeros((), dtype=out_rows.dtype, device=dev))
-    out = x.new_zeros((T, D)).index_add(
-        0, tok, out_pair * w_pair[:, None].to(out_pair.dtype))
-
-    frac_tokens = (top_idx[:, 0:1] == torch.arange(E, device=dev)).to(
-        torch.float32).mean(0)
-    aux = _router_aux_loss(cfg, frac_tokens, probs.mean(0))
+def replay_ep(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate, w_up,
+              w_down, ep: int, drops: Optional[dict] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every rank's ragged dispatch at dp1 x ``ep`` in one process, on
+    the whole token set x [T, D] (rank i holding rows ``i·T/ep …``) and
+    the whole expert weights [E, ...] (rank i owning experts
+    ``i·E/ep …``): each rank's pairs routed and kept by ``_route``,
+    ``_keep_sent`` and ``_place`` from the counts of the ranks ahead of
+    it, the all-to-all done as the transpose it performs ([source]
+    [destination] → [destination][source]), each owner running
+    ``_owner`` on its experts, and the rows back by the inverse
+    transpose into ``_combine``. The aux uses the global means, as the
+    ranks' batch mean does. Equals the ``ep == 1`` dispatch wherever no
+    capacity binds. ``drops`` receives the pairs dropped at the send
+    caps and at the owners."""
+    T = x.shape[0]
+    T_loc, E_loc = T // ep, cfg.n_experts // ep
+    capacity, s_cap = _capacities(cfg, T_loc, ep)
+    router = _w(router_w, cfg.dtype)
+    xs = x.split(T_loc)
+    ds = [_route(cfg, xi, router, ep) for xi in xs]
+    # One block per chunk at dp1: no sender ahead within a chunk.
+    kept = torch.stack([_keep_sent(cfg, d, None, s_cap) for d in ds])
+    for i, (d, xi) in enumerate(zip(ds, xs)):
+        _place(cfg, d, xi, kept[:i].sum(0), capacity, s_cap, ep)
+    sent_x = torch.stack([d.send_x for d in ds])        # [src, dst, ...]
+    sent_c = torch.stack([d.send_code for d in ds])
+    backs = torch.stack([
+        _owner(cfg, sent_x[:, j], sent_c[:, j], capacity,
+               *(w[j * E_loc:(j + 1) * E_loc]
+                 for w in (w_gate, w_up, w_down)))
+        for j in range(ep)])                             # [dst, src, ...]
+    if drops is not None:
+        drops["send"] = int(sum(int((~d.sent).sum()) for d in ds))
+        drops["owner"] = int(sum(int((d.sent & ~d.keep).sum()) for d in ds))
+    out = torch.cat([_combine(d, backs[:, i], T_loc)
+                     for i, d in enumerate(ds)])
+    aux = _router_aux_loss(cfg, torch.stack([d.frac_tokens for d in ds]
+                                            ).mean(0),
+                           torch.stack([d.frac_probs for d in ds]).mean(0))
     return out, aux
 
 
@@ -298,6 +543,10 @@ def moe_block(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate, w_up,
         out, aux = _moe_ragged_sharded(cfg, tokens, router_w, w_gate, w_up,
                                        w_down)
         return out.reshape(B, S, D), aux
+    if _ep_axis()[0] > 1:
+        raise NotImplementedError(
+            "over an ep mesh axis the port dispatches by the ragged top_k "
+            f"path only (dispatch={cfg.dispatch!r}, router={cfg.router!r})")
 
     logits = (tokens @ _w(router_w, dt)).to(torch.float32)  # [T, E]
     probs = torch.softmax(logits, dim=-1)
@@ -352,11 +601,8 @@ def _moe_residual(cfg: MoEConfig, x: torch.Tensor, layer: dict,
 
 def _layer(cfg: MoEConfig, x: torch.Tensor, layer: dict,
            positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    B, S, _ = x.shape
-    q, k, v = llama._qkv(cfg, layer, x, positions)
-    attn = llama._attention(cfg, q, k, v)
-    x = x + attn.reshape(B, S, -1) @ _w(layer["wo"], cfg.dtype)
-    return _moe_residual(cfg, x, layer)
+    return _moe_residual(cfg, llama._attn_residual(cfg, x, layer, positions),
+                         layer)
 
 
 def hidden_states(cfg: MoEConfig, params: dict, tokens: torch.Tensor,
@@ -397,9 +643,8 @@ def apply(cfg: MoEConfig, variables: Variables, batch: dict,
             "use an unpacked dataset or a llama-family model")
     params = variables["params"]
     x, aux = hidden_states(cfg, params, shift_right(tokens))
-    head = _w(params["lm_head"], cfg.dtype)
-    ce, acc = chunked_lm_loss(x, head, tokens, batch.get("mask"),
-                              chunk=cfg.loss_chunk)
+    ce, acc = llama.lm_loss(cfg, _w(params["lm_head"], cfg.dtype), x,
+                            tokens, batch.get("mask"))
     loss = ce + cfg.router_aux_coef * aux
     return loss, {"loss": loss, "ce_loss": ce, "router_aux": aux,
                   "loss_unweighted": cfg.router_aux_coef * aux,
@@ -441,6 +686,7 @@ def model_def(name: str, **overrides) -> ModelDef:
         uniform_metrics=("router_aux",),
         logical_axes=functools.partial(logical_axes, cfg),
         layer_stacks=("layers",),
+        tensor_parallel=True,
     )
 
 

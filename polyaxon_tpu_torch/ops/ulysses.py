@@ -48,6 +48,24 @@ def _heads_to_seq(x: torch.Tensor, n: int, group) -> torch.Tensor:
     return got.permute(1, 2, 0, 3, 4).reshape(b, s // n, n * hn, d)
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``_all_to_all``, differentiable: the transpose of this exchange is
+    the same exchange, so the backward runs it on the gradient (MoE's
+    expert-parallel dispatch, ``models/moe.py``)."""
+    return _AllToAll.apply(x, group)
+
+
 class _SeqToHeads(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, n, group):

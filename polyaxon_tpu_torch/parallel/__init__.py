@@ -1,7 +1,8 @@
 """The parallel layer (port of ``polyaxon_tpu/parallel``): meshes, the
-process bootstrap and the sharding rules. ``dp``, ``fsdp`` and ``cp``
-are placed; ``tp``, ``sp``, ``pp`` and ``ep`` are ROADMAP.md, Queue 1
-item 7b."""
+process bootstrap, the sharding rules, gather at use, tensor
+parallelism and the pipeline schedule. Every axis is placed; a few
+combinations of the model-parallel axes are ROADMAP.md, Queue 1 item
+7c."""
 
 from polyaxon_tpu_torch.parallel.bootstrap import (ProcessGroup, initialize,
                                                    read_env_contract)

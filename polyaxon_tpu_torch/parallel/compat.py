@@ -1,19 +1,53 @@
 """Mesh-axis helpers (the counterparts of
 ``polyaxon_tpu/parallel/compat.py``'s ``axis_size`` and
-``batch_axes_in``). Its ``shard_map`` and ``tpu_compiler_params`` are
+``batch_axes_in``), and the port's split of the axes into batch,
+sequence-piece and replica axes. Its ``shard_map`` and ``tpu_compiler_params`` are
 JAX and Mosaic shims with no counterpart here: the port's schedules call
 ``torch.distributed`` on the mesh's groups directly."""
 
 from __future__ import annotations
 
 # Mesh axes that carry the batch dimension of activations (the rule
-# tables map logical "batch" onto these).
+# tables map logical "batch" onto these; ``batch_axes_in`` keeps the JAX
+# package's answer, which leaves out ep).
 _BATCH_AXES = ("dp", "fsdp")
+
+# The port's own split of the mesh axes by what their ranks compute:
+# - batch axes hold different rows (``EP_RULES`` puts ep among them);
+# - cp holds different sequence pieces of the same rows;
+# - replica axes hold the same rows and compute the same gradient: tp
+#   and sp, and pp for a model that does not pipeline (a pipeline's
+#   stages hold the same rows but different layers, so their gradients
+#   still sum: ``parallel/fsdp.py replica_axes``).
+BATCH_AXES = ("dp", "fsdp", "ep")
+PIECE_AXES = BATCH_AXES + ("cp",)
+REPLICA_AXES = ("tp", "sp")
 
 
 def axis_size(mesh, axis_name: str) -> int:
     """Size of mesh axis ``axis_name`` (1 when the mesh lacks it)."""
     return mesh.shape.get(axis_name, 1)
+
+
+def axes_above_one(mesh, names) -> tuple:
+    """The axes of ``names`` that ``mesh`` has above 1, in mesh order."""
+    shape = mesh.shape
+    return tuple(a for a in mesh.axis_names if a in names and shape[a] > 1)
+
+
+def axes_product(mesh, names) -> int:
+    """The product of the sizes of the axes of ``names`` (1 without a
+    mesh)."""
+    n = 1
+    for a in (axes_above_one(mesh, names) if mesh is not None else ()):
+        n *= mesh.shape[a]
+    return n
+
+
+def batch_pieces(mesh) -> int:
+    """How many different pieces of the global batch the ranks hold: the
+    product of the batch axes and cp."""
+    return axes_product(mesh, PIECE_AXES)
 
 
 def batch_axes_in(mesh):

@@ -5,25 +5,40 @@ The train state's parameters are DTensors placed by the rule tables
 (``parallel/sharding.py``). Model code sees plain tensors only:
 
 - a leaf replicated on every mesh axis is its local tensor;
-- a leaf sharded over ``fsdp`` under a stacked-layers key
-  (``ModelDef.layer_stacks``) stays a ``ShardedStack``: ``unstack``
-  (``models/common.py``) cuts it into per-layer ``ShardedSlice``s and
-  the per-layer body gathers each at its start (``gather_args``, applied
-  by ``remat_body``), so only one layer's full weights exist at a time
-  and a layer recomputed under remat gathers again, as GSPMD does inside
-  the JAX package's scan;
-- any other sharded leaf is gathered whole when the view is built.
+- a leaf's shards on a *local* axis stay local: ``ep`` always (the MoE
+  experts are computed where they live), and ``tp`` for a family that
+  computes on its tensor-parallel shards (``ModelDef.tensor_parallel``:
+  the llama block and MoE, through ``parallel/tensor.py``);
+- shards on any other axis are gathered: under a stacked-layers key
+  (``ModelDef.layer_stacks``) the leaf stays a ``ShardedStack``;
+  ``unstack`` (``models/common.py``) cuts it into per-layer
+  ``ShardedSlice``s and the per-layer body gathers each at its start
+  (``gather_args``, applied by ``remat_body``), so only one layer's full
+  weights exist at a time and a layer recomputed under remat gathers
+  again, as GSPMD does inside the JAX package's scan; any other sharded
+  leaf is gathered whole when the view is built. A family that computes
+  replicated over ``tp`` (t5, bert, vit, resnet, mnist) thus gathers its
+  tp shards, and every family gathers its ``sp`` shards (the
+  ``"seq"``-tagged position tables).
 
 Gathers are ``all_gather`` forward and ``reduce_scatter`` backward over
-the axis's group. Under cp the ranks of one fsdp group build different
-ring graphs (``ops/ring.py``), but a layer's gathers are made before its
-body, and autograd runs the ready node made last first: every rank
-reaches a layer's reduce-scatters after the whole body's backward, in
-the same order. The local tensors come from ``to_local`` with
-``Partial`` gradients on the replicated axes, so every parameter's
-gradient arrives as a DTensor that sums over the ranks; ``reduce_grads``
-redistributes it to the parameter's own placements (an all-reduce over
-dp and cp; on a one-rank mesh, no collective).
+the axis's group: a sum where the ranks computed different rows, a mean
+over a *replica* axis (``tp``, ``sp``: ranks that computed the same
+rows, and so the same full gradient). Under cp the ranks of one fsdp
+group build different ring graphs (``ops/ring.py``), but a layer's
+gathers are made before its body, and autograd runs the ready node made
+last first: every rank reaches a layer's reduce-scatters after the whole
+body's backward, in the same order.
+
+The local tensors come from ``to_local`` with gradient placements per
+mesh axis: ``Shard`` where the leaf is sharded, ``Replicate`` on a
+replica axis (its ranks hold the same gradient: summing would count it
+once per rank) and ``Partial`` elsewhere: the batch axes, cp, and pp
+when the model is pipelined (a stage's layers, the embedding and the
+head have a gradient on one stage only, and the sum assembles them).
+``reduce_grads`` brings each gradient to the parameter's own
+placements: one all-reduce per Partial axis, on the mesh's own groups
+(on a one-rank mesh, no collective).
 """
 
 from __future__ import annotations
@@ -34,11 +49,13 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from polyaxon_tpu_torch.parallel.compat import REPLICA_AXES
+
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
+    def forward(ctx, x, dim, group, average):
+        ctx.dim, ctx.group, ctx.average = dim, group, average
         n = dist.get_world_size(group)
         parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
                  for _ in range(n)]
@@ -51,34 +68,46 @@ class _AllGather(torch.autograd.Function):
         full = g.movedim(ctx.dim, 0).contiguous()
         out = full.new_empty((full.shape[0] // n, *full.shape[1:]))
         dist.reduce_scatter_tensor(out, full, group=ctx.group)
-        return out.movedim(0, ctx.dim), None, None
+        if ctx.average:
+            out = out / n
+        return out.movedim(0, ctx.dim), None, None, None
 
 
-def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, group,
+               average: bool = False) -> torch.Tensor:
     """The full tensor from this rank's shard along ``dim``
-    (differentiable: the gradient is reduce-scattered back)."""
-    return _AllGather.apply(x, dim, group)
+    (differentiable: the gradient is reduce-scattered back, summed, or
+    averaged when the ranks computed the same gradient)."""
+    return _AllGather.apply(x, dim, group, average)
+
+
+def _gather_all(local: torch.Tensor, gathers) -> torch.Tensor:
+    for dim, group, average in gathers:
+        local = all_gather(local, dim, group, average)
+    return local
 
 
 class ShardedSlice:
-    """One layer's shard of a stacked parameter, gathered at use."""
+    """One layer's shard of a stacked parameter, gathered at use
+    (``gathers``: (dim, group, average) per gathered axis)."""
 
-    def __init__(self, local: torch.Tensor, dim: int, group):
-        self.local, self.dim, self.group = local, dim, group
+    def __init__(self, local: torch.Tensor, gathers):
+        self.local, self.gathers = local, gathers
 
     def gather(self) -> torch.Tensor:
-        return all_gather(self.local, self.dim, self.group)
+        return _gather_all(self.local, self.gathers)
 
 
 class ShardedStack:
-    """A stacked ``[L, ...]`` parameter sharded on ``dim`` (> 0)."""
+    """A stacked ``[L, ...]`` parameter sharded on dims > 0."""
 
-    def __init__(self, local: torch.Tensor, dim: int, group):
-        self.local, self.dim, self.group = local, dim, group
+    def __init__(self, local: torch.Tensor, gathers):
+        self.local, self.gathers = local, gathers
 
     def unbind(self, dim: int = 0) -> tuple[ShardedSlice, ...]:
         assert dim == 0
-        return tuple(ShardedSlice(t, self.dim - 1, self.group)
+        per_layer = [(d - 1, g, a) for d, g, a in self.gathers]
+        return tuple(ShardedSlice(t, per_layer)
                      for t in self.local.unbind(0))
 
 
@@ -114,32 +143,55 @@ def _sharded_axes(t, mesh) -> list[tuple[str, int]]:
             if pl.is_shard()]
 
 
-def _local_for_grad(t):
-    """The local tensor, its gradient marked Partial on the replicated
-    axes (the sharded ones come back already reduce-scattered)."""
-    from torch.distributed.tensor import Partial
+def replica_axes(model_def) -> tuple:
+    """The axes whose ranks compute the same gradient for ``model_def``:
+    tp and sp, and pp unless the model pipelines its layers over it."""
+    return REPLICA_AXES + (() if model_def.pipeline_parallel else ("pp",))
 
+
+def local_axes(model_def) -> tuple:
+    """The axes whose shards ``model_def`` computes on where they are."""
+    return ("ep",) + (("tp",) if model_def.tensor_parallel else ())
+
+
+def grad_placements(t, mesh, replicas: tuple) -> list:
+    """Per mesh axis, where a leaf's gradient lives before reduction:
+    its own shard, Replicate on a replica axis, Partial (a sum over the
+    ranks) elsewhere."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    return [pl if pl.is_shard() else
+            (Replicate() if name in replicas else Partial())
+            for name, pl in zip(mesh.axis_names, t.placements)]
+
+
+def _local_for_grad(t, mesh, replicas: tuple):
     if not t.requires_grad:
         return t.detach().to_local()
-    return t.to_local(grad_placements=[
-        pl if pl.is_shard() else Partial() for pl in t.placements])
+    return t.to_local(grad_placements=grad_placements(t, mesh, replicas))
 
 
-def model_view(params: Any, mesh, stacks: tuple = ()) -> Any:
-    """The plain-tensor tree the model computes with (module docstring)."""
+def model_view(model_def, params: Any, mesh) -> Any:
+    """The plain-tensor tree ``model_def`` computes with (module
+    docstring): its stacks gathered per layer, its local axes kept and
+    its replica axes' gradients Replicate."""
     from torch.distributed.tensor import DTensor
+
+    stacks, kept = model_def.layer_stacks, local_axes(model_def)
+    replicas = replica_axes(model_def)
 
     def view(t, top):
         if not isinstance(t, DTensor):
             return t
-        local = _local_for_grad(t)
-        sharded = _sharded_axes(t, mesh)
-        if (len(sharded) == 1 and top in stacks and sharded[0][1] > 0):
-            name, dim = sharded[0]
-            return ShardedStack(local, dim, mesh.group(name))
-        for name, dim in sharded:
-            local = all_gather(local, dim, mesh.group(name))
-        return local
+        out = _local_for_grad(t, mesh, replicas)
+        gathers = [(dim, mesh.group(name), name in replicas)
+                   for name, dim in _sharded_axes(t, mesh)
+                   if name not in kept]
+        if not gathers:
+            return out
+        if top in stacks and all(dim > 0 for dim, _, _ in gathers):
+            return ShardedStack(out, gathers)
+        return _gather_all(out, gathers)
 
     def walk(tree, top):
         if isinstance(tree, dict):
@@ -165,41 +217,48 @@ def local_tree(tree: Any) -> Any:
     return local(tree)
 
 
-def reduce_grads(params: list, mesh) -> list[torch.Tensor]:
-    """Each parameter's gradient reduced to the parameter's placements
-    (a sum over the ranks), as local tensors; zeros where none flowed.
-    Plain parameters (no mesh) give their gradients as they are."""
+def reduce_grads(params: list, mesh, replicas: tuple
+                 ) -> list[torch.Tensor]:
+    """Each parameter's gradient reduced to the parameter's placements,
+    as local tensors: summed over each mesh axis where its gradient is
+    Partial (``grad_placements``), one all-reduce per axis in mesh
+    order. Where none flowed on this rank (a leaf another pipeline stage
+    uses) it is zeros, reduced all the same, so that every rank joins
+    every leaf's collectives. Plain parameters (no mesh) give their
+    gradients as they are."""
     from torch.distributed.tensor import DTensor
 
     out = []
     for p in params:
         g = p.grad
-        if g is None:
-            out.append(torch.zeros_like(local(p)))
-            continue
-        if mesh is not None and mesh.size > 1:
-            g = g.redistribute(p.device_mesh, p.placements)
-        out.append(g.to_local() if isinstance(g, DTensor) else g)
+        g = torch.zeros_like(local(p)) if g is None else (
+            g.to_local() if isinstance(g, DTensor) else g)
+        if mesh is not None and mesh.size > 1 and isinstance(p, DTensor):
+            for name, pl in zip(mesh.axis_names,
+                                grad_placements(p, mesh, replicas)):
+                if pl.is_partial() and mesh.shape[name] > 1:
+                    dist.all_reduce(g, group=mesh.group(name))
+        out.append(g)
     return out
 
 
 def global_norm(params: list, grads: list[torch.Tensor], mesh
                 ) -> torch.Tensor:
-    """sqrt of the sum of squares of the full gradients, in f32: a
-    sharded leaf's local sum is summed over its axis's group."""
-    total = None
-    sharded = None
+    """sqrt of the sum of squares of the full gradients, in f32. Leaves
+    are summed by the set of axes they are sharded on, and each such sum
+    over those axes' groups only: a shard counts once, and a leaf
+    replicated on an axis (a tp-replicated norm, any leaf under pp) is
+    counted once, not once per rank."""
+    by_axes: dict[tuple, torch.Tensor] = {}
     for p, g in zip(params, grads):
         s = g.to(torch.float32).square().sum()
-        axes = _sharded_axes(p, mesh) if hasattr(p, "placements") else []
-        if axes:
-            sharded = s if sharded is None else sharded + s
-        else:
-            total = s if total is None else total + s
-    if sharded is not None:
-        names = {name for p in params if hasattr(p, "placements")
-                 for name, _ in _sharded_axes(p, mesh)}
-        for name in sorted(names):
-            dist.all_reduce(sharded, group=mesh.group(name))
-        total = sharded if total is None else total + sharded
+        axes = (tuple(sorted(name for name, _ in _sharded_axes(p, mesh)))
+                if hasattr(p, "placements") else ())
+        by_axes[axes] = s if axes not in by_axes else by_axes[axes] + s
+    total = None
+    for axes in sorted(by_axes):
+        s = by_axes[axes]
+        for name in axes:
+            dist.all_reduce(s, group=mesh.group(name))
+        total = s if total is None else total + s
     return torch.sqrt(total)

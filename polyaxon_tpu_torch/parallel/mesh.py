@@ -25,7 +25,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from polyaxon_tpu_torch.parallel.compat import axis_size
+from polyaxon_tpu_torch.parallel.compat import axes_above_one, axis_size
 
 logger = logging.getLogger(__name__)
 
@@ -246,7 +246,26 @@ def axis_ranks(mesh: Mesh, name: str) -> list[int]:
     return [int(r) for r in np.asarray(mesh.devices[index]).reshape(-1)]
 
 
-__all__ = ["AXIS_ALIASES", "AXIS_ORDER", "Mesh", "axis_rank", "axis_ranks",
+def all_reduce_over(t, mesh: Mesh, names, op=None):
+    """All-reduce ``t`` in place over the ranks that share this rank's
+    coordinates on every axis but ``names``: one collective over the
+    whole group when ``names`` holds every axis above 1, else one per
+    axis (sums compose). Returns ``t``."""
+    import torch.distributed as dist
+
+    op = op if op is not None else dist.ReduceOp.SUM
+    axes = axes_above_one(mesh, names)
+    if not axes:
+        return t
+    if set(axes) == set(axes_above_one(mesh, mesh.axis_names)):
+        dist.all_reduce(t, op=op)
+        return t
+    for name in axes:
+        dist.all_reduce(t, op=op, group=mesh.group(name))
+    return t
+
+
+__all__ = ["AXIS_ALIASES", "all_reduce_over", "AXIS_ORDER", "Mesh", "axis_rank", "axis_ranks",
            "build_mesh", "canonical_axes", "current_mesh", "mesh_summary",
            "order_axes", "parse_mesh_axes", "seq_shard",
            "single_device_mesh", "use_mesh"]

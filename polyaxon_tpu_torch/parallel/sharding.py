@@ -9,9 +9,10 @@ and ``logical_to_spec`` are the JAX package's, as data: a spec here is a
 turns specs into DTensor placements (``Shard(dim)`` or ``Replicate()``
 per mesh dimension) and ``distribute`` places a parameter tree by them.
 
-The port places ``dp``, ``fsdp`` and ``cp``. A mesh whose ``tp``,
-``sp``, ``pp`` or ``ep`` is above 1 raises (``require_ported``): the
-model-parallel half is ROADMAP.md, Queue 1 item 7b.
+The port places every axis. A few combinations of the model-parallel
+axes raise (``require_ported``): ``pp`` beside any axis but ``dp``,
+``tp`` beside ``cp``, ``ep`` or ``pp``, and ``ep`` beside ``fsdp``,
+``cp`` or ``tp`` (ROADMAP.md, Queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -66,8 +67,13 @@ STRATEGY_RULES: dict[str, Rules] = {
     "ep": EP_RULES,
 }
 
-# Axes the port does not place yet.
-UNPORTED_AXES = ("tp", "sp", "pp", "ep")
+# Axes that the port places beside a model-parallel axis only as these
+# pairs allow: the others are ROADMAP.md, Queue 1 item 7c.
+REFUSED_BESIDE = {
+    "pp": ("fsdp", "cp", "sp", "ep", "tp"),
+    "tp": ("cp", "ep", "pp"),
+    "ep": ("fsdp", "cp", "tp"),
+}
 
 
 class PartitionSpec(tuple):
@@ -85,14 +91,15 @@ P = PartitionSpec
 
 
 def require_ported(shape: dict) -> None:
-    """Raise for mesh axes (a mesh's shape, or a spec's axes) that need
-    the model-parallel half."""
-    big = {a: n for a, n in shape.items() if a in UNPORTED_AXES and n > 1}
-    if big:
-        raise NotImplementedError(
-            f"mesh axes {big}: tensor, sequence, pipeline and expert "
-            "parallelism are not ported yet (ROADMAP.md, Queue 1 item 7b); "
-            "the port places dp, fsdp and cp")
+    """Raise for a combination of mesh axes above 1 (a mesh's shape, or
+    a spec's axes) that the port does not place yet."""
+    big = {a for a, n in shape.items() if n > 1}
+    for axis, refused in REFUSED_BESIDE.items():
+        clash = sorted(big & set(refused)) if axis in big else []
+        if clash:
+            raise NotImplementedError(
+                f"mesh axes {dict(shape)}: `{axis}` beside {clash} is not "
+                "ported yet (ROADMAP.md, Queue 1 item 7c)")
 
 
 def merge_rules(*rule_sets: Rules) -> Rules:

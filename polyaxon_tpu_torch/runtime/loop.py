@@ -5,8 +5,9 @@ The job's ``mesh`` (and ``topology`` for multi-slice placement) resolves
 over the ranks of the process group — a gang's, started by the launcher
 (``parallel/bootstrap.py``), or a one-rank group the loop starts for an
 in-process run and destroys after it — and the parameters are placed on
-it (``runtime/step.py``). ``dp``, ``fsdp`` and ``cp`` are ported; each
-process drives one device. Emissions, tracking and checkpoint writes
+it (``runtime/step.py``). Every axis is placed (a few combinations of
+the model-parallel axes raise: ``parallel/sharding.py``); each process
+drives one device. Emissions, tracking and checkpoint writes
 come from rank 0.
 
 ``run_torchjob`` takes the job as a dict (the JSON form of a jaxjob run
@@ -46,7 +47,8 @@ from polyaxon_tpu_torch.obs import flight as obs_flight
 from polyaxon_tpu_torch.obs import metrics as obs_metrics
 from polyaxon_tpu_torch.obs import trace as obs_trace
 from polyaxon_tpu_torch.parallel import bootstrap
-from polyaxon_tpu_torch.parallel.compat import axis_size
+from polyaxon_tpu_torch.parallel.compat import (BATCH_AXES, axes_product,
+                                                axis_size)
 from polyaxon_tpu_torch.parallel.mesh import (build_mesh, canonical_axes,
                                               use_mesh)
 from polyaxon_tpu_torch.parallel.sharding import (param_bytes,
@@ -61,7 +63,7 @@ from polyaxon_tpu_torch.runtime.config import RuntimeConfig
 from polyaxon_tpu_torch.runtime.flops import peak_flops, train_flops_per_token
 from polyaxon_tpu_torch.runtime.optim import build_optimizer, tree_leaves
 from polyaxon_tpu_torch.runtime.step import (build_eval_step, build_init,
-                                             build_train_step, place_state)
+                                             build_train_step)
 
 logger = logging.getLogger(__name__)
 
@@ -95,8 +97,9 @@ class TrainResult:
 
 def _job_mesh(job: dict, device: torch.device):
     """The job's mesh over the process group's ranks (every rank when the
-    job names none, as the JAX loop's ``{"dp": n}``). Axes the port does
-    not place raise first, before anything is built."""
+    job names none, as the JAX loop's ``{"dp": n}``). A combination of
+    axes the port does not place raises first, before anything is
+    built."""
     mesh_spec = (V1MeshSpec.from_dict(job["mesh"]) if job.get("mesh")
                  else None)
     if mesh_spec is not None:
@@ -299,11 +302,12 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
     # Every process draws its rows from the same seed, as the JAX loop's
     # processes do (ROADMAP.md, Queue 3: the reference's duplicated
     # per-process data). A process drives one device, so its rows are its
-    # dp/fsdp batch shard as they stand (the reference's
-    # `shard_batches` lays them out the same way); under cp every rank
-    # keeps the whole rows and the model cuts its sequence shard after
-    # the next-token shift, so the cp ranks of a batch shard train the
-    # same rows and a step trains global_batch / cp of them.
+    # batch shard (dp, fsdp, and ep under EP_RULES) as they stand (the
+    # reference's `shard_batches` lays them out the same way). The ranks
+    # of a replica axis (tp, sp, pp) train the same rows; under cp every
+    # rank keeps the whole rows and the model cuts its sequence shard
+    # after the next-token shift. So a step trains per_host_batch rows
+    # per batch shard, per_host_batch x dp x fsdp x ep in all.
     per_host_batch = global_batch // n_proc
     accum = max(int(cfg.grad_accum_steps or 1), 1)
     if per_host_batch % accum:
@@ -314,8 +318,9 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
     ds_kwargs = _dataset_kwargs(cfg, model_cfg, per_host_batch)
     seq = ds_kwargs.get("seq_len", 1)
     # The units a step trains (throughput and MFU count these; the JAX
-    # loop counts global_batch x seq under cp too: ROADMAP.md, Queue 3).
-    units_per_step = (global_batch // axis_size(mesh, "cp")
+    # loop counts global_batch x seq under every axis: ROADMAP.md,
+    # Queue 3).
+    units_per_step = (per_host_batch * axes_product(mesh, BATCH_AXES)
                       * (seq if model_def.unit == "tokens" else 1))
 
     optimizer = build_optimizer(cfg)
@@ -328,8 +333,10 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
         optimizer = wrap_optimizer(optimizer)
         logger.info("lora: rank=%d alpha=%s targets=%s", cfg.lora_rank,
                     cfg.lora_alpha, cfg.lora_targets or "default")
-    state = place_state(build_init(model_def, optimizer, device=device)(
-        cfg.seed), model_def, optimizer, mesh, rules)
+    # Placed before the optimizer state is built, so the moments are
+    # made for this rank's shards only.
+    state = build_init(model_def, optimizer, device=device, mesh=mesh,
+                       rules=rules)(cfg.seed)
     train_step = build_train_step(model_def, optimizer, accum_steps=accum,
                                   mesh=mesh)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))

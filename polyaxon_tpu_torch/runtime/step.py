@@ -11,14 +11,19 @@ With a ``mesh`` the parameters are DTensors placed by the model's
 logical axes and the mesh's rules (``state_placements``, the JAX
 package's ``state_shardings``); the optimizer's moments follow them.
 The model computes on ``parallel.fsdp.model_view`` (plain tensors,
-fsdp leaves gathered at use). Every rank's batch piece — its rows, and
-under ``cp`` its sequence shard — is one more microbatch of the global
-batch: its masked loss is scaled by its share of the global valid
-tokens (an all-reduce), its ``loss_unweighted`` part by one over the
-number of pieces, and the gradients, summed over the ranks by
-``reduce_grads``, are exactly the global batch's. The global norm and
-clipping use the full reduction; the optimizer runs on the local
-shards; metrics are reduced with the same weights.
+fsdp leaves gathered at use, tp and ep shards local where the family
+computes on them). A rank's batch piece — its rows along the batch axes
+(dp, fsdp, ep), and under ``cp`` its sequence shard — is one more
+microbatch of the global batch; the ranks of a replica axis (tp, sp, pp)
+hold the same piece. Its masked loss is scaled by its share of the
+global valid tokens (an all-reduce over the piece axes), its
+``loss_unweighted`` part by one over the number of pieces, and the
+gradients, summed by ``reduce_grads`` over the piece axes (and over pp,
+whose stages hold disjoint gradients) and not over the replica axes, are
+exactly the global batch's. The global norm and clipping use the full
+reduction; the optimizer runs on the local shards; metrics are reduced
+over the pieces with the same weights and are equal along the replica
+axes (a pipelined model broadcasts its last stage's).
 """
 
 from __future__ import annotations
@@ -27,10 +32,10 @@ from typing import Any, Callable, Optional
 
 import torch
 
-import torch.distributed as dist
-
 from polyaxon_tpu_torch.models.common import ModelDef
 from polyaxon_tpu_torch.parallel import fsdp
+from polyaxon_tpu_torch.parallel.compat import PIECE_AXES, batch_pieces
+from polyaxon_tpu_torch.parallel.mesh import all_reduce_over
 from polyaxon_tpu_torch.parallel.sharding import (Rules, distribute,
                                                   rules_for_mesh,
                                                   tree_placements)
@@ -106,9 +111,9 @@ def place_state(state: TrainState, model_def: ModelDef,
     if _optimizer_kind(optimizer) == "adafactor" and any(
             pl.is_shard() for t in tree_leaves(params) for pl in t.placements):
         raise NotImplementedError(
-            "adafactor over fsdp-sharded parameters (its factored moments "
+            "adafactor over sharded parameters (its factored moments "
             "and block RMS span whole leaves) is not ported: ROADMAP.md, "
-            "Queue 1 item 7b")
+            "Queue 1 item 7c")
     return {**state, "params": params, "opt_state": optimizer.init(params)}
 
 
@@ -136,10 +141,10 @@ def _piece_weights(model_def: ModelDef, batch: dict, k: int, mesh
     return mask.reshape(k, -1).to(torch.float32).sum(1)
 
 
-def _all_reduce(t: torch.Tensor, world: int) -> torch.Tensor:
-    if world > 1:
-        dist.all_reduce(t)
-    return t
+def _sum_pieces(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over the ranks that hold different batch pieces (in
+    place; as it is without a mesh)."""
+    return t if mesh is None else all_reduce_over(t, mesh, PIECE_AXES)
 
 
 def build_train_step(model_def: ModelDef, optimizer: Optimizer,
@@ -163,18 +168,20 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
     rng=None) -> (state, metrics)``, the state updated in place; metrics
     stay on the device."""
     uniform_keys = set(model_def.uniform_metrics) | {"loss_unweighted"}
-    world = mesh.size if mesh is not None else 1
-    if world > 1 and model_def.logical_axes is not None and \
+    pieces = batch_pieces(mesh)
+    if mesh is not None and mesh.size > 1 and \
+            model_def.logical_axes is not None and \
             model_def.logical_axes().get("state"):
         raise NotImplementedError(
             f"model `{model_def.name}` keeps batch statistics, which would "
             "need a reduction across ranks (synchronized batch norm); the "
-            "port trains it on one rank")
+            "port trains it on one rank (ROADMAP.md, Queue 1 item 7c)")
+    replicas = fsdp.replica_axes(model_def)
 
     def params_view(state):
         if mesh is None:
             return state["params"]
-        return fsdp.model_view(state["params"], mesh, model_def.layer_stacks)
+        return fsdp.model_view(model_def, state["params"], mesh)
 
     def backward(state, batch, scales=None) -> dict:
         loss, metrics, new_mutable = model_def.apply(
@@ -209,36 +216,35 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
                  for k, v in batch.items()} for i in range(accum_steps)]
 
     def metrics_of(state, batch) -> dict:
-        if accum_steps == 1 and world == 1:
-            return backward(state, batch)
         micro = microbatches(batch)
         w_micro = _piece_weights(model_def, batch, accum_steps, mesh)
-        w_total = _all_reduce(w_micro.sum(), world).clamp(min=1.0)
-        n_pieces = accum_steps * world
+        w_total = _sum_pieces(w_micro.sum(), mesh).clamp(min=1.0)
+        n_pieces = accum_steps * pieces
         seq = [backward(state, mb, (w_micro[i] / w_total, 1.0 / n_pieces))
                for i, mb in enumerate(micro)]
         stacked = {k: torch.stack([m[k] for m in seq]) for k in seq[0]}
-        unweighted = stacked.get("loss_unweighted")
-        if unweighted is not None:
-            stacked["loss"] = stacked["loss"] - unweighted
+        share = w_micro / w_total  # exactly 1 for one unmasked piece
         keys = list(stacked)
-        uniform = [k in uniform_keys and unweighted is not None
-                   for k in keys]
-        parts = torch.stack([
-            stacked[k].sum() / n_pieces if u
-            else (w_micro * stacked[k]).sum() / w_total
-            for k, u in zip(keys, uniform)])
-        parts = _all_reduce(parts, world)
-        metrics = dict(zip(keys, parts.unbind(0)))
-        if unweighted is not None:
-            metrics["loss"] = metrics["loss"] + metrics["loss_unweighted"]
-        return metrics
+
+        def part(k):
+            if k in uniform_keys:
+                return stacked[k].sum() / n_pieces
+            out = (share * stacked[k]).sum()
+            if k == "loss" and "loss_unweighted" in stacked:
+                # sum(share·(loss - unweighted)) + sum(unweighted) / n,
+                # written so that one piece reports its loss as it is.
+                out = out + ((1.0 / n_pieces - share)
+                             * stacked["loss_unweighted"]).sum()
+            return out
+
+        parts = _sum_pieces(torch.stack([part(k) for k in keys]), mesh)
+        return dict(zip(keys, parts.unbind(0)))
 
     def train_step(state: TrainState, batch: dict, rng=None):
         metrics = metrics_of(state, batch)
         leaves = [p for p in tree_leaves(state["params"]) if p.requires_grad]
-        grads = fsdp.reduce_grads(leaves, mesh)
-        grad_norm = (global_norm(grads) if world == 1
+        grads = fsdp.reduce_grads(leaves, mesh, replicas)
+        grad_norm = (global_norm(grads) if mesh is None or mesh.size == 1
                      else fsdp.global_norm(leaves, grads, mesh))
         # The optimizer updates the local tensors in place; its step count
         # comes back on the local tree.
@@ -259,25 +265,21 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
 
 def build_eval_step(model_def: ModelDef, *, mesh=None
                     ) -> Callable[[TrainState, dict], dict]:
-    """Metrics of one batch; over a mesh of several ranks, each rank's
-    piece weighted by its valid tokens, as the train step weights
-    them."""
-    world = mesh.size if mesh is not None else 1
+    """Metrics of one batch, each rank's piece weighted by its valid
+    tokens over the piece axes, as the train step weights them (one
+    piece: its own metrics)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         params = (state["params"] if mesh is None else fsdp.model_view(
-            state["params"], mesh, model_def.layer_stacks))
+            model_def, state["params"], mesh))
         _, metrics, _ = model_def.apply(
             {"params": params, "state": state["state"]}, batch, False, None)
-        if world == 1:
-            return metrics
         w = _piece_weights(model_def, batch, 1, mesh)[0]
-        w_total = _all_reduce(w.clone(), world).clamp(min=1.0)
+        share = w / _sum_pieces(w.clone(), mesh).clamp(min=1.0)
         keys = list(metrics)
-        parts = _all_reduce(torch.stack(
-            [metrics[k].to(torch.float32) * w / w_total for k in keys]),
-            world)
+        parts = _sum_pieces(torch.stack(
+            [metrics[k].to(torch.float32) * share for k in keys]), mesh)
         return dict(zip(keys, parts.unbind(0)))
 
     return eval_step

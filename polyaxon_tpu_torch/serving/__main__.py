@@ -6,7 +6,7 @@ The flags and defaults are those of ``python -m polyaxon_tpu.serving``
 It serves the llama, MoE and t5 families, and a LoRA checkpoint (the
 adapters merged at load, ``--lora-alpha`` the fallback for a checkpoint
 without metadata). ``--mesh`` parses and is refused (ROADMAP.md, Queue 1
-item 7b). SIGINT and SIGTERM stop the server and exit with 0.
+item 7c). SIGINT and SIGTERM stop the server and exit with 0.
 """
 
 from __future__ import annotations

@@ -693,7 +693,7 @@ class ServingServer:
     dense (the default) or paged (``kv="paged"``) cache. Runs on
     ``device`` (default ``cuda``; without a GPU and without an explicit
     ``device`` it raises). ``mesh_axes`` (sharded serving) is not ported
-    yet (ROADMAP.md, Queue 1 item 7b)."""
+    yet (ROADMAP.md, Queue 1 item 7c)."""
 
     def __init__(self, model: str, checkpoint: Optional[str] = None,
                  host: str = "127.0.0.1", port: int = 0, seed: int = 0,
@@ -719,7 +719,7 @@ class ServingServer:
         if mesh_axes:
             raise NotImplementedError(
                 f"mesh_axes={mesh_axes}: sharded serving over a device mesh "
-                "is not ported yet (ROADMAP.md, Queue 1 item 7b)")
+                "is not ported yet (ROADMAP.md, Queue 1 item 7c)")
         if batching not in ("static", "continuous"):
             raise ValueError(
                 f"unknown batching mode `{batching}` "

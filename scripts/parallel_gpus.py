@@ -1,4 +1,5 @@
-"""Data and context parallelism across the cards of one host.
+"""Data, context, tensor, pipeline and expert parallelism across the
+cards of one host.
 
     python3 scripts/parallel_gpus.py [--gpus 4]
 
@@ -16,9 +17,24 @@ over all of them:
 3. llama3_1b at fsdp<n> (lm_synthetic rows of 4,096 tokens, two per
    process, flash, remat dots), 4 steps;
 4. the runtime of 2. at fsdp2 x cp<n/2> (the fsdp gathers and the ring's
-   transfers in one backward), 4 steps.
+   transfers in one backward), 4 steps;
+5. the runtime of 3. at tp<n> and at dp2 x tp<n/2> (the llama block's
+   column- and row-parallel projections, vocab-parallel embedding and
+   cross entropy), 4 steps;
+6. the runtime of 3. at pp<n>, <n> stages of 4 microbatches,
+   double-buffered, four rows per process, 4 steps (held against the
+   unpipelined job on one card);
+7. ``examples/moe_expert_parallel.yaml``'s runtime (moe_8x200m, seq
+   2,048) at dp1 x ep<n>: held at capacity 8.0 (no drops) on two rows
+   per process, timed for 4 steps at the example's 1.25 on eight rows
+   per process in two microbatches;
+8. llama3_8b at tp<n>, one 4,096-token row per process (flash, remat
+   full), 4 steps: its f32 weights and adamw moments (about 128 GB) do
+   not fit one card, so it is held to finite losses and its per-card
+   peak memory, and not against one card.
 
-Throughput and MFU count the tokens a step trains: under cp the ranks
+Throughput and MFU count the tokens a step trains: the ranks of a
+replica axis (tp, sp, pp) train the same rows, and under cp the ranks
 of a batch shard cut the same rows into sequence shards.
 
 Every process draws the same rows, as the reference's processes do, so
@@ -33,7 +49,9 @@ on any disagreement.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -56,6 +74,19 @@ LONGCTX = {"model": "llama3_1b", "dataset": "lm_synthetic", "seq_len": SEQ,
 FSDP = {"model": "llama3_1b", "dataset": "lm_synthetic",
         "seq_len": FSDP_SEQ, "attention_impl": "flash", "remat": "dots",
         "steps": STEPS, "log_every": 1, "prefetch": 0}
+PIPE = dict(FSDP, pipeline_microbatches=4, pipeline_double_buffer=True)
+PIPE_ROWS = 4  # per process: one per microbatch
+MOE = {"model": "moe_8x200m", "dataset": "lm_synthetic", "seq_len": 2048,
+       "attention_impl": "flash", "steps": STEPS, "log_every": 1,
+       "prefetch": 0}
+# Rows per process: the example's global batch of 32 over 4 cards, in
+# microbatches of 4 rows as phase 11 of chip_smoke.py trains it on one
+# card; held at no-drop capacity on 2 rows (its expert buffers are 6.4x
+# the default's).
+MOE_ROWS, MOE_ACCUM, MOE_HELD_ROWS = 8, 2, 2
+LLAMA8B = {"model": "llama3_8b", "dataset": "lm_synthetic",
+           "seq_len": FSDP_SEQ, "attention_impl": "flash", "remat": "full",
+           "steps": STEPS, "log_every": 1, "prefetch": 0}
 
 
 def _train(job: dict) -> dict:
@@ -146,10 +177,31 @@ def _attention(rank: int, n: int, impl: str) -> dict:
 
 
 def _jobs(n: int) -> dict:
-    """Each gang's (axes over n cards, runtime, rows per process)."""
-    return {"cp": ({"dp": 1, "cp": n}, LONGCTX, 1),
+    """Each gang: its axes over n cards, runtime, rows per process, the
+    runtime of its one-step run and of the same job on one card (None:
+    not held against one card), and of its timed run, with the rows per
+    process of the timed run where they differ."""
+    moe_held = dict(MOE, capacity_factor=8.0)
+    # llama3_8b first, on cards that hold nothing yet: each rank draws
+    # the whole f32 model (32 GB) before it keeps its shard.
+    out = {"tp_8b": {"axes": {"tp": n}, "rows": 1, "held": None,
+                     "one": None, "timed": LLAMA8B}}
+    jobs = {"cp": ({"dp": 1, "cp": n}, LONGCTX, 1),
             "fsdp": ({"fsdp": n}, FSDP, FSDP_ROWS),
-            "fsdp_cp": ({"fsdp": 2, "cp": n // 2}, LONGCTX, 1)}
+            "fsdp_cp": ({"fsdp": 2, "cp": n // 2}, LONGCTX, 1),
+            "tp": ({"tp": n}, FSDP, FSDP_ROWS),
+            "dp_tp": ({"dp": 2, "tp": n // 2}, FSDP, FSDP_ROWS)}
+    out.update({name: {"axes": axes, "rows": rows, "held": runtime,
+                       "one": runtime, "timed": runtime}
+                for name, (axes, runtime, rows) in jobs.items()})
+    out["pp"] = {"axes": {"pp": n}, "rows": PIPE_ROWS,
+                 "held": dict(PIPE, pipeline_stages=n), "one": FSDP,
+                 "timed": dict(PIPE, pipeline_stages=n)}
+    out["ep"] = {"axes": {"dp": 1, "ep": n}, "rows": MOE_HELD_ROWS,
+                 "held": moe_held, "one": moe_held,
+                 "timed": dict(MOE, grad_accum_steps=MOE_ACCUM),
+                 "timed_rows": MOE_ROWS}
+    return out
 
 
 def _worker(rank: int, n: int, coordinator: str, out_path: str) -> None:
@@ -162,12 +214,19 @@ def _worker(rank: int, n: int, coordinator: str, out_path: str) -> None:
                          device="cuda")
     try:
         lines = [_attention(rank, n, impl) for impl in ("ring", "ulysses")]
-        for name, (axes, runtime, rows) in _jobs(n).items():
-            for steps in (1, STEPS):
+        for name, job in _jobs(n).items():
+            timed_rows = job.get("timed_rows", job["rows"])
+            for steps, runtime, rows in ((1, job["held"], job["rows"]),
+                                         (STEPS, job["timed"], timed_rows)):
+                if runtime is None:
+                    continue
+                gc.collect()  # the last run's state sits in cycles
                 torch.cuda.empty_cache()
-                run = _train({"mesh": {"axes": axes}, "runtime": dict(
-                    runtime, steps=steps, global_batch_size=n * rows)})
-                lines.append({"gang": name, "steps": steps, **run})
+                run = _train({"mesh": {"axes": job["axes"]},
+                              "runtime": dict(runtime, steps=steps,
+                                              global_batch_size=n * rows)})
+                lines.append({"gang": name, "steps": steps,
+                              "axes": job["axes"], **run})
         if rank == 0:
             with open(out_path, "w") as fh:
                 fh.writelines(json.dumps(line) + "\n" for line in lines)
@@ -210,11 +269,14 @@ def main() -> int:
 
     _build.build_all()
     one = {}
-    for name, (axes, runtime, rows) in _jobs(n).items():
-        one[name] = _train({"mesh": {"axes": {a: 1 for a in axes}},
-                            "runtime": dict(runtime, steps=1,
-                                            global_batch_size=rows)})
+    for name, job in _jobs(n).items():
+        if job["one"] is None:
+            continue
+        one[name] = _train({"mesh": {"axes": {a: 1 for a in job["axes"]}},
+                            "runtime": dict(job["one"], steps=1,
+                                            global_batch_size=job["rows"])})
         print(json.dumps({"one card": name, **one[name]}), flush=True)
+        gc.collect()
         torch.cuda.empty_cache()
 
     out_path = os.path.join(REPO, "chiprun_out", "parallel_gpus.jsonl")
@@ -232,8 +294,17 @@ def main() -> int:
             checks.append(_held(f"{n}-card {line['gang']}", line,
                                 one[line["gang"]]))
             print(json.dumps(checks[-1]), flush=True)
-    # The two attention checks and each gang's first step.
-    ok = len(checks) == 2 + len(_jobs(n)) and all(c["held"] for c in checks)
+        elif line["gang"] == "tp_8b":
+            losses = [e["loss"] for e in line["emitted"]]
+            checks.append({"check": f"{n}-card tp_8b finite", "losses": losses,
+                           "peak_GB": line["peak_GB"],
+                           "held": len(losses) == STEPS - 1 and all(
+                               map(math.isfinite, losses))})
+            print(json.dumps(checks[-1]), flush=True)
+    # The two attention checks, each held gang's first step, and the
+    # llama3_8b run.
+    held = sum(1 for job in _jobs(n).values() if job["held"] is not None)
+    ok = len(checks) == 2 + held + 1 and all(c["held"] for c in checks)
     print(json.dumps({"ok": ok}), flush=True)
     return 0 if ok else 1
 

@@ -115,11 +115,11 @@ def start_from(monkeypatch, params0):
     from polyaxon_tpu_torch.models import llama as tllama
     from polyaxon_tpu_torch.runtime import loop, step
 
-    def build_init(model_def, optimizer, *, device):
+    def build_init(model_def, optimizer, *, device, **kwargs):
         params = tllama.params_from_numpy(model_def.config, params0,
                                           device=device)
         return step.build_init(model_def, optimizer, device=device,
-                               params=params)
+                               params=params, **kwargs)
 
     monkeypatch.setattr(loop, "build_init", build_init)
 

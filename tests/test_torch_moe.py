@@ -312,16 +312,16 @@ def test_generate_tokens_equal(weights):
 
 
 def test_ep_axis_and_undecodable_routers_refuse(tmp_path):
-    """An ``ep`` mesh axis is the parallel layer's model-parallel half
-    (item 7b): the loop refuses the job before it builds anything.
-    Expert-choice routing cannot be decoded (both packages refuse it)."""
+    """An ``ep`` mesh axis beside ``fsdp`` is not placed yet (item 7c):
+    the loop refuses the job before it builds anything. Expert-choice
+    routing cannot be decoded (both packages refuse it)."""
     from polyaxon_tpu_torch.runtime.loop import run_torchjob
 
     _, tcfg = _cfgs()
-    job = {"kind": "jaxjob", "mesh": {"axes": {"dp": 1, "ep": 2}},
+    job = {"kind": "jaxjob", "mesh": {"axes": {"fsdp": 2, "ep": 2}},
            "runtime": {"model": "moe_tiny", "dataset": "lm_synthetic",
                        "seq_len": 8, "global_batch_size": 2, "steps": 1}}
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         run_torchjob(job, artifacts_dir=str(tmp_path), device="cpu")
     ec = dataclasses.replace(tcfg, router="expert_choice")
     with pytest.raises(ValueError, match="top_k"):

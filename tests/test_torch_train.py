@@ -315,8 +315,15 @@ class TestModel:
             np.asarray(jllama.segment_starts(jnp.asarray(seg))))
 
     def test_refusals(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model("llama_tiny", pipeline_stages=2)
+        # A pipelined model trains over a mesh's pp axis only (the
+        # reference raises the same outside one).
+        piped = get_model("llama_tiny", pipeline_stages=2,
+                          pipeline_microbatches=2)
+        with pytest.raises(ValueError, match="`pp` axis"):
+            piped.apply({"params": tllama.init(
+                piped.config, torch.Generator().manual_seed(0),
+                device="cpu")["params"], "state": {}},
+                {"tokens": torch.zeros(2, 4, dtype=torch.long)})
         with pytest.raises(ValueError, match="remat"):
             tllama.hidden_states(dataclasses.replace(
                 tllama.CONFIGS["llama_tiny"], remat="most"),

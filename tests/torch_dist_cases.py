@@ -189,7 +189,8 @@ def run_job(rank: int, world: int, job: dict, artifacts_dir: str) -> dict:
                               s, v["loss"]) if "loss" in v else None)
     return {"losses": losses, "steps": result.steps,
             "restored_from_step": result.restored_from_step,
-            "units_per_step": result.units_per_step}
+            "units_per_step": result.units_per_step,
+            "final_metrics": result.final_metrics}
 
 
 def replaced_run(rank: int, world: int, axes_a: dict, axes_b: dict,
@@ -300,11 +301,245 @@ def cpu_launch() -> None:
         with open(path, "rb") as fh:
             params0 = pickle.load(fh)
 
-        def build_init(model_def, optimizer, *, device):
+        def build_init(model_def, optimizer, *, device, **kwargs):
             return step.build_init(model_def, optimizer, device=device,
                                    params=llama.params_from_numpy(
                                        model_def.config, params0,
-                                       device=device))
+                                       device=device), **kwargs)
 
         loop.build_init = build_init
     sys.exit(launch.main(device="cpu"))
+
+
+# ------------------------------------------------------ model parallelism
+class _Recording:
+    """An optimizer that keeps the (reduced, local) gradients of its last
+    update and otherwise is ``inner``."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.grads = None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, params, grads, state, **kwargs):
+        self.grads = [g.clone() for g in grads]
+        return self.inner.update(params, grads, state, **kwargs)
+
+
+def _with_lora(model_def, opt, base: dict, spec: dict):
+    """LoRA over ``model_def`` (``spec``: rank, alpha, targets and the
+    adapters as numpy, keyed by path): the wrapped model, the masked
+    optimizer and the {base, lora} parameters."""
+    import torch
+
+    from polyaxon_tpu_torch.models import lora
+
+    adapters = {k: {n: torch.tensor(v) for n, v in ab.items()}
+                for k, ab in spec["adapters"].items()}
+    return (lora.lora_model_def(model_def, spec["rank"], spec["alpha"],
+                                spec["targets"]),
+            lora.wrap_optimizer(opt),
+            {"base": base, "lora": lora.with_meta(adapters, spec["rank"],
+                                                  spec["alpha"])})
+
+
+def _named_leaves(tree, prefix=""):
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, dict):
+            yield from _named_leaves(value, path)
+        else:
+            yield path, value
+
+
+def _full(t, like):
+    """The whole tensor of a local piece ``t`` of DTensor ``like``'s
+    placements."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(like, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride()).full_tensor()
+
+
+def _overrides(case: dict) -> dict:
+    import torch
+
+    out = dict(case.get("overrides", {}))
+    out["dtype"] = getattr(torch, out.get("dtype", "float32"))
+    return out
+
+
+def parallel_steps(rank: int, world: int, cases: list) -> dict:
+    """Each case by its ``kind`` (default ``"steps"``): ``"steps"``, the
+    port's train step over the case's mesh (``axes``, all the ranks)
+    from ``params0`` (JAX's names, numpy) on ``batches`` (this process's
+    rows, numpy; ``rank_batches`` gives each rank its own): the losses
+    and grad norms, the first step's reduced gradients and the
+    parameters after the last step, whole, by leaf path (a ``"lora"``
+    entry trains adapters over the model: ``_with_lora``); ``"job"``,
+    ``run_job`` of the case's ``job``; ``"vocab_ce"``, ``"pipeline"``
+    and ``"moe_forward"``, the functions of those names below."""
+    import torch
+
+    from polyaxon_tpu_torch.models import family_of, get_model
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, use_mesh
+    from polyaxon_tpu_torch.parallel.sharding import rules_for_mesh
+    from polyaxon_tpu_torch.runtime.config import RuntimeConfig
+    from polyaxon_tpu_torch.runtime.optim import build_optimizer
+    from polyaxon_tpu_torch.runtime.step import build_init, build_train_step
+
+    out = {}
+    for case in cases:
+        kind = case.get("kind", "steps")
+        if kind == "job":
+            out[case["name"]] = run_job(rank, world, case["job"],
+                                        case["artifacts"])
+            continue
+        if kind in ("vocab_ce", "pipeline", "moe_forward"):
+            body = {"vocab_ce": vocab_ce_case, "pipeline": pipeline_case,
+                    "moe_forward": moe_forward_case}[kind]
+            out[case["name"]] = body(rank, world, case)
+            continue
+        mesh = build_mesh(axes=case["axes"])
+        model_def = get_model(case["model"], **_overrides(case))
+        family = family_of(case["model"])
+        opt = build_optimizer(RuntimeConfig.from_dict(
+            _job(case["axes"], 1, model=case["model"],
+                 **case.get("runtime", {}))["runtime"]))
+        params = family.params_from_numpy(model_def.config,
+                                          case["params0"], device="cpu")
+        if "lora" in case:
+            model_def, opt, params = _with_lora(model_def, opt, params,
+                                                case["lora"])
+        res = {"loss": [], "grad_norm": []}
+        with use_mesh(mesh):
+            opt = _Recording(opt)
+            state = build_init(model_def, opt, device="cpu", params=params,
+                               mesh=mesh, rules=rules_for_mesh(mesh))(0)
+            step = build_train_step(model_def, opt, mesh=mesh,
+                                    accum_steps=case.get("accum", 1))
+            batches = (case["rank_batches"][rank] if "rank_batches" in case
+                       else case["batches"])
+            for i, batch in enumerate(batches):
+                state, metrics = step(state, {k: torch.from_numpy(v)
+                                              for k, v in batch.items()})
+                res["loss"].append(float(metrics["loss"]))
+                res["grad_norm"].append(float(metrics["grad_norm"]))
+                if i == 0:
+                    leaves = [(name, p) for name, p in
+                              _named_leaves(state["params"])
+                              if p.requires_grad]
+                    res["grads"] = {
+                        name: _full(g, p).detach().numpy()
+                        for (name, p), g in zip(leaves, opt.grads)}
+            res["params"] = {name: _numpy_tree({"x": p})["x"] for name, p
+                             in _named_leaves(state["params"])}
+        out[case["name"]] = res
+    return out
+
+
+def vocab_ce_case(rank: int, world: int, case: dict) -> dict:
+    """``parallel.tensor.vocab_parallel_ce`` on this rank's vocab columns
+    of ``logits`` [N, V] over a tp mesh of every rank: the mean loss and
+    accuracy over the masked positions, and the gradient of the mean
+    loss with respect to this rank's columns."""
+    import torch
+
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, use_mesh
+    from polyaxon_tpu_torch.parallel.tensor import (vocab_parallel_ce,
+                                                    vocab_shard)
+
+    mesh = build_mesh(axes={"tp": world})
+    logits = torch.from_numpy(case["logits"])
+    per = logits.shape[-1] // world
+    local = logits[:, rank * per:(rank + 1) * per].clone().requires_grad_()
+    labels = torch.from_numpy(case["labels"]).long()
+    mask = torch.from_numpy(case["mask"]).float()
+    with use_mesh(mesh):
+        nll, correct = vocab_parallel_ce(
+            local, labels, vocab_shard(logits.shape[-1], per))
+    loss = (nll * mask).sum() / mask.sum()
+    loss.backward()
+    return {"loss": float(loss),
+            "accuracy": float((correct * mask).sum() / mask.sum()),
+            "grad": local.grad.numpy()}
+
+
+def pipeline_case(rank: int, world: int, case: dict) -> dict:
+    """llama_tiny pipelined over ``axes`` (a pp axis), parameters plain
+    tensors from ``params0`` on every rank: for each schedule
+    (``double_buffer`` False, True) the forward logits of ``tokens`` (on
+    every rank: the last stage's, broadcast) and this rank's gradients
+    of ``sum(forward(grad_tokens) ** 2) / 1e4`` at ``grad_micro``
+    microbatches (each stage's leaves; the stages' sum is the whole)."""
+    import dataclasses
+
+    import torch
+
+    from polyaxon_tpu_torch.models import llama
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, use_mesh
+
+    mesh = build_mesh(axes=case["axes"])
+    base = dataclasses.replace(llama.CONFIGS["llama_tiny"],
+                               dtype=torch.float32, **case["overrides"])
+    out = {}
+    with use_mesh(mesh):
+        for db in (False, True):
+            cfg = dataclasses.replace(base, pipeline_double_buffer=db)
+            params = llama.params_from_numpy(cfg, case["params0"],
+                                             device="cpu")
+            with torch.no_grad():
+                logits = llama.forward(cfg, params, torch.from_numpy(
+                    case["tokens"]).long())
+            cfg = dataclasses.replace(
+                cfg, pipeline_microbatches=case["grad_micro"])
+            for t in _named_leaves(params):
+                t[1].requires_grad_()
+            loss = (llama.forward(cfg, params, torch.from_numpy(
+                case["grad_tokens"]).long()) ** 2).sum() / 1e4
+            loss.backward()
+            out[db] = {"logits": logits.numpy(), "loss": float(loss),
+                       "grads": {name: (t.grad.numpy() if t.grad is not None
+                                        else np.zeros(t.shape, np.float32))
+                                 for name, t in _named_leaves(params)}}
+    return out
+
+
+def moe_forward_case(rank: int, world: int, case: dict) -> dict:
+    """moe_tiny's forward (the ragged dispatch) of this rank's rows of
+    ``tokens`` over ``axes`` (batch over dp and ep, in rank order), the
+    parameters from ``params0`` placed by the rules and viewed as the
+    train step views them: this rank's logits and the router aux."""
+    import dataclasses
+
+    import torch
+
+    from polyaxon_tpu_torch.models import moe
+    from polyaxon_tpu_torch.parallel import fsdp
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, use_mesh
+    from polyaxon_tpu_torch.parallel.sharding import (distribute,
+                                                      rules_for_mesh,
+                                                      tree_placements)
+
+    mesh = build_mesh(axes=case["axes"])
+    overrides = dict(case["overrides"], dtype=torch.float32)
+    cfg = dataclasses.replace(moe.CONFIGS["moe_tiny"], **overrides)
+    params = moe.params_from_numpy(cfg, case["params0"], device="cpu")
+    placed = distribute(params, tree_placements(
+        moe.logical_axes(cfg)["params"], mesh, rules_for_mesh(mesh)), mesh)
+    tokens = case["tokens"]
+    per = tokens.shape[0] // world
+    local = torch.from_numpy(tokens[rank * per:(rank + 1) * per]).long()
+    with use_mesh(mesh), torch.no_grad():
+        view = fsdp.model_view(moe.model_def("moe_tiny", **overrides),
+                               placed, mesh)
+        logits, aux = moe.forward(cfg, view, local)
+    return {"logits": logits.numpy(), "aux": float(aux)}
