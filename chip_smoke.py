@@ -272,6 +272,19 @@ Phases, each of which must pass:
    also holds the kernels at the tp-local shapes (``PATH_CASES``:
    llama3_8b and llama3_1b at tp4, 8:2 heads).
 
+19. Sharded serving (``19a.`` lines): llama3_8b at full width and
+   depth (random bf16 weights) served at tp2 by ``ServingServer(
+   mesh_axes={"tp": 2})``'s gang engine, two processes sharing the card
+   over a gloo group (``scripts/probe_gloo_cuda.py``: gloo carries the
+   gang's collectives of CUDA tensors; NCCL refuses two ranks on one
+   device), the paged continuous engine on the mix's first eight
+   prompts: the prefill's and 8 decode steps' logits against the
+   unsharded model's, the tokens against the unsharded paged engine's
+   on every row clear of near-ties, tokens/s, the median decode step
+   and each rank's peak memory. Phase 1 also holds the kernels at the
+   tp-local serving shapes (``PATH_CASES``: the 2,048-token prefill at
+   16:4 heads; ``decode_cases``: 8 ragged rows at 16:4 and 8:2).
+
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -540,7 +553,9 @@ def time_flash(torch, flash, peaks, label, q, k, v, *, window=None,
 # head_dim 256), ragged up to 8,191; d. llama3_1b at 64 rows, positions
 # seeded uniform in 0..2,047 (a grid that fills the card: one split);
 # e. moe_8x200m's 16:8 heads, head_dim 64, ragged up to its 2,048
-# positions, with a hole and an idle row.
+# positions, with a hole and an idle row; f. and g. case a's rows at a
+# tp rank's heads, 16:4 at tp2 (phase 19) and 8:2 at tp4 (llama3_8b and
+# mixtral_8x7b on four cards).
 def decode_cases():
     import numpy as np
 
@@ -555,6 +570,10 @@ def decode_cases():
         ("d llama3_1b B=64", 64, 32, 8, 64, 16, 128, d_pos, []),
         ("e moe_8x200m B=8", 8, 16, 8, 64, 16, 128,
          [2047, 1500, 1015, 700, 300, 129, 37, -1], [(3, 10)]),
+        ("f llama3_8b tp2 B=8", 8, 16, 4, 128, 16, 128,
+         [2047, 1000, 517, 1533, 64, 1999, 1200, -1], [(1, 20)]),
+        ("g llama3_8b/mixtral_8x7b tp4 B=8", 8, 8, 2, 128, 16, 128,
+         [2047, 1000, 517, 1533, 64, 1999, 1200, -1], [(1, 20)]),
     )
 
 
@@ -951,7 +970,8 @@ def time_flash_bwd(torch, flash, peaks, gen, B, S, H, KV, D, seg):
 # blocks.
 # And the tp-local heads of phase 18 and of the four-card tp4 gangs:
 # llama3_8b at tp4 (8:2 heads, D=128, one 4,096-token row) and llama3_1b
-# at tp4 (8:2 heads, D=64, four rows).
+# at tp4 (8:2 heads, D=64, four rows); and of phase 19's tp2 prefill
+# (16:4 heads, one 2,048-token prompt).
 PATH_CASES = (("t5_base encoder training B=32 S=512", 32, 512, 12, 12, False,
                64),
               ("t5_base served encoder S=300", 1, 300, 12, 12, False, 64),
@@ -963,6 +983,8 @@ PATH_CASES = (("t5_base encoder training B=32 S=512", 32, 512, 12, 12, False,
               ("ring cp=4 diagonal S=4096", 1, 4096, 32, 8, True, 64),
               ("ring cp=4 step block S=4096", 1, 4096, 32, 8, False, 64),
               ("llama3_8b tp4 B=1 S=4096", 1, 4096, 8, 2, True, 128),
+              ("llama3_8b tp2 prefill B=1 S=2048", 1, 2048, 16, 4, True,
+               128),
               ("llama3_1b tp4 B=4 S=4096", 4, 4096, 8, 2, True, 64))
 # The plain versions hold f32 [B, h, S, S] scores: past this many bytes
 # they run on the first KV group's heads only (the kernels run on all of
@@ -5226,6 +5248,195 @@ def model_parallel(torch, llama, flash, paged):
     return counts
 
 
+GANG_MODEL = "llama3_8b"
+GANG_TP = 2
+GANG_PROMPTS = 8          # the 16-request mix's first eight
+GANG_NEW = 32
+GANG_HELD = 9             # the prefill's token and 8 decode steps'
+GANG_TIMEOUT = 600
+
+
+def _gang_logits(torch, family, cfg, params, prompt, toks, device="cuda"):
+    """f32 logits [len(toks), V] of a dense prefill of ``prompt`` and
+    ``len(toks) - 1`` decode steps teacher-forced on ``toks``:
+    ``family`` is the llama module, or a serving gang's view of it."""
+    row = torch.tensor([prompt], dtype=torch.long, device=device)
+    logits, cache = family.prefill(cfg, params, row,
+                                   len(prompt) + len(toks))
+    out = [logits[0]]
+    for t, tok in enumerate(toks[:-1]):
+        step, cache = family.decode_step(
+            cfg, params, cache,
+            torch.tensor([tok], dtype=torch.long, device=device),
+            len(prompt) + t)
+        out.append(step[0])
+    return torch.stack(out).float()
+
+
+def serve_rank(rank: int, port: int, workdir: str) -> None:
+    """One rank of phase 19's tp2 gang, sharing the card with the other
+    over a gloo group (``scripts/probe_gloo_cuda.py``: gloo carries the
+    gang's collectives of CUDA tensors; NCCL refuses two ranks on one
+    device): a ``ServingServer`` over ``{"tp": 2}`` whose rank 0 runs the
+    paged engine on the job's prompts and the teacher-forced logits
+    through the gang, and writes them to ``workdir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from polyaxon_tpu_torch.models import llama
+    from polyaxon_tpu_torch.ops import flash, paged_attention
+    from polyaxon_tpu_torch.serving.gang import ParamsRef
+    from polyaxon_tpu_torch.serving.server import ServingServer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=GANG_TP, rank=rank)
+    t0 = time.perf_counter()
+    server = ServingServer(GANG_MODEL, seed=SEED, mesh_axes={"tp": GANG_TP},
+                           batching="continuous", kv="paged", slots=8,
+                           device="cuda")
+    load_s = time.perf_counter() - t0
+    out = {"rank": rank, "load_s": load_s}
+    try:
+        if not server.is_leader:
+            server.follow()
+        else:
+            server.start()  # stop() below shuts down its HTTP loop
+            with open(os.path.join(workdir, "job.json")) as fh:
+                job = json.load(fh)
+            cfg = server.gang.worker.roles["target"][1]
+            fam = server.gang.family("target", llama)
+            _zero(flash, paged_attention)
+            t1 = time.perf_counter()
+            reqs = [server.engine.submit(p, GANG_NEW) for p in job["prompts"]]
+            outs = [r.wait(timeout=GANG_TIMEOUT) for r in reqs]
+            wall = time.perf_counter() - t1
+            out["counts"] = _counts(flash, paged_attention)
+            stats = server.engine.stats()
+            out.update(outs=outs, wall_s=wall,
+                       decode_step_ms_median=stats["decode_step_ms_median"],
+                       decode_steps=stats["decode_steps"])
+            logits = [_gang_logits(torch, fam, cfg, ParamsRef("target"),
+                                   p, w)
+                      for p, w in zip(job["prompts"], job["want"])]
+            np.save(os.path.join(workdir, "logits.npy"),
+                    torch.stack(logits).cpu().numpy())
+            server.stop()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["calls"] = server.gang.calls
+    finally:
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        dist.destroy_process_group()
+
+
+def sharded_serving(torch, llama, flash, paged):
+    """Phase 19a: llama3_8b at full width and depth (random bf16 weights
+    from SEED) served at tp2 through the gang engine, two processes
+    sharing the card over gloo, on the paged continuous engine and the
+    16-request mix's first eight prompts, held against the unsharded
+    paged engine on the same weights: the prefill's and the first 8
+    decode steps' logits (teacher-forced on the unsharded tokens) within
+    MODEL_REL_TOL, and over those steps the greedy tokens equal up to a
+    row's first divergence, which must sit where the unsharded top-2
+    margin is a near-tie (phase 2's rule). Returns rank 0's kernel
+    launches."""
+    import tempfile
+
+    import numpy as np
+
+    from polyaxon_tpu_torch.parallel.bootstrap import free_port
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.server import load_params
+
+    t_phase = time.perf_counter()
+    cfg, params = load_params(GANG_MODEL, seed=SEED, device="cuda")
+    prompts = make_prompts(cfg.vocab_size)[:GANG_PROMPTS]
+    eng = ContinuousBatchingEngine(GANG_MODEL, cfg, params, slots=8,
+                                   kv="paged", page_size=16, device="cuda")
+    try:
+        _, want, wall = _run_engine_mix(eng, prompts, GANG_NEW)
+    finally:
+        eng.stop()
+    ref = torch.stack([_gang_logits(torch, llama, cfg, params, p,
+                                    w[:GANG_HELD])
+                       for p, w in zip(prompts, want)])
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) >= _tie_tol(torch, ref)).cpu()
+    ref = ref.cpu()
+    del params, eng, top2
+    torch.cuda.empty_cache()
+    print(f"19a. unsharded paged engine: {len(prompts)} prompts x "
+          f"{GANG_NEW} tokens in {wall:.2f}s "
+          f"({len(prompts) * GANG_NEW / wall:.1f} tokens/s); of its "
+          f"{clear.numel()} held steps {int((~clear).sum())} are near-ties",
+          flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        with open(os.path.join(workdir, "job.json"), "w") as fh:
+            json.dump({"prompts": prompts,
+                       "want": [w[:GANG_HELD] for w in want]}, fh)
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--serve-rank", str(r), str(port),
+                                   workdir]) for r in range(GANG_TP)]
+        try:
+            codes = [p.wait(timeout=GANG_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            fail(f"19a: the tp{GANG_TP} gang's ranks exited with {codes}")
+        ranks = []
+        for r in range(GANG_TP):
+            with open(os.path.join(workdir, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        got = torch.from_numpy(np.load(os.path.join(workdir, "logits.npy")))
+    lead = ranks[0]
+    if not torch.isfinite(got).all() or got.shape != ref.shape:
+        fail(f"19a: gang logits {tuple(got.shape)} non-finite or not "
+             f"{tuple(ref.shape)}")
+    worst = max(_rel(got[i], ref[i]) for i in range(len(prompts)))
+    if worst > MODEL_REL_TOL:
+        fail(f"19a: tp{GANG_TP} logits vs unsharded relative max err "
+             f"{worst} (tol {MODEL_REL_TOL})")
+    _check_outs("19a gang", prompts, lead["outs"], GANG_NEW, cfg.vocab_size)
+    parted = {}
+    for i in range(len(prompts)):
+        j = next((t for t, (a, b) in enumerate(zip(
+            lead["outs"][i][:GANG_HELD], want[i])) if a != b), None)
+        if j is None:
+            continue
+        if bool(clear[i, j]):
+            fail(f"19a: row {i} parts from the unsharded tokens at token "
+                 f"{j}, where the unsharded top-2 margin is no near-tie")
+        parted[i] = j
+    if len({r["calls"] for r in ranks}) != 1:
+        fail(f"19a: the ranks ran different model calls: "
+             f"{[r['calls'] for r in ranks]}")
+    counts = lead["counts"]
+    for name in SERVING_KERNELS:
+        if counts[name] <= 0:
+            fail(f"19a: the gang never launched the {name} kernel")
+    tokens = sum(len(o) for o in lead["outs"])
+    print(f"19a. {GANG_MODEL} tp{GANG_TP} gang (two processes on one card, "
+          f"gloo): {len(prompts)} prompts x {GANG_NEW} tokens, "
+          f"tokens_per_s={tokens / lead['wall_s']:.1f} "
+          f"decode_step_ms_median={lead['decode_step_ms_median']:.3f} "
+          f"decode_steps={lead['decode_steps']} model_calls={lead['calls']} "
+          f"load_s={[round(r['load_s'], 1) for r in ranks]} "
+          f"peak_gb_per_rank={[round(r['peak_gb'], 2) for r in ranks]}; "
+          f"logits rel err {worst:.3e} over the prefill and {GANG_HELD - 1} "
+          f"decode steps; rows parted at a near-tie (row: token) {parted}; "
+          f"launches "
+          f"rank 0 {counts}", flush=True)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return counts  # rank 0's (rank 1 runs the same calls on its heads)
+
+
 def main() -> None:
     import torch
 
@@ -5323,6 +5534,8 @@ def main() -> None:
     ring_counts = context_parallel(torch, llama, flash, paged_attention)
     torch.cuda.empty_cache()
     entry_counts = model_parallel(torch, llama, flash, paged_attention)
+    torch.cuda.empty_cache()
+    gang_counts = sharded_serving(torch, llama, flash, paged_attention)
 
     # Each kernel's launches are the sum over the main-path runs that
     # reach it (each printed above): the engine, phases a-g, the two
@@ -5330,11 +5543,11 @@ def main() -> None:
     # the resumed launcher of the checkpoint drill, the engine serving
     # its checkpoint, the launcher the agent ran from the compiled plan,
     # the sweep's trials and the engine serving its best trial, the runs
-    # of phases 11-15, the longcontext run of phase 17 and the entry
-    # point's run of phase 18.
+    # of phases 11-15, the longcontext run of phase 17, the entry
+    # point's run of phase 18 and rank 0 of phase 19's gang.
     runs = (counts, *serve_counts, train_counts, gemma_counts, *drill_counts,
             plan_counts, *sweep_counts, *family_counts, ring_counts,
-            entry_counts)
+            entry_counts, gang_counts)
 
     def total(name):
         return sum(run.get(name, 0) for run in runs)
@@ -5381,4 +5594,7 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--serve-rank"]:  # phase 19's gang ranks
+        serve_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -18,7 +18,7 @@ Port of ``polyaxon_tpu/agent/executor.py``. Left out until their ROADMAP
 items land: elastic gangs (the JAX executor runs an in-process job that
 checkpoints through ``runtime.elastic``; here ``run_torchjob`` runs it
 directly and :meth:`LocalExecutor.request_resize` raises, Queue 1 item
-7c) and the persistent XLA compile cache (there is none; the env is
+7d) and the persistent XLA compile cache (there is none; the env is
 accepted and nothing is set, item 8). A multi-process gang's
 coordinator is ``127.0.0.1`` at a free port, one per gang, where the
 JAX executor keeps the plan's fixed port.
@@ -399,10 +399,10 @@ class LocalExecutor:
                        reason: str = "",
                        target_devices: Optional[int] = None) -> bool:
         """Elastic resizing (the JAX executor's ``runtime.elastic``
-        channel) is not ported: ROADMAP.md, Queue 1 item 7c."""
+        channel) is not ported: ROADMAP.md, Queue 1 item 7d."""
         raise NotImplementedError(
             f"elastic resize ({direction}) of run {run_uuid}: the port has "
-            "no elastic gangs yet (ROADMAP.md, Queue 1 item 7c)")
+            "no elastic gangs yet (ROADMAP.md, Queue 1 item 7d)")
 
     def _run_in_process(self, gang: _Gang) -> None:
         from polyaxon_tpu_torch.runtime.loop import run_torchjob

@@ -65,6 +65,10 @@ class ModelDef:
     tensor_parallel: bool = False
     # ``apply`` runs its layers as a pipeline over the pp mesh axis.
     pipeline_parallel: bool = False
+    # ``init`` takes ``take=`` (``parallel/sharding.py ShardTaker``) and
+    # draws only this rank's shards; another family's init is drawn
+    # whole and cut leaf by leaf.
+    sharded_init: bool = False
 
 
 def truncated_normal_init(shape, generator: torch.Generator, *,
@@ -249,6 +253,20 @@ class LoraWeight:
             raise ValueError("LoraWeight unbinds its leading axis only")
         return tuple(LoraWeight(w, a, b, self.scale) for w, a, b in zip(
             self.w.unbind(0), self.a.unbind(0), self.b.unbind(0)))
+
+    def reshape(self, shape) -> "LoraWeight":
+        """New leading (layer) axes over the same matrices: the pipeline's
+        ``[L, ...]`` → ``[stages, L/stages, ...]``."""
+        lead = tuple(shape)[:len(shape) - 2]
+        return LoraWeight(self.w.reshape(shape),
+                          self.a.reshape(lead + tuple(self.a.shape[-2:])),
+                          self.b.reshape(lead + tuple(self.b.shape[-2:])),
+                          self.scale)
+
+    def __getitem__(self, index) -> "LoraWeight":
+        """A stage's (or a layer's) weights, along the leading axis."""
+        return LoraWeight(self.w[index], self.a[index], self.b[index],
+                          self.scale)
 
 
 def is_quantized(w) -> bool:

@@ -38,9 +38,14 @@ local heads), row-parallel ``wo``/``w_down`` followed by *reduce*, the
 vocab-parallel embedding, head and cross entropy. Where the KV heads do
 not split over tp (gemma's one KV head), every rank computes K and V
 whole and takes its query heads' group, which is what GSPMD computes
-when it splits ``kv_heads·head_dim``. With ``pipeline_stages`` above 1
-the layers run as a GPipe schedule over the ``pp`` axis
-(``parallel/pipeline.py``); the head and the loss run on the last stage.
+when it splits ``kv_heads·head_dim``. The serving steps compute the
+same way (``serving/gang.py``): a rank's KV cache holds its local KV
+heads (``local_kv_heads``), each attention and MLP output is summed
+over tp, and the logits come out whole (``_vocab_whole``); fsdp shards
+are gathered layer by layer (``_serving_layers``). With
+``pipeline_stages`` above 1 the layers run as a GPipe schedule over the
+``pp`` axis (``parallel/pipeline.py``); the head and the loss run on the
+last stage.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from polyaxon_tpu_torch.ops.attention import (
     repeat_kv,
 )
 from polyaxon_tpu_torch.parallel.mesh import current_mesh, seq_shard
+from polyaxon_tpu_torch.parallel.sharding import WHOLE, ShardTaker
 from polyaxon_tpu_torch.parallel.tensor import (copy_to_tp, gather_from_tp,
                                                 reduce_from_tp, tp_axis,
                                                 vocab_embed, vocab_shard)
@@ -192,43 +198,59 @@ _GAINS = ("attn_norm", "mlp_norm", "final_norm")
 
 
 def init(cfg: LlamaConfig, generator: torch.Generator, *, device,
-         param_dtype: torch.dtype = torch.float32) -> dict:
+         param_dtype: torch.dtype = torch.float32,
+         take: ShardTaker = WHOLE) -> dict:
     """Random parameters from ``generator`` (same shapes, scales and
     truncation as the JAX ``init``; the draws differ, as torch and JAX
     streams do). Stacked tensors are drawn one layer at a time so the
-    f32 draw never holds more than one layer's slab."""
+    f32 draw never holds more than one layer's slab; with a ``take``
+    over a mesh (``parallel/sharding.py ShardTaker``) each rank keeps its
+    piece of every slab, so it holds only its shards of the same
+    draw."""
     L, D, F_ = cfg.n_layers, cfg.dim, cfg.ffn_dim
     H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
-    def stacked(shape, fan_in):
-        out = torch.empty((L, *shape), dtype=param_dtype, device=device)
+    def stacked(name, shape, fan_in):
+        leaf = take.leaf(("layers", name), (L, *shape))
+        out = torch.empty(leaf.shape, dtype=param_dtype, device=device)
         for i in range(L):
-            out[i] = scaled_init(shape, generator, device=device,
-                                 dtype=param_dtype, fan_in=fan_in)
+            where, piece = leaf.take(scaled_init(
+                shape, generator, device=device, dtype=param_dtype,
+                fan_in=fan_in), i)
+            out[where] = piece
         return out
 
-    gain = torch.full((L, D), 1.0 - cfg.norm_offset, dtype=torch.float32,
-                      device=device)
+    def whole(path, t):
+        return take.whole(path, t)
+
+    def gain(name):
+        return whole(("layers", name), torch.full(
+            (L, D), 1.0 - cfg.norm_offset, dtype=torch.float32,
+            device=device))
+
     params = {
-        "embed": truncated_normal_init((cfg.vocab_size, D), generator,
-                                       device=device, dtype=param_dtype),
+        "embed": whole(("embed",), truncated_normal_init(
+            (cfg.vocab_size, D), generator, device=device,
+            dtype=param_dtype)),
         "layers": {
-            "attn_norm": gain,
-            "wq": stacked((D, H * Hd), D),
-            "wk": stacked((D, KV * Hd), D),
-            "wv": stacked((D, KV * Hd), D),
-            "wo": stacked((H * Hd, D), H * Hd),
-            "mlp_norm": gain.clone(),
-            "w_gate": stacked((D, F_), D),
-            "w_up": stacked((D, F_), D),
-            "w_down": stacked((F_, D), F_),
+            "attn_norm": gain("attn_norm"),
+            "wq": stacked("wq", (D, H * Hd), D),
+            "wk": stacked("wk", (D, KV * Hd), D),
+            "wv": stacked("wv", (D, KV * Hd), D),
+            "wo": stacked("wo", (H * Hd, D), H * Hd),
+            "mlp_norm": gain("mlp_norm"),
+            "w_gate": stacked("w_gate", (D, F_), D),
+            "w_up": stacked("w_up", (D, F_), D),
+            "w_down": stacked("w_down", (F_, D), F_),
         },
-        "final_norm": torch.full((D,), 1.0 - cfg.norm_offset,
-                                 dtype=torch.float32, device=device),
+        "final_norm": whole(("final_norm",), torch.full(
+            (D,), 1.0 - cfg.norm_offset, dtype=torch.float32,
+            device=device)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = truncated_normal_init(
-            (D, cfg.vocab_size), generator, device=device, dtype=param_dtype)
+        params["lm_head"] = whole(("lm_head",), truncated_normal_init(
+            (D, cfg.vocab_size), generator, device=device,
+            dtype=param_dtype))
     return {"params": params, "state": {}}
 
 
@@ -273,6 +295,34 @@ def _layers(params: dict):
     return unstack(params["layers"])
 
 
+def _serving_layers(params: dict):
+    """Per-layer views for a serving pass: under fsdp, each layer's
+    shards gathered where its turn comes (``parallel/fsdp.py``; a
+    training layer gathers inside its ``remat_body`` instead)."""
+    from polyaxon_tpu_torch.parallel.fsdp import gathered
+
+    return (gathered(layer) for layer in _layers(params))
+
+
+def local_kv_heads(cfg) -> int:
+    """The KV heads a serving cache holds on this tp rank: its shard of
+    them, or, where they do not split over tp (``whole_kv``), the group
+    its query heads read (``_local_kv_group``)."""
+    n, idx, _ = tp_axis()
+    if cfg.n_kv_heads % n == 0:
+        return cfg.n_kv_heads // n
+    k = torch.zeros((1, 1, cfg.n_kv_heads, 1))
+    return _local_kv_group(cfg, k, k, n, idx)[0].shape[2]
+
+
+def _vocab_whole(cfg, logits: torch.Tensor) -> torch.Tensor:
+    """Logits [..., V] from a vocab-parallel head's columns [..., V/tp]
+    (gathered over tp), or as they are when the head is whole."""
+    if logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return gather_from_tp(logits, -1)
+
+
 def _norm(cfg, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, weight, cfg.norm_eps,
                     offset=getattr(cfg, "norm_offset", 0.0))
@@ -290,8 +340,7 @@ def _act(cfg):
 
 def _embed(cfg, params: dict, tokens: torch.Tensor, dt) -> torch.Tensor:
     table = params["embed"]
-    shard = (vocab_shard(cfg.vocab_size, table.shape[0])
-             if isinstance(table, torch.Tensor) else None)
+    shard = vocab_shard(cfg.vocab_size, table.shape[0])
     x = (_embed_rows(table, tokens, dt) if shard is None
          else vocab_embed(table, tokens, dt, shard))
     if getattr(cfg, "scale_embeddings", False):
@@ -518,10 +567,12 @@ def lm_head(cfg: LlamaConfig, params: dict) -> torch.Tensor:
 
 def decode_logits(cfg: LlamaConfig, params: dict,
                   x: torch.Tensor) -> torch.Tensor:
-    """Hidden states [..., D] → f32 logits [..., V]."""
+    """Hidden states [..., D] → f32 logits [..., V] (a vocab-parallel
+    head's columns gathered over tp)."""
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return lm_logits(x, w, cfg.dtype, transpose=cfg.tie_embeddings,
-                     chunk=cfg.lm_logits_chunk)
+    return _vocab_whole(cfg, lm_logits(x, w, cfg.dtype,
+                                       transpose=cfg.tie_embeddings,
+                                       chunk=cfg.lm_logits_chunk))
 
 
 def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
@@ -610,12 +661,14 @@ def model_def(name: str, **overrides) -> ModelDef:
     cfg = dataclasses.replace(CONFIGS[name], **overrides)
     return ModelDef(
         name=name,
-        init=lambda generator, device: init(cfg, generator, device=device),
+        init=lambda generator, device, take=WHOLE: init(
+            cfg, generator, device=device, take=take),
         apply=functools.partial(apply, cfg),
         unit="tokens",
         config=cfg,
         logical_axes=functools.partial(logical_axes, cfg),
         layer_stacks=("layers",),
+        sharded_init=True,
         context_parallel=True,
         tensor_parallel=True,
         pipeline_parallel=cfg.pipeline_stages > 1,
@@ -629,10 +682,11 @@ def _prompt_pass(cfg: LlamaConfig, params: dict, prompt: torch.Tensor):
     positions = _positions(B, P, prompt.device)
     x = _embed(cfg, params, prompt, cfg.dtype)
     ks, vs = [], []
-    for layer in _layers(params):
+    for layer in _serving_layers(params):
         q, k, v = _qkv(cfg, layer, x, positions)
         attn = _attention(cfg, q, k, v)
-        x = x + attn.reshape(B, P, -1) @ _w(layer["wo"], cfg.dtype)
+        x = x + reduce_from_tp(attn.reshape(B, P, -1)
+                               @ _w(layer["wo"], cfg.dtype))
         x = _mlp(cfg, x, layer)
         ks.append(k)
         vs.append(v)
@@ -667,9 +721,10 @@ def cache_len(cfg: LlamaConfig, max_len: int) -> int:
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, *,
                device) -> dict:
-    """Dense KV cache [L, B, C, KV, Hd] per tensor (C = cache_len)."""
-    shape = (cfg.n_layers, batch, cache_len(cfg, max_len), cfg.n_kv_heads,
-             cfg.head_dim)
+    """Dense KV cache [L, B, C, KV, Hd] per tensor (C = cache_len; KV the
+    heads this tp rank holds: ``local_kv_heads``)."""
+    shape = (cfg.n_layers, batch, cache_len(cfg, max_len),
+             local_kv_heads(cfg), cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
@@ -724,7 +779,8 @@ def cached_attn_step(cfg, layer: dict, x: torch.Tensor,
     k_cache[rows, slot] = k[:, 0]
     v_cache[rows, slot] = v[:, 0]
     attn = _cached_attention(cfg, q, k_cache, v_cache, valid)
-    return x + attn @ _w(layer["wo"], cfg.dtype), k_cache, v_cache
+    return (x + reduce_from_tp(attn @ _w(layer["wo"], cfg.dtype)), k_cache,
+            v_cache)
 
 
 def decode_step_ragged(cfg: LlamaConfig, params: dict, cache: dict,
@@ -738,7 +794,7 @@ def decode_step_ragged(cfg: LlamaConfig, params: dict, cache: dict,
     C = cache["k"].shape[2]
     positions, slot, valid = ragged_cache_coords(pos, C)
     x = _embed(cfg, params, tokens, cfg.dtype)[:, None, :]
-    for i, layer in enumerate(_layers(params)):
+    for i, layer in enumerate(_serving_layers(params)):
         x, _, _ = cached_attn_step(cfg, layer, x, cache["k"][i],
                                    cache["v"][i], positions, slot, valid)
         x = _mlp(cfg, x, layer)
@@ -788,7 +844,7 @@ def prefill(cfg: LlamaConfig, params: dict, prompt: torch.Tensor,
         cache["v"][:, :, slots] = v_all[:, :, P - keep:]
     x = _norm(cfg, x, params["final_norm"])
     logits = (x[:, -1] @ lm_head(cfg, params).to(dt)).to(torch.float32)
-    return logits, cache
+    return _vocab_whole(cfg, logits), cache
 
 
 def cb_init_cache(cfg, slots: int, max_len: int, *, device) -> dict:
@@ -822,7 +878,8 @@ def chunk_attn_step(cfg, layer: dict, x: torch.Tensor,
     k_cache[rows, idx] = k
     v_cache[rows, idx] = v
     attn = _cached_attention(cfg, q, k_cache, v_cache, valid)
-    return x + attn @ _w(layer["wo"], cfg.dtype), k_cache, v_cache
+    return (x + reduce_from_tp(attn @ _w(layer["wo"], cfg.dtype)), k_cache,
+            v_cache)
 
 
 def decode_chunk(cfg: LlamaConfig, params: dict, cache: dict,
@@ -845,7 +902,7 @@ def decode_chunk(cfg: LlamaConfig, params: dict, cache: dict,
     valid = (torch.arange(C, device=dev)[None, None, :]
              <= positions[:, :, None])[:, None]
     x = _embed(cfg, params, tokens, cfg.dtype)
-    for i, layer in enumerate(_layers(params)):
+    for i, layer in enumerate(_serving_layers(params)):
         x, _, _ = chunk_attn_step(cfg, layer, x, cache["k"][i],
                                   cache["v"][i], positions, valid)
         x = _mlp(cfg, x, layer)
@@ -911,7 +968,8 @@ def paged_init_cache(cfg: LlamaConfig, n_pages: int, page_size: int, *,
         raise ValueError(
             "paged KV does not support sliding_window yet — the ring "
             "buffer already bounds that cache; use kv='dense'")
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, n_pages, page_size, local_kv_heads(cfg),
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
@@ -961,8 +1019,9 @@ def paged_attn_step(cfg, layer: dict, x: torch.Tensor,
     v_pages)."""
     dt = cfg.dtype
     B = x.shape[0]
-    H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv(cfg, layer, x, positions)
+    # This tp rank's heads (all of them without tp).
+    H, KV, Hd = q.shape[2], k.shape[2], cfg.head_dim
     k_pages[write_page, write_off] = k[:, 0]
     v_pages[write_page, write_off] = v[:, 0]
 
@@ -986,8 +1045,8 @@ def paged_attn_step(cfg, layer: dict, x: torch.Tensor,
     else:
         raise ValueError(f"unknown paged_attention_impl `{impl}` "
                          "(expected 'auto' or 'gather')")
-    return (x + attn.reshape(B, 1, H * Hd) @ _w(layer["wo"], dt),
-            k_pages, v_pages)
+    return (x + reduce_from_tp(attn.reshape(B, 1, H * Hd)
+                               @ _w(layer["wo"], dt)), k_pages, v_pages)
 
 
 def decode_step_paged(cfg: LlamaConfig, params: dict, cache: dict,
@@ -1001,7 +1060,7 @@ def decode_step_paged(cfg: LlamaConfig, params: dict, cache: dict,
     kernel_args = (paged_kernel_args(positions, tables, valid)
                    if cfg.paged_attention_impl == "auto" else None)
     x = _embed(cfg, params, tokens, cfg.dtype)[:, None, :]
-    for i, layer in enumerate(_layers(params)):
+    for i, layer in enumerate(_serving_layers(params)):
         x, _, _ = paged_attn_step(
             cfg, layer, x, cache["k"][i], cache["v"][i], positions,
             write_page, write_off, tables, valid, kernel_args)
@@ -1040,8 +1099,8 @@ def suffix_attn_step(cfg, layer: dict, x: torch.Tensor,
     ``valid`` [B, 1, S, Mpad+S]. Returns (x, k_suffix, v_suffix)."""
     dt = cfg.dtype
     B, S = positions.shape
-    H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv(cfg, layer, x, positions)
+    H, KV, Hd = q.shape[2], k.shape[2], cfg.head_dim  # this tp rank's
     keys = repeat_kv(torch.cat([k_prefix, k], dim=1), H // KV)
     vals = repeat_kv(torch.cat([v_prefix, v], dim=1), H // KV)
     s = torch.einsum("bqhd,bkhd->bhqk", q, keys).to(torch.float32)
@@ -1049,7 +1108,8 @@ def suffix_attn_step(cfg, layer: dict, x: torch.Tensor,
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     probs = torch.softmax(s, dim=-1).to(dt)
     attn = torch.einsum("bhqk,bkhd->bqhd", probs, vals)
-    return x + attn.reshape(B, S, H * Hd) @ _w(layer["wo"], dt), k, v
+    return (x + reduce_from_tp(attn.reshape(B, S, H * Hd)
+                               @ _w(layer["wo"], dt)), k, v)
 
 
 def _suffix_mask(S: int, m_pad: int, m: int, device=None) -> torch.Tensor:
@@ -1075,7 +1135,7 @@ def paged_prefill_suffix_kv(cfg: LlamaConfig, params: dict,
     valid = _suffix_mask(S, m_pad, int(m), device=suffix.device)
     x = _embed(cfg, params, suffix, cfg.dtype)
     ks, vs = [], []
-    for i, layer in enumerate(_layers(params)):
+    for i, layer in enumerate(_serving_layers(params)):
         x, k, v = suffix_attn_step(cfg, layer, x, k_prefix[i][None],
                                    v_prefix[i][None], positions, valid)
         x = _mlp(cfg, x, layer)

@@ -225,10 +225,6 @@ def lora_model_def(model_def: ModelDef, rank: int, alpha: float,
     """Wrap a ModelDef for LoRA: the same step, loop and checkpoint
     machinery over ``{base (frozen), lora (trained)}``."""
     targets = tuple(targets or DEFAULT_TARGETS)
-    if model_def.pipeline_parallel:
-        raise NotImplementedError(
-            "LoRA over a pipelined model (pipeline_stages > 1) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 7c)")
 
     def init(generator: torch.Generator, device):
         variables = model_def.init(generator, device)
@@ -256,7 +252,7 @@ def lora_model_def(model_def: ModelDef, rank: int, alpha: float,
     # (``LoraWeight``), so sharded base leaves are gathered whole.
     return dataclasses.replace(
         model_def, name=f"{model_def.name}+lora{rank}", init=init,
-        apply=apply, layer_stacks=(),
+        apply=apply, layer_stacks=(), sharded_init=False,
         logical_axes=logical_axes if model_def.logical_axes else None)
 
 

@@ -29,7 +29,12 @@ Two dispatch formulations, as in the JAX package:
 - ``dense``: GShard one-hot dispatch and combine tensors ``[T, E, C]``
   and three products. Decode, the verify chunk and the suffix prefill
   always take it, with the capacity floored at the group size
-  (``min_capacity``) so that serving never drops.
+  (``min_capacity``) so that serving never drops. Under a mesh whose
+  batch axes hold different rows, its capacity and slots count the
+  global batch, as GSPMD's do: the per-choice, per-expert counts of
+  every row block (``_Blocks``) place this rank's pairs after theirs. A
+  served batch is the same on every rank (``parallel/mesh.py
+  replicated_rows``): one block.
 
 ``router="expert_choice"`` lets experts pick their top-capacity tokens
 (balanced by construction, no aux loss); it cannot be decoded.
@@ -54,8 +59,9 @@ import torch
 import torch.nn.functional as F
 
 from polyaxon_tpu_torch.models import llama
-from polyaxon_tpu_torch.parallel.compat import BATCH_AXES, axes_product
-from polyaxon_tpu_torch.parallel.mesh import all_reduce_over, current_mesh
+from polyaxon_tpu_torch.parallel.mesh import (block_mean, current_mesh,
+                                              row_block, row_block_axes)
+from polyaxon_tpu_torch.parallel.sharding import WHOLE, ShardTaker
 from polyaxon_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp
 from polyaxon_tpu_torch.models.common import (
     ModelDef,
@@ -147,44 +153,55 @@ _GAINS = ("attn_norm", "moe_norm", "final_norm")
 
 
 def init(cfg: MoEConfig, generator: torch.Generator, *, device,
-         param_dtype: torch.dtype = torch.float32) -> dict:
+         param_dtype: torch.dtype = torch.float32,
+         take: ShardTaker = WHOLE) -> dict:
     """Random parameters from ``generator`` (the JAX ``init``'s shapes,
     scales and truncation; the draws differ). Each layer, and each
     expert of a layer, is drawn on its own, so the f32 draw never holds
     more than one ``[D, F]`` slab (mixtral_8x7b's stacked ``w_gate`` is
-    30 GB in f32)."""
+    30 GB in f32); with a ``take`` over a mesh each rank keeps its piece
+    of every slab (``models/llama.py init``)."""
     L, D, F_, E = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.n_experts
     H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
-    def stacked(shape, fan_in, experts: bool = False):
-        full = (L, E, *shape) if experts else (L, *shape)
-        out = torch.empty(full, dtype=param_dtype, device=device)
+    def stacked(name, shape, fan_in, experts: bool = False):
+        leaf = take.leaf(("layers", name),
+                         (L, E, *shape) if experts else (L, *shape))
+        out = torch.empty(leaf.shape, dtype=param_dtype, device=device)
         for i in range(L):
             for e in range(E if experts else 1):
-                dst = out[i, e] if experts else out[i]
-                dst.copy_(scaled_init(shape, generator, device=device,
-                                      dtype=param_dtype, fan_in=fan_in))
+                got = leaf.take(scaled_init(shape, generator, device=device,
+                                            dtype=param_dtype,
+                                            fan_in=fan_in),
+                                *((i, e) if experts else (i,)))
+                if got is not None:
+                    out[got[0]] = got[1]
         return out
 
-    ones = torch.ones((L, D), dtype=torch.float32, device=device)
+    def ones(path, shape):
+        return take.whole(path, torch.ones(shape, dtype=torch.float32,
+                                           device=device))
+
+    def table(path, shape):
+        return take.whole(path, truncated_normal_init(
+            shape, generator, device=device, dtype=param_dtype))
+
     params = {
-        "embed": truncated_normal_init((cfg.vocab_size, D), generator,
-                                       device=device, dtype=param_dtype),
+        "embed": table(("embed",), (cfg.vocab_size, D)),
         "layers": {
-            "attn_norm": ones,
-            "wq": stacked((D, H * Hd), D),
-            "wk": stacked((D, KV * Hd), D),
-            "wv": stacked((D, KV * Hd), D),
-            "wo": stacked((H * Hd, D), H * Hd),
-            "moe_norm": ones.clone(),
-            "router": stacked((D, E), D),
-            "w_gate": stacked((D, F_), D, experts=True),
-            "w_up": stacked((D, F_), D, experts=True),
-            "w_down": stacked((F_, D), F_, experts=True),
+            "attn_norm": ones(("layers", "attn_norm"), (L, D)),
+            "wq": stacked("wq", (D, H * Hd), D),
+            "wk": stacked("wk", (D, KV * Hd), D),
+            "wv": stacked("wv", (D, KV * Hd), D),
+            "wo": stacked("wo", (H * Hd, D), H * Hd),
+            "moe_norm": ones(("layers", "moe_norm"), (L, D)),
+            "router": stacked("router", (D, E), D),
+            "w_gate": stacked("w_gate", (D, F_), D, experts=True),
+            "w_up": stacked("w_up", (D, F_), D, experts=True),
+            "w_down": stacked("w_down", (F_, D), F_, experts=True),
         },
-        "final_norm": torch.ones((D,), dtype=torch.float32, device=device),
-        "lm_head": truncated_normal_init((D, cfg.vocab_size), generator,
-                                         device=device, dtype=param_dtype),
+        "final_norm": ones(("final_norm",), (D,)),
+        "lm_head": table(("lm_head",), (D, cfg.vocab_size)),
     }
     return {"params": params, "state": {}}
 
@@ -240,27 +257,6 @@ def _ep_axis() -> tuple[int, object]:
     mesh = current_mesh()
     n = mesh.shape.get("ep", 1) if mesh is not None else 1
     return (n, mesh.group("ep")) if n > 1 else (1, None)
-
-
-class _BatchMean(torch.autograd.Function):
-    """The mean over the mesh's batch axes; its backward is the same mean
-    of the gradients (every rank holds the mean)."""
-
-    @staticmethod
-    def forward(ctx, t, mesh, n):
-        ctx.mesh, ctx.n = mesh, n
-        return all_reduce_over(t.clone(), mesh, BATCH_AXES) / n
-
-    @staticmethod
-    def backward(ctx, g):
-        return (all_reduce_over(g.contiguous().clone(), ctx.mesh, BATCH_AXES)
-                / ctx.n, None, None)
-
-
-def _batch_mean(t: torch.Tensor) -> torch.Tensor:
-    mesh = current_mesh()
-    n = axes_product(mesh, BATCH_AXES)
-    return t if n == 1 else _BatchMean.apply(t, mesh, n)
 
 
 @dataclasses.dataclass
@@ -412,17 +408,9 @@ class _Blocks:
     in block order."""
 
     def __init__(self, mesh, ep: int):
-        from polyaxon_tpu_torch.parallel.compat import axes_above_one
-        from polyaxon_tpu_torch.parallel.mesh import axis_rank
-
         self.mesh = mesh
-        self.axes = (axes_above_one(mesh, BATCH_AXES) if mesh is not None
-                     else ())
-        self.n, self.index = 1, 0
-        for name in self.axes:
-            self.n *= mesh.shape[name]
-            self.index = self.index * mesh.shape[name] + axis_rank(mesh,
-                                                                   name)
+        self.axes = row_block_axes(mesh)
+        self.n, self.index = row_block(mesh)
         self.chunk_first = self.index - self.index % (self.n // ep)
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -474,8 +462,8 @@ def _moe_ragged_sharded(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate,
     back = _owner(cfg, recv_x, recv_code, capacity, w_gate, w_up, w_down)
     if ep > 1:
         back = all_to_all(back, group)
-    aux = _router_aux_loss(cfg, _batch_mean(d.frac_tokens),
-                           _batch_mean(d.frac_probs))
+    aux = _router_aux_loss(cfg, block_mean(d.frac_tokens),
+                           block_mean(d.frac_probs))
     return _combine(d, back, T_loc), aux
 
 
@@ -566,13 +554,28 @@ def moe_block(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate, w_up,
 
     top_probs, top_idx = _top_k(probs, K)  # [T, K]
 
-    # Per choice, the slot of each token in its expert's buffer: how many
-    # earlier (choice-major) pairs picked that expert.
+    # Each (choice, token) pair's slot in its expert's buffer: how many
+    # pairs picked that expert before it, choice-major over the global
+    # batch, as GSPMD counts them: every block's pairs of the earlier
+    # choices, then the pairs of its choice in the row blocks ahead of
+    # this rank's (``_Blocks``), then this rank's own earlier tokens'.
+    # The capacity counts the global tokens too.
+    blocks = _Blocks(current_mesh(), 1)
+    capacity = max(int(math.ceil(T * blocks.n * cfg.capacity_factor * K
+                                 / E)), K, min_capacity)
     onehot = (top_idx[..., None] == torch.arange(E, device=x.device)).to(
         torch.float32)  # [T, K, E]
     oh_km = onehot.transpose(0, 1)  # [K, T, E]
-    flat = oh_km.reshape(K * T, E)
-    pos_in_expert = ((flat.cumsum(0) - flat) * flat).sum(-1).reshape(K, T)
+    counts = oh_km.sum(1)  # [K, E]
+    ahead = torch.zeros_like(counts)
+    if blocks.n > 1:
+        every = blocks.gather(counts.reshape(-1)).reshape(blocks.n, K, E)
+        counts, ahead = every.sum(0), every[:blocks.index].sum(0)
+    # The scan runs along the contiguous last dimension (_exclusive_count).
+    within = oh_km.transpose(1, 2).contiguous().cumsum(-1).transpose(1, 2)
+    pos_in_expert = ((within - oh_km + (counts.cumsum(0) - counts
+                                        + ahead)[:, None])
+                     * oh_km).sum(-1)  # [K, T]
     keep = pos_in_expert < capacity
     # A slot past capacity one-hots to zeros (jax.nn.one_hot's rule).
     slot_onehot = (pos_in_expert.to(torch.long)[..., None]
@@ -586,7 +589,8 @@ def moe_block(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate, w_up,
     expert_in = torch.einsum("tec,td->ecd", dispatch.to(dt), tokens)
     expert_out = _experts(cfg, expert_in, w_gate, w_up, w_down)
     out = torch.einsum("tec,ecd->td", combine.to(dt), expert_out)
-    aux = _router_aux_loss(cfg, onehot[:, 0, :].mean(0), probs.mean(0))
+    aux = _router_aux_loss(cfg, block_mean(onehot[:, 0, :].mean(0)),
+                           block_mean(probs.mean(0)))
     return out.reshape(B, S, D), aux
 
 
@@ -679,11 +683,13 @@ def model_def(name: str, **overrides) -> ModelDef:
     cfg = dataclasses.replace(CONFIGS[name], **overrides)
     return ModelDef(
         name=name,
-        init=lambda generator, device: init(cfg, generator, device=device),
+        init=lambda generator, device, take=WHOLE: init(
+            cfg, generator, device=device, take=take),
         apply=functools.partial(apply, cfg),
         unit="tokens",
         config=cfg,
         uniform_metrics=("router_aux",),
+        sharded_init=True,
         logical_axes=functools.partial(logical_axes, cfg),
         layer_stacks=("layers",),
         tensor_parallel=True,
@@ -709,10 +715,11 @@ def _prompt_pass(cfg: MoEConfig, params: dict, prompt: torch.Tensor):
     positions = llama._positions(B, P, prompt.device)
     x = llama._embed(cfg, params, prompt, cfg.dtype)
     ks, vs = [], []
-    for layer in llama._layers(params):
+    for layer in llama._serving_layers(params):
         q, k, v = llama._qkv(cfg, layer, x, positions)
         attn = llama._attention(cfg, q, k, v)
-        x = x + attn.reshape(B, P, -1) @ _w(layer["wo"], cfg.dtype)
+        x = x + reduce_from_tp(attn.reshape(B, P, -1)
+                               @ _w(layer["wo"], cfg.dtype))
         x, _ = _moe_residual(cfg, x, layer)
         ks.append(k)
         vs.append(v)
@@ -734,7 +741,7 @@ def prefill(cfg: MoEConfig, params: dict, prompt: torch.Tensor,
     cache["v"][:, :, :P] = v_all
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, -1] @ lm_head(cfg, params)).to(torch.float32)
-    return logits, cache
+    return llama._vocab_whole(cfg, logits), cache
 
 
 def lm_head(cfg: MoEConfig, params: dict) -> torch.Tensor:
@@ -745,8 +752,8 @@ def lm_head(cfg: MoEConfig, params: dict) -> torch.Tensor:
 
 def decode_logits(cfg: MoEConfig, params: dict,
                   x: torch.Tensor) -> torch.Tensor:
-    return lm_logits(x, params["lm_head"], cfg.dtype,
-                     chunk=cfg.lm_logits_chunk)
+    return llama._vocab_whole(cfg, lm_logits(x, params["lm_head"], cfg.dtype,
+                                             chunk=cfg.lm_logits_chunk))
 
 
 def decode_step_ragged(cfg: MoEConfig, params: dict, cache: dict,
@@ -759,7 +766,7 @@ def decode_step_ragged(cfg: MoEConfig, params: dict, cache: dict,
     C = cache["k"].shape[2]
     positions, slot, valid = llama.ragged_cache_coords(pos, C)
     x = llama._embed(cfg, params, tokens, cfg.dtype)[:, None, :]
-    for i, layer in enumerate(llama._layers(params)):
+    for i, layer in enumerate(llama._serving_layers(params)):
         x, _, _ = llama.cached_attn_step(cfg, layer, x, cache["k"][i],
                                          cache["v"][i], positions, slot,
                                          valid)
@@ -791,7 +798,7 @@ def decode_chunk(cfg: MoEConfig, params: dict, cache: dict,
     valid = (torch.arange(C, device=dev)[None, None, :]
              <= positions[:, :, None])[:, None]
     x = llama._embed(cfg, params, tokens, cfg.dtype)
-    for i, layer in enumerate(llama._layers(params)):
+    for i, layer in enumerate(llama._serving_layers(params)):
         x, _, _ = llama.chunk_attn_step(cfg, layer, x, cache["k"][i],
                                         cache["v"][i], positions, valid)
         x, _ = _moe_residual(cfg, x, layer, min_capacity=B * c)
@@ -840,7 +847,7 @@ def decode_step_paged(cfg: MoEConfig, params: dict, cache: dict,
     kernel_args = (llama.paged_kernel_args(positions, tables, valid)
                    if cfg.paged_attention_impl == "auto" else None)
     x = llama._embed(cfg, params, tokens, cfg.dtype)[:, None, :]
-    for i, layer in enumerate(llama._layers(params)):
+    for i, layer in enumerate(llama._serving_layers(params)):
         x, _, _ = llama.paged_attn_step(
             cfg, layer, x, cache["k"][i], cache["v"][i], positions,
             write_page, write_off, tables, valid, kernel_args)
@@ -872,7 +879,7 @@ def paged_prefill_suffix_kv(cfg: MoEConfig, params: dict,
     valid = llama._suffix_mask(S, m_pad, int(m), device=suffix.device)
     x = llama._embed(cfg, params, suffix, cfg.dtype)
     ks, vs = [], []
-    for i, layer in enumerate(llama._layers(params)):
+    for i, layer in enumerate(llama._serving_layers(params)):
         x, k, v = llama.suffix_attn_step(cfg, layer, x, k_prefix[i][None],
                                          v_prefix[i][None], positions, valid)
         x, _ = _moe_residual(cfg, x, layer, min_capacity=B * S)

@@ -32,6 +32,7 @@ from polyaxon_tpu_torch.models.common import (
     scaled_init,
     tree_from_numpy,
 )
+from polyaxon_tpu_torch.parallel.mesh import block_mean
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -129,11 +130,15 @@ def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
 
 
 def _bn(x: torch.Tensor, p: dict, s: dict, train: bool):
-    """(normalized, new running state); statistics over N, H, W in f32."""
+    """(normalized, new running state); statistics over N, H, W in f32,
+    of the global batch under a mesh whose batch axes hold different
+    rows (``block_mean`` over the row blocks, two passes as ``jnp.var``
+    takes them), so every rank keeps the same running statistics."""
     x32 = x.to(torch.float32)
     if train:
-        mean = x32.mean(dim=(0, 2, 3))
-        var = x32.var(dim=(0, 2, 3), unbiased=False)
+        mean = block_mean(x32.mean(dim=(0, 2, 3)))
+        c = (None, slice(None), None, None)
+        var = block_mean((x32 - mean[c]).square().mean(dim=(0, 2, 3)))
         new_state = {
             "mean": BN_MOMENTUM * s["mean"] + (1 - BN_MOMENTUM) * mean,
             "var": BN_MOMENTUM * s["var"] + (1 - BN_MOMENTUM) * var,

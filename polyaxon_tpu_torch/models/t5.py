@@ -302,12 +302,20 @@ def model_def(name: str, **overrides) -> ModelDef:
 
 
 # ---------------------------------------------------------------- decode
+def _serving_layers(params: dict):
+    """The decoder's per-layer views for a serving pass, each layer's
+    fsdp shards gathered where its turn comes (``parallel/fsdp.py``)."""
+    from polyaxon_tpu_torch.parallel.fsdp import gathered
+
+    return (gathered(layer) for layer in unstack(params["dec_layers"]))
+
+
 def precompute_cross_kv(cfg: T5Config, params: dict,
                         enc_out: torch.Tensor) -> dict:
     """Cross-attention K/V of the encoder output, once per request:
     {k, v: [L, B, Se, H, Hd]}."""
     ks, vs = [], []
-    for layer in unstack(params["dec_layers"]):
+    for layer in _serving_layers(params):
         k, v = _cross_kv(cfg, layer, enc_out)
         ks.append(k)
         vs.append(v)
@@ -354,7 +362,7 @@ def decode_step_ragged(cfg: T5Config, params: dict, cache: dict,
              & live)[:, None, None, :]
     xvalid = (cache["xmask"] & live)[:, None, None, :]
     x = _embed_rows(params["embed"], tokens, dt)[:, None, :]
-    for i, layer in enumerate(unstack(params["dec_layers"])):
+    for i, layer in enumerate(_serving_layers(params)):
         h = rms_norm(x, layer["self_norm"], cfg.norm_eps)
         q = rope((h @ _w(layer["wq"], dt)).reshape(B, 1, H, Hd), positions,
                  cfg.rope_theta)

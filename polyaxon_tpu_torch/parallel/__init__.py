@@ -2,7 +2,7 @@
 process bootstrap, the sharding rules, gather at use, tensor
 parallelism and the pipeline schedule. Every axis is placed; a few
 combinations of the model-parallel axes are ROADMAP.md, Queue 1 item
-7c."""
+7d."""
 
 from polyaxon_tpu_torch.parallel.bootstrap import (ProcessGroup, initialize,
                                                    read_env_contract)

@@ -50,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from polyaxon_tpu_torch.parallel.compat import REPLICA_AXES
+from polyaxon_tpu_torch.models.common import is_quantized
 
 
 class _AllGather(torch.autograd.Function):
@@ -82,6 +83,8 @@ def all_gather(x: torch.Tensor, dim: int, group,
 
 
 def _gather_all(local: torch.Tensor, gathers) -> torch.Tensor:
+    if is_quantized(local):  # an int8 serving weight
+        local = local.dequantize()
     for dim, group, average in gathers:
         local = all_gather(local, dim, group, average)
     return local
@@ -111,11 +114,13 @@ class ShardedStack:
                      for t in self.local.unbind(0))
 
 
-def _gather_value(v):
+def gathered(v):
+    """``v`` with every ``ShardedSlice`` in it gathered (plain tensors as
+    they are)."""
     if isinstance(v, ShardedSlice):
         return v.gather()
     if isinstance(v, dict):
-        return {k: _gather_value(x) for k, x in v.items()}
+        return {k: gathered(x) for k, x in v.items()}
     return v
 
 
@@ -132,7 +137,7 @@ def gather_args(body):
     @functools.wraps(body)
     def gathering(*args, **kwargs):
         with use_mesh(mesh):
-            return body(*(_gather_value(a) if isinstance(a, dict) else a
+            return body(*(gathered(a) if isinstance(a, dict) else a
                           for a in args), **kwargs)
 
     return gathering
@@ -202,6 +207,34 @@ def model_view(model_def, params: Any, mesh) -> Any:
     return walk(params, None)
 
 
+def serving_view(model_def, pieces: Any, placements: Any, mesh) -> Any:
+    """``model_view`` of a serving tree, which holds each leaf's local
+    piece (a tensor, or an int8 ``QuantizedTensor``) beside its
+    placements instead of DTensors: the same gathers at use, no
+    gradient. An int8 piece that is gathered is dequantized first (the
+    scales of its columns are its own; along the contraction axis they
+    are one all-reduced maximum)."""
+    stacks, kept = model_def.layer_stacks, local_axes(model_def)
+
+    def view(t, pl, top):
+        gathers = [(p.dim, mesh.group(name), False)
+                   for name, p in zip(mesh.axis_names, pl)
+                   if p.is_shard() and name not in kept]
+        if not gathers:
+            return t
+        if top in stacks and all(dim > 0 for dim, _, _ in gathers):
+            return ShardedStack(t, gathers)
+        return _gather_all(t, gathers)
+
+    def walk(tree, pls, top):
+        if isinstance(tree, dict):
+            return {k: walk(v, pls[k], top if top is not None else k)
+                    for k, v in tree.items()}
+        return view(tree, pls, top)
+
+    return walk(pieces, placements, None)
+
+
 def local(t):
     """A DTensor's local tensor (sharing storage, no grad), else ``t``."""
     from torch.distributed.tensor import DTensor
@@ -221,25 +254,41 @@ def reduce_grads(params: list, mesh, replicas: tuple
                  ) -> list[torch.Tensor]:
     """Each parameter's gradient reduced to the parameter's placements,
     as local tensors: summed over each mesh axis where its gradient is
-    Partial (``grad_placements``), one all-reduce per axis in mesh
-    order. Where none flowed on this rank (a leaf another pipeline stage
-    uses) it is zeros, reduced all the same, so that every rank joins
-    every leaf's collectives. Plain parameters (no mesh) give their
-    gradients as they are."""
+    still Partial, one all-reduce per axis in mesh order. The gradient's
+    own placements say where (``grad_placements`` at the view, but
+    autograd may already have reduced one: on CUDA a convolution
+    weight's gradient arrives Replicate). Where none flowed on this rank
+    (a leaf another pipeline stage uses) it is zeros, reduced all the
+    same, so that every rank joins every leaf's collectives. Plain
+    parameters (no mesh) give their gradients as they are."""
     from torch.distributed.tensor import DTensor
 
     out = []
     for p in params:
         g = p.grad
-        g = torch.zeros_like(local(p)) if g is None else (
-            g.to_local() if isinstance(g, DTensor) else g)
-        if mesh is not None and mesh.size > 1 and isinstance(p, DTensor):
-            for name, pl in zip(mesh.axis_names,
-                                grad_placements(p, mesh, replicas)):
+        if isinstance(g, DTensor):
+            placements, g = g.placements, g.to_local()
+        else:
+            g = torch.zeros_like(local(p)) if g is None else g
+            placements = (grad_placements(p, mesh, replicas)
+                          if isinstance(p, DTensor) else ())
+        if mesh is not None and mesh.size > 1:
+            for name, pl in zip(mesh.axis_names, placements):
                 if pl.is_partial() and mesh.shape[name] > 1:
                     dist.all_reduce(g, group=mesh.group(name))
         out.append(g)
     return out
+
+
+def shard_layout(params: list, mesh) -> list:
+    """Per parameter, what the optimizer needs to treat its local piece
+    as the whole leaf (``runtime/optim.py Layout``): the global shape
+    and (dim, group) of each mesh axis that shards it."""
+    return [(tuple(p.shape),
+             tuple((dim, mesh.group(name))
+                   for name, dim in _sharded_axes(p, mesh)))
+            if hasattr(p, "placements") else (tuple(p.shape), ())
+            for p in params]
 
 
 def global_norm(params: list, grads: list[torch.Tensor], mesh

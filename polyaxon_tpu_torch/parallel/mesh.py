@@ -24,6 +24,7 @@ import logging
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from polyaxon_tpu_torch.parallel.compat import axes_above_one, axis_size
 
@@ -246,6 +247,73 @@ def axis_ranks(mesh: Mesh, name: str) -> list[int]:
     return [int(r) for r in np.asarray(mesh.devices[index]).reshape(-1)]
 
 
+# Set while every rank of the current mesh holds the same rows (a served
+# batch: `serving/gang.py`), so that the batch axes hold no different
+# row blocks.
+_REPLICATED_ROWS: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "polyaxon_tpu_torch_replicated_rows", default=False)
+
+
+@contextlib.contextmanager
+def replicated_rows():
+    """Compute as if the batch axes of the current mesh held one row
+    block: every rank holds the same rows (a served batch), so a
+    statistic or a count over the batch is this rank's own."""
+    token = _REPLICATED_ROWS.set(True)
+    try:
+        yield
+    finally:
+        _REPLICATED_ROWS.reset(token)
+
+
+def row_block_axes(mesh: Optional[Mesh]) -> tuple:
+    """The batch axes above 1 whose ranks hold different rows of the
+    global batch (dp, fsdp, ep, in mesh order); none without a mesh or
+    under ``replicated_rows``."""
+    from polyaxon_tpu_torch.parallel.compat import BATCH_AXES
+
+    if mesh is None or _REPLICATED_ROWS.get():
+        return ()
+    return axes_above_one(mesh, BATCH_AXES)
+
+
+def row_block(mesh: Optional[Mesh]) -> tuple[int, int]:
+    """(number of row blocks, this rank's block): the ranks of
+    ``row_block_axes`` in the order the global batch lays its rows out
+    (outer axes first)."""
+    n, index = 1, 0
+    for name in row_block_axes(mesh):
+        n *= mesh.shape[name]
+        index = index * mesh.shape[name] + axis_rank(mesh, name)
+    return n, index
+
+
+class _BlockMean(torch.autograd.Function):
+    """The mean over the row blocks (``axes``); its backward is the same
+    mean of the gradients, since every rank holds the mean."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, n):
+        ctx.mesh, ctx.axes, ctx.n = mesh, axes, n
+        return all_reduce_over(t.clone(), mesh, axes) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_reduce_over(g.contiguous().clone(), ctx.mesh, ctx.axes)
+                / ctx.n, None, None, None)
+
+
+def block_mean(t):
+    """``t`` (a statistic of this rank's rows) averaged over the row
+    blocks of the current mesh, differentiably: the global batch's
+    statistic when the blocks hold equal row counts. ``t`` itself
+    without row blocks."""
+    mesh = current_mesh()
+    n, _ = row_block(mesh)
+    return t if n == 1 else _BlockMean.apply(t, mesh, row_block_axes(mesh),
+                                             n)
+
+
 def all_reduce_over(t, mesh: Mesh, names, op=None):
     """All-reduce ``t`` in place over the ranks that share this rank's
     coordinates on every axis but ``names``: one collective over the
@@ -266,6 +334,7 @@ def all_reduce_over(t, mesh: Mesh, names, op=None):
 
 
 __all__ = ["AXIS_ALIASES", "all_reduce_over", "AXIS_ORDER", "Mesh", "axis_rank", "axis_ranks",
-           "build_mesh", "canonical_axes", "current_mesh", "mesh_summary",
-           "order_axes", "parse_mesh_axes", "seq_shard",
+           "block_mean", "build_mesh", "canonical_axes", "current_mesh", "mesh_summary",
+           "order_axes", "parse_mesh_axes", "replicated_rows",
+           "row_block", "row_block_axes", "seq_shard",
            "single_device_mesh", "use_mesh"]

@@ -12,7 +12,7 @@ per mesh dimension) and ``distribute`` places a parameter tree by them.
 The port places every axis. A few combinations of the model-parallel
 axes raise (``require_ported``): ``pp`` beside any axis but ``dp``,
 ``tp`` beside ``cp``, ``ep`` or ``pp``, and ``ep`` beside ``fsdp``,
-``cp`` or ``tp`` (ROADMAP.md, Queue 1 item 7c).
+``cp`` or ``tp`` (ROADMAP.md, Queue 1 item 7d).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ STRATEGY_RULES: dict[str, Rules] = {
 }
 
 # Axes that the port places beside a model-parallel axis only as these
-# pairs allow: the others are ROADMAP.md, Queue 1 item 7c.
+# pairs allow: the others are ROADMAP.md, Queue 1 item 7d.
 REFUSED_BESIDE = {
     "pp": ("fsdp", "cp", "sp", "ep", "tp"),
     "tp": ("cp", "ep", "pp"),
@@ -99,7 +99,7 @@ def require_ported(shape: dict) -> None:
         if clash:
             raise NotImplementedError(
                 f"mesh axes {dict(shape)}: `{axis}` beside {clash} is not "
-                "ported yet (ROADMAP.md, Queue 1 item 7c)")
+                "ported yet (ROADMAP.md, Queue 1 item 7d)")
 
 
 def merge_rules(*rule_sets: Rules) -> Rules:
@@ -129,6 +129,32 @@ def rules_for_mesh(mesh, base: Optional[Rules] = None) -> Rules:
     if base is not None:
         sets.append(base)
     return merge_rules(*sets)
+
+
+# Axes a serving mesh may hold above 1: the JAX server shards over any
+# mesh; the port's gang serves dp, fsdp and tp and their products.
+SERVED_AXES = ("dp", "fsdp", "tp")
+
+
+def require_servable(shape: dict) -> None:
+    """Raise for a serving mesh (its axes' sizes) with an axis above 1
+    that the gang does not serve yet (ROADMAP.md, Queue 1 item 7d)."""
+    other = sorted(a for a, n in shape.items()
+                   if n != 1 and a not in SERVED_AXES)
+    if other:
+        raise NotImplementedError(
+            f"serving over mesh axes {dict(shape)}: {other} above 1 is not "
+            "ported yet (ROADMAP.md, Queue 1 item 7d); a serving mesh "
+            f"holds {list(SERVED_AXES)}")
+
+
+def serving_rules(mesh) -> Rules:
+    """The rules sharded serving places a model's weights by: the mesh's
+    (``rules_for_mesh`` over the family's logical axes, as the JAX
+    server's ``load_params`` places them), for a mesh that
+    ``require_servable`` takes."""
+    require_servable(mesh.shape)
+    return rules_for_mesh(mesh)
 
 
 def logical_to_spec(logical_axes: Sequence[Optional[str]], rules: Rules, *,
@@ -210,42 +236,142 @@ def batch_spec(mesh, rules: Rules, ndim: int = 2) -> PartitionSpec:
                            mesh=mesh)
 
 
-def local_chunk(full: torch.Tensor, placements, mesh, coords: dict
-                ) -> torch.Tensor:
-    """This rank's piece of ``full`` under ``placements`` (even shards
-    only: a dimension that does not divide raises)."""
-    out = full
+class _LeafShard:
+    """One leaf's shard on this rank: its local shape, and each slab's
+    piece (``take``)."""
+
+    def __init__(self, shape: tuple, ranges: dict):
+        self.full = tuple(shape)
+        self.ranges = ranges  # dim -> (first index, length) kept here
+        self.shape = tuple(ranges.get(d, (0, n))[1]
+                           for d, n in enumerate(shape))
+
+    def take(self, slab: torch.Tensor, *lead: int):
+        """(local leading index, this rank's piece of ``slab``) for the
+        slab at global leading indices ``lead`` (a layer, or a layer and
+        an expert, of a stacked leaf; none for a whole leaf), or None when
+        the slab lies outside this rank's shard. The piece is a copy, so
+        the slab's memory goes with it."""
+        where = []
+        for d, i in enumerate(lead):
+            lo, n = self.ranges.get(d, (0, self.full[d]))
+            if not lo <= i < lo + n:
+                return None
+            where.append(i - lo)
+        piece = slab
+        for d, (lo, n) in self.ranges.items():
+            if d >= len(lead):
+                piece = piece.narrow(d - len(lead), lo, n)
+        if piece is slab:
+            return tuple(where), slab
+        return tuple(where), piece.clone(memory_format=torch.contiguous_format)
+
+
+def leaf_shard(shape, placements, mesh, coords: dict,
+               what: str = "a tensor") -> _LeafShard:
+    """The shard of a leaf of ``shape`` that the rank at ``coords`` holds
+    under ``placements`` (even shards only: a dimension that does not
+    divide raises)."""
+    ranges: dict = {}
     for name, pl in zip(mesh.axis_names, placements):
         if not pl.is_shard():
             continue
-        n = mesh.shape[name]
-        if out.shape[pl.dim] % n:
+        lo, n = ranges.get(pl.dim, (0, shape[pl.dim]))
+        k = mesh.shape[name]
+        if n % k:
             raise ValueError(
-                f"dimension {pl.dim} of a {tuple(full.shape)} tensor does not "
-                f"divide over mesh axis `{name}` of size {n}")
-        out = out.chunk(n, dim=pl.dim)[coords[name]]
-    return out
+                f"dimension {pl.dim} of {what} {tuple(shape)} does not "
+                f"divide over mesh axis `{name}` of size {k}")
+        ranges[pl.dim] = (lo + coords[name] * (n // k), n // k)
+    return _LeafShard(tuple(shape), ranges)
+
+
+class ShardTaker:
+    """Each rank's shards of a parameter tree drawn or read one slab at a
+    time: ``leaf(path, shape)`` gives a leaf's local shape and cuts each
+    slab it is handed (``_LeafShard.take``), by the placements of the
+    tree's logical axes under ``rules`` on ``mesh``. So a family's init
+    draws every slab from the same seeded stream on every rank and keeps
+    its piece: no rank holds more than its shards and one slab. Without a
+    mesh (``ShardTaker()``) every leaf is whole."""
+
+    def __init__(self, logical_tree: Any = None, mesh=None,
+                 rules: Optional[Rules] = None):
+        self.mesh = mesh
+        self.placements = (None if mesh is None else
+                           tree_placements(logical_tree, mesh, rules))
+        if mesh is not None:
+            from polyaxon_tpu_torch.parallel.bootstrap import rank
+
+            self.coords = mesh.coords(rank())
+
+    def _placements(self, path: tuple) -> list:
+        node = self.placements
+        for key in path:
+            node = node[key]
+        return node
+
+    def leaf(self, path: tuple, shape) -> _LeafShard:
+        if self.mesh is None:
+            return _LeafShard(tuple(shape), {})
+        return leaf_shard(shape, self._placements(path), self.mesh,
+                          self.coords, "/".join(path))
+
+    def axes(self, path: tuple, dim: int) -> list[str]:
+        """The mesh axes that shard dimension ``dim`` of the leaf at
+        ``path``."""
+        if self.mesh is None:
+            return []
+        return [name for name, pl in zip(self.mesh.axis_names,
+                                         self._placements(path))
+                if pl.is_shard() and pl.dim == dim]
+
+    def whole(self, path: tuple, t: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of a whole leaf ``t``."""
+        return self.leaf(path, t.shape).take(t)[1]
+
+    def tree(self, tree: dict, prefix: tuple = ()) -> dict:
+        """Every leaf of a whole tree cut to its piece, one at a time (for
+        a family whose init draws whole leaves, or a checkpoint read
+        whole)."""
+        return {k: (self.tree(v, prefix + (k,)) if isinstance(v, dict)
+                    else self.whole(prefix + (k,), v))
+                for k, v in tree.items()}
+
+
+WHOLE = ShardTaker()
+
+
+def distribute_local(tree: Any, placements: Any, mesh) -> Any:
+    """Place a tree of this rank's pieces (cut by a ``ShardTaker`` under
+    the same placements) as DTensors; no collective runs."""
+    from torch.distributed.tensor import DTensor
+
+    dmesh = mesh.device_mesh()
+
+    def place(t, pl):
+        out = DTensor.from_local(t.detach(), dmesh, pl, run_check=False)
+        return out.requires_grad_(t.requires_grad) if t.is_floating_point() \
+            else out
+
+    return _zip_map(place, tree, placements)
 
 
 def distribute(tree: Any, placements: Any, mesh) -> Any:
     """Place a tree of full tensors (equal on every rank: drawn from one
     seed, or read from one checkpoint) as DTensors, each rank keeping its
     own chunk; no collective runs. ``requires_grad`` carries over."""
-    from torch.distributed.tensor import DTensor
-
     from polyaxon_tpu_torch.parallel.bootstrap import rank
 
-    dmesh = mesh.device_mesh()
     coords = mesh.coords(rank())
 
-    def place(t, pl):
-        local = local_chunk(t.detach(), pl, mesh, coords).contiguous()
-        out = DTensor.from_local(local, dmesh, pl, run_check=False,
-                                 shape=t.shape, stride=t.stride())
-        return out.requires_grad_(t.requires_grad) if t.is_floating_point() \
-            else out
+    def cut(t, pl):
+        piece = leaf_shard(t.shape, pl, mesh, coords).take(t.detach())[1]
+        return piece.requires_grad_(t.requires_grad) \
+            if t.is_floating_point() else piece
 
-    return _zip_map(place, tree, placements)
+    return distribute_local(_zip_map(cut, tree, placements), placements,
+                            mesh)
 
 
 def _zip_map(fn, tree, other):

@@ -154,11 +154,13 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, dt,
                 shard: tuple[int, object]) -> torch.Tensor:
     """Rows of ``tokens`` from a vocab-parallel table [V/tp, D]: each
     rank's own ids, zeros elsewhere, summed over tp."""
+    from polyaxon_tpu_torch.models.common import _embed_rows
+
     start, _ = shard
     rows = table.shape[0]
     ids = tokens - start
     inside = (ids >= 0) & (ids < rows)
-    x = table[ids.clamp(0, rows - 1)].to(dt)
+    x = _embed_rows(table, ids.clamp(0, rows - 1), dt)
     x = torch.where(inside[..., None], x, torch.zeros((), dtype=dt,
                                                       device=x.device))
     return reduce_from_tp(x)

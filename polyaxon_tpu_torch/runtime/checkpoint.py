@@ -40,7 +40,7 @@ import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as wait_all
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -301,13 +301,18 @@ def read_manifest(directory: str, step: int) -> dict:
 
 
 def load_tree(directory: str, step: Optional[int] = None, *,
-              only: Optional[str] = None) -> tuple[int, dict]:
+              only: Optional[str] = None,
+              take: Optional[Callable[[str, Any], Any]] = None
+              ) -> tuple[int, dict]:
     """(step, tree) of a committed store step (the latest by default)
     with its leaves on the host, CRC-checked: tensor leaves as CPU
     tensors of their saved dtype, ints as ints, lists as dicts keyed by
     index. ``only``: read just the subtree of that name
     when the step has one (``"params"`` of a train state), else all.
-    For readers without the state's structure (serving a checkpoint)."""
+    ``take(path, leaf)`` replaces each leaf as it is read (a sharded
+    server's rank keeps its piece: one whole leaf on the host at a
+    time). For readers without the state's structure (serving a
+    checkpoint)."""
     directory = os.path.abspath(directory)
     if step is None:
         steps = _list_store_steps(directory)
@@ -330,6 +335,8 @@ def load_tree(directory: str, step: Optional[int] = None, *,
                 value = value.view(torch.bfloat16)
         else:
             value = int(arr)
+        if take is not None:
+            value = take(entry["path"], value)
         node = tree
         *parents, leaf_key = entry["path"].split("/")
         for key in parents:

@@ -63,7 +63,7 @@ from polyaxon_tpu_torch.runtime.config import RuntimeConfig
 from polyaxon_tpu_torch.runtime.flops import peak_flops, train_flops_per_token
 from polyaxon_tpu_torch.runtime.optim import build_optimizer, tree_leaves
 from polyaxon_tpu_torch.runtime.step import (build_eval_step, build_init,
-                                             build_train_step)
+                                             build_train_step, rank_rows)
 
 logger = logging.getLogger(__name__)
 
@@ -307,7 +307,10 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
     # of a replica axis (tp, sp, pp) train the same rows; under cp every
     # rank keeps the whole rows and the model cuts its sequence shard
     # after the next-token shift. So a step trains per_host_batch rows
-    # per batch shard, per_host_batch x dp x fsdp x ep in all.
+    # per batch shard, per_host_batch x dp x fsdp x ep in all. Under
+    # gradient accumulation each rank's microbatch m is its block of the
+    # global batch's m-th slice, as the reference cuts microbatches
+    # (``rank_rows``).
     per_host_batch = global_batch // n_proc
     accum = max(int(cfg.grad_accum_steps or 1), 1)
     if per_host_batch % accum:
@@ -389,9 +392,11 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
     # Batch i is a function of (seed, i): a restored run resumes the
     # stream at its step, and the warm-up step below consumes batch
     # `start_step`.
+    # Each rank lays its rows out so that its microbatches are its blocks
+    # of the global batch's (``rank_rows``).
     host = data_lib.host_batches(
-        data_lib.get_dataset(dataset_name, start_batch=start_step,
-                             **ds_kwargs),
+        (rank_rows(b, mesh, accum) for b in data_lib.get_dataset(
+            dataset_name, start_batch=start_step, **ds_kwargs)),
         pin=pin)
     if cfg.prefetch > 0:
         host = prefetcher = data_lib.PrefetchIterator(host, depth=cfg.prefetch)

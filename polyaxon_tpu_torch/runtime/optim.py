@@ -120,6 +120,67 @@ def _rms(x: torch.Tensor) -> torch.Tensor:
     return x.square().mean().sqrt()
 
 
+# A leaf's layout for the optimizer: its global shape and, per sharded
+# dimension, (dim, process group) of each mesh axis that shards it
+# (``parallel/fsdp.py shard_layout``); ``(shape, ())`` for a whole leaf.
+Layout = tuple[tuple[int, ...], tuple[tuple[int, object], ...]]
+
+
+def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
+    import torch.distributed as dist
+
+    for group in groups:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def _mean_over(x: torch.Tensor, dim: int, layout: Layout) -> torch.Tensor:
+    """The mean of a leaf over ``dim`` of its global shape, from this
+    rank's piece: local sums all-reduced over the groups that shard
+    ``dim``."""
+    shape, shards = layout
+    groups = [g for d, g in shards if d == dim]
+    if not groups:
+        return x.mean(dim)
+    return _all_reduce(x.sum(dim), groups) / shape[dim]
+
+
+def _rms_over(x: torch.Tensor, layout: Layout) -> torch.Tensor:
+    """The RMS of a whole leaf from this rank's piece."""
+    shape, shards = layout
+    if not shards:
+        return _rms(x)
+    total = _all_reduce(x.square().sum(), [g for _, g in shards])
+    return (total / float(np.prod(shape))).sqrt()
+
+
+def _without(layout: Layout, dim: int) -> Layout:
+    """The layout of a leaf's reduction over ``dim`` (a factored second
+    moment): replicated where ``dim`` was sharded (its sums were
+    all-reduced), the later dimensions one lower."""
+    shape, shards = layout
+    return (tuple(n for i, n in enumerate(shape) if i != dim),
+            tuple((d - (d > dim), g) for d, g in shards if d != dim))
+
+
+def _zeros_without(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """Zeros of ``p``'s shape without ``dim``; for a placed (DTensor)
+    ``p``, its local piece placed as ``p`` is on the other dimensions
+    and replicated on an axis that shards ``dim``."""
+    shape = [n for i, n in enumerate(p.shape) if i != dim]
+    if not hasattr(p, "placements"):
+        return p.new_zeros(shape)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    local = p.detach().to_local()
+    placements = [Replicate() if pl.is_shard() and pl.dim == dim
+                  else Shard(pl.dim - (pl.dim > dim)) if pl.is_shard()
+                  else pl for pl in p.placements]
+    return DTensor.from_local(
+        local.new_zeros([n for i, n in enumerate(local.shape) if i != dim]),
+        p.device_mesh, placements, run_check=False)
+
+
 @dataclasses.dataclass
 class Optimizer:
     """One of adamw, adam, sgd, lion, adafactor, with an optional
@@ -143,32 +204,39 @@ class Optimizer:
             v_row, v_col, v = [], [], []
             for p in leaves:
                 dims = _factored_dims(tuple(p.shape))
+                # A placed leaf's factored moments are placed pieces
+                # too; the unused ones are one plain element.
+                one = torch.zeros(1, device=p.device)
                 if dims is None:
-                    v_row.append(p.new_zeros((1,)))
-                    v_col.append(p.new_zeros((1,)))
+                    v_row.append(one)
+                    v_col.append(one.clone())
                     v.append(torch.zeros_like(p))
                 else:
                     d1, d0 = dims
-                    v_row.append(p.new_zeros(
-                        [n for i, n in enumerate(p.shape) if i != d0]))
-                    v_col.append(p.new_zeros(
-                        [n for i, n in enumerate(p.shape) if i != d1]))
-                    v.append(p.new_zeros((1,)))
+                    v_row.append(_zeros_without(p, d0))
+                    v_col.append(_zeros_without(p, d1))
+                    v.append(one)
             return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
         return {"count": 0, "mu": zeros(), "nu": zeros()}
 
     @torch.no_grad()
     def update(self, params: dict, grads: list[torch.Tensor], state: dict,
-               grad_norm: Optional[torch.Tensor] = None) -> None:
+               grad_norm: Optional[torch.Tensor] = None,
+               layout: Optional[list[Layout]] = None) -> None:
         """One update, in place on ``params``' tensors, ``grads`` (when
         clipped) and ``state``. ``grads`` follow ``tree_leaves(params)``;
-        ``grad_norm`` may pass their global norm when already known."""
-        self.update_leaves(tree_leaves(params), grads, state, grad_norm)
+        ``grad_norm`` may pass their global norm when already known.
+        ``layout`` (one per leaf) is given when the tensors are pieces of
+        sharded leaves: adafactor's factored moments and RMS span whole
+        leaves, and are reduced over the shards."""
+        self.update_leaves(tree_leaves(params), grads, state, grad_norm,
+                           layout)
 
     @torch.no_grad()
     def update_leaves(self, leaves: list[torch.Tensor],
                       grads: list[torch.Tensor], state: dict,
-                      grad_norm: Optional[torch.Tensor] = None) -> None:
+                      grad_norm: Optional[torch.Tensor] = None,
+                      layout: Optional[list[Layout]] = None) -> None:
         if self.clip_norm:
             clip_by_global_norm(grads, self.clip_norm, grad_norm)
         count = state["count"]
@@ -188,7 +256,7 @@ class Optimizer:
                 p.add_(u, alpha=-lr)
             return
         if self.kind == "adafactor":
-            self._adafactor(leaves, grads, state, count, lr)
+            self._adafactor(leaves, grads, state, count, lr, layout)
             return
         bc1 = 1.0 - B1 ** (count + 1)
         bc2 = 1.0 - self.b2 ** (count + 1)
@@ -201,12 +269,14 @@ class Optimizer:
             p.add_(u, alpha=-lr)
 
     @staticmethod
-    def _adafactor(leaves, grads, state, count: int, lr: float) -> None:
+    def _adafactor(leaves, grads, state, count: int, lr: float,
+                   layout: Optional[list[Layout]] = None) -> None:
         decay = 1.0 - float(np.float32(count + 1) ** np.float32(
             -ADAFACTOR_DECAY))
         for i, (p, g) in enumerate(zip(leaves, grads)):
+            lay = layout[i] if layout else (tuple(p.shape), ())
             sq = g.square() + ADAFACTOR_EPS
-            dims = _factored_dims(tuple(p.shape))
+            dims = _factored_dims(lay[0])
             if dims is None:
                 v = state["v"][i]
                 v.mul_(decay).add_(sq, alpha=1.0 - decay)
@@ -214,16 +284,19 @@ class Optimizer:
             else:
                 d1, d0 = dims
                 v_row, v_col = state["v_row"][i], state["v_col"][i]
-                v_row.mul_(decay).add_(sq.mean(d0), alpha=1.0 - decay)
-                v_col.mul_(decay).add_(sq.mean(d1), alpha=1.0 - decay)
+                v_row.mul_(decay).add_(_mean_over(sq, d0, lay),
+                                       alpha=1.0 - decay)
+                v_col.mul_(decay).add_(_mean_over(sq, d1, lay),
+                                       alpha=1.0 - decay)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)
-                              ).rsqrt()
+                row_factor = (v_row / _mean_over(
+                    v_row, reduced_d1, _without(lay, d0)).unsqueeze(
+                        reduced_d1)).rsqrt()
                 u = (g * row_factor.unsqueeze(d0)
                      * v_col.rsqrt().unsqueeze(d1))
-            u = u / torch.clamp(_rms(u) / ADAFACTOR_CLIP, min=1.0)
+            u = u / torch.clamp(_rms_over(u, lay) / ADAFACTOR_CLIP, min=1.0)
             u = u * lr
-            p_rms = _rms(p)
+            p_rms = _rms_over(p, lay)
             scale = torch.where(p_rms <= ADAFACTOR_MIN_SCALE,
                                 torch.full_like(p_rms, ADAFACTOR_MIN_SCALE),
                                 p_rms)
@@ -250,10 +323,12 @@ class Masked:
             self._selected(params)))})
 
     def update(self, params: dict, grads: list[torch.Tensor], state: dict,
-               grad_norm: Optional[torch.Tensor] = None) -> None:
-        """``grads`` follow the selected leaves, in tree order."""
+               grad_norm: Optional[torch.Tensor] = None,
+               layout: Optional[list[Layout]] = None) -> None:
+        """``grads`` (and ``layout``) follow the selected leaves, in tree
+        order."""
         self.inner.update_leaves(self._selected(params), grads, state,
-                                 grad_norm)
+                                 grad_norm, layout)
 
 
 def build_optimizer(cfg) -> Optimizer:

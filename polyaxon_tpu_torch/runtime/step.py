@@ -23,7 +23,11 @@ whose stages hold disjoint gradients) and not over the replica axes, are
 exactly the global batch's. The global norm and clipping use the full
 reduction; the optimizer runs on the local shards; metrics are reduced
 over the pieces with the same weights and are equal along the replica
-axes (a pipelined model broadcasts its last stage's).
+axes (a pipelined model broadcasts its last stage's). An update that
+spans whole leaves (adafactor's factored moments and RMS) reduces its
+sums over the shards (``parallel/fsdp.py shard_layout``), and a model's
+batch statistics are the global batch's (``parallel/mesh.py
+block_mean``), so every rank keeps the same running state.
 """
 
 from __future__ import annotations
@@ -35,8 +39,10 @@ import torch
 from polyaxon_tpu_torch.models.common import ModelDef
 from polyaxon_tpu_torch.parallel import fsdp
 from polyaxon_tpu_torch.parallel.compat import PIECE_AXES, batch_pieces
-from polyaxon_tpu_torch.parallel.mesh import all_reduce_over
-from polyaxon_tpu_torch.parallel.sharding import (Rules, distribute,
+from polyaxon_tpu_torch.parallel.mesh import all_reduce_over, row_block
+from polyaxon_tpu_torch.parallel.sharding import (Rules, ShardTaker,
+                                                  distribute,
+                                                  distribute_local,
                                                   rules_for_mesh,
                                                   tree_placements)
 from polyaxon_tpu_torch.runtime.optim import Optimizer, global_norm, tree_leaves
@@ -55,11 +61,6 @@ def state_placements(model_def: ModelDef, mesh, rules: Rules) -> dict:
                                      rules)}
 
 
-def _optimizer_kind(optimizer) -> Optional[str]:
-    return getattr(optimizer, "kind", None) or getattr(
-        getattr(optimizer, "inner", None), "kind", None)
-
-
 def build_init(model_def: ModelDef, optimizer: Optimizer, *, device,
                params: Optional[dict] = None,
                state: Optional[dict] = None, mesh=None,
@@ -71,15 +72,18 @@ def build_init(model_def: ModelDef, optimizer: Optimizer, *, device,
     (e.g. the JAX package's initial weights through a family's
     ``params_from_numpy``), and a fresh optimizer state. The leaves the
     optimizer trains (all, or its ``mask``'s, e.g. LoRA's adapters)
-    require grad; the rest are frozen. With a ``mesh``, the parameters
-    are placed as DTensors (each rank keeps its chunk of the same draw)
+    require grad; the rest are frozen. With a ``mesh``, each rank draws
+    only its pieces of the parameters (``draw``), placed as DTensors,
     and the optimizer state follows them; the mutable state stays
     replicated."""
 
     def init_fn(seed: int) -> TrainState:
+        rule_set = (None if mesh is None else
+                    rules if rules is not None else rules_for_mesh(mesh))
+        pieces = mesh is not None and params is None
         if params is None:
             gen = torch.Generator(device=device).manual_seed(seed)
-            variables = model_def.init(gen, device)
+            variables = draw(model_def, gen, device, mesh, rule_set)
             p, mutable = variables["params"], variables.get("state", {})
         else:
             p, mutable = params, state or {}
@@ -90,30 +94,45 @@ def build_init(model_def: ModelDef, optimizer: Optimizer, *, device,
             t.requires_grad_(bool(train))
         fresh = {"params": p, "state": mutable, "step": 0}
         if mesh is not None:
-            return place_state(fresh, model_def, optimizer, mesh, rules)
+            return place_state(fresh, model_def, optimizer, mesh, rule_set,
+                               pieces=pieces)
         return {**fresh, "opt_state": optimizer.init(p)}
 
     return init_fn
 
 
+def draw(model_def: ModelDef, generator: torch.Generator, device,
+         mesh=None, rules: Optional[Rules] = None) -> dict:
+    """``model_def``'s random variables; with a ``mesh``, only this
+    rank's pieces of its parameters by ``rules`` (the mesh's by
+    default): a family with ``sharded_init`` draws each slab and keeps
+    its piece, another family's whole leaves are cut one at a time.
+    Every rank draws the same stream, so the pieces are one global
+    draw's."""
+    if mesh is None:
+        return model_def.init(generator, device)
+    taker = ShardTaker(model_def.logical_axes()["params"], mesh,
+                       rules if rules is not None else rules_for_mesh(mesh))
+    if model_def.sharded_init:
+        return model_def.init(generator, device, take=taker)
+    variables = model_def.init(generator, device)
+    return {**variables, "params": taker.tree(variables["params"])}
+
+
 def place_state(state: TrainState, model_def: ModelDef,
                 optimizer: Optimizer, mesh,
-                rules: Optional[Rules] = None) -> TrainState:
-    """A fresh state's parameters placed on ``mesh`` as DTensors (each
-    rank keeps its chunk of the same full tensors) by ``rules`` (the
-    mesh's, by default) and the optimizer state built on them, so its
-    moments follow their placements. The mutable state stays
+                rules: Optional[Rules] = None, *,
+                pieces: bool = False) -> TrainState:
+    """A fresh state's parameters placed on ``mesh`` as DTensors by
+    ``rules`` (the mesh's, by default) and the optimizer state built on
+    them, so its moments follow their placements: each rank keeps its
+    chunk of the same full tensors, or, with ``pieces``, the parameters
+    are already this rank's pieces (``draw``). The mutable state stays
     replicated."""
     rules = rules if rules is not None else rules_for_mesh(mesh)
-    params = distribute(state["params"],
-                        state_placements(model_def, mesh, rules)["params"],
-                        mesh)
-    if _optimizer_kind(optimizer) == "adafactor" and any(
-            pl.is_shard() for t in tree_leaves(params) for pl in t.placements):
-        raise NotImplementedError(
-            "adafactor over sharded parameters (its factored moments "
-            "and block RMS span whole leaves) is not ported: ROADMAP.md, "
-            "Queue 1 item 7c")
+    placements = state_placements(model_def, mesh, rules)["params"]
+    params = (distribute_local if pieces else distribute)(
+        state["params"], placements, mesh)
     return {**state, "params": params, "opt_state": optimizer.init(params)}
 
 
@@ -147,6 +166,25 @@ def _sum_pieces(t: torch.Tensor, mesh) -> torch.Tensor:
     return t if mesh is None else all_reduce_over(t, mesh, PIECE_AXES)
 
 
+def rank_rows(batch: dict, mesh, accum_steps: int) -> dict:
+    """This rank's rows of a step, from the rows every process of a gang
+    draws alike (``batch``: the JAX loop's per-process rows, of which the
+    global batch holds one copy per process), laid out so that its m-th
+    microbatch is its row block of the global batch's m-th contiguous
+    slice, as the JAX step cuts microbatches: row ``m·n·L/A + r·L/A + j``
+    of the global batch (``n`` row blocks of ``L`` rows, this rank's
+    block ``r``, ``A`` microbatches) is ``batch`` row that number mod
+    ``L``. Without accumulation or row blocks, ``batch`` as it is."""
+    n, r = row_block(mesh)
+    if accum_steps == 1 or n == 1:
+        return batch
+    L = len(next(iter(batch.values())))
+    per = L // accum_steps
+    idx = [(m * n * L // accum_steps + r * per + j) % L
+           for m in range(accum_steps) for j in range(per)]
+    return {k: v[idx] for k, v in batch.items()}
+
+
 def build_train_step(model_def: ModelDef, optimizer: Optimizer,
                      accum_steps: int = 1, *, mesh=None
                      ) -> Callable[..., tuple[TrainState, dict]]:
@@ -169,13 +207,6 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
     stay on the device."""
     uniform_keys = set(model_def.uniform_metrics) | {"loss_unweighted"}
     pieces = batch_pieces(mesh)
-    if mesh is not None and mesh.size > 1 and \
-            model_def.logical_axes is not None and \
-            model_def.logical_axes().get("state"):
-        raise NotImplementedError(
-            f"model `{model_def.name}` keeps batch statistics, which would "
-            "need a reduction across ranks (synchronized batch norm); the "
-            "port trains it on one rank (ROADMAP.md, Queue 1 item 7c)")
     replicas = fsdp.replica_axes(model_def)
 
     def params_view(state):
@@ -209,6 +240,10 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
         return {k: v.detach() for k, v in metrics.items()}
 
     def microbatches(batch):
+        """This rank's rows cut into ``accum_steps`` contiguous
+        microbatches (a loop lays its rows out with ``rank_rows`` so
+        that microbatch m is its block of the global batch's m-th
+        slice)."""
         if accum_steps == 1:
             return [batch]
         return [{k: v.reshape(accum_steps, v.shape[0] // accum_steps,
@@ -244,13 +279,17 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
         metrics = metrics_of(state, batch)
         leaves = [p for p in tree_leaves(state["params"]) if p.requires_grad]
         grads = fsdp.reduce_grads(leaves, mesh, replicas)
-        grad_norm = (global_norm(grads) if mesh is None or mesh.size == 1
-                     else fsdp.global_norm(leaves, grads, mesh))
-        # The optimizer updates the local tensors in place; its step count
-        # comes back on the local tree.
+        sharded = mesh is not None and mesh.size > 1
+        grad_norm = (fsdp.global_norm(leaves, grads, mesh) if sharded
+                     else global_norm(grads))
+        # The optimizer updates the local tensors in place (an update that
+        # spans whole leaves reduces over their shards: ``layout``); its
+        # step count comes back on the local tree.
         opt_state = fsdp.local_tree(state["opt_state"])
         optimizer.update(fsdp.local_tree(state["params"]), grads, opt_state,
-                         grad_norm=grad_norm)
+                         grad_norm=grad_norm,
+                         layout=(fsdp.shard_layout(leaves, mesh) if sharded
+                                 else None))
         state["opt_state"].update(
             {k: v for k, v in opt_state.items()
              if not isinstance(v, (dict, list, torch.Tensor))})

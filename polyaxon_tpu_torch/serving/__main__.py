@@ -5,8 +5,16 @@ The flags and defaults are those of ``python -m polyaxon_tpu.serving``
 (the static engine over a dense cache unless ``--batching continuous``).
 It serves the llama, MoE and t5 families, and a LoRA checkpoint (the
 adapters merged at load, ``--lora-alpha`` the fallback for a checkpoint
-without metadata). ``--mesh`` parses and is refused (ROADMAP.md, Queue 1
-item 7c). SIGINT and SIGTERM stop the server and exit with 0.
+without metadata). SIGINT and SIGTERM stop the server and exit with 0.
+
+``--mesh tp=2`` (dp, fsdp, tp and their products; -1 absorbs the rest)
+serves sharded over a gang of processes, one card each, started alike
+with the bootstrap's env contract (``POLYAXON_TPU_COORDINATOR``
+``host:port``, ``POLYAXON_TPU_NUM_PROCESSES``,
+``POLYAXON_TPU_PROCESS_ID``, ``POLYAXON_TPU_LOCAL_DEVICE_IDS``; NCCL on
+the cards): rank 0 binds the port, the others follow it
+(``serving/gang.py``). Another axis above 1 is refused (ROADMAP.md,
+Queue 1 item 7d).
 """
 
 from __future__ import annotations
@@ -33,8 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--slots", type=int, default=4,
                         help="KV-cache slots for --batching continuous")
     parser.add_argument("--mesh", default=None,
-                        help="shard weights over a device mesh, e.g. "
-                             "'tp=4' (not ported: refused)")
+                        help="shard weights over a gang of processes, one "
+                             "card each, e.g. 'tp=4' or 'fsdp=-1' (-1 = "
+                             "every process)")
     parser.add_argument("--quantize", default=None, choices=["int8"],
                         help="weight-only quantization at load (int8 + "
                              "per-channel scales)")
@@ -127,6 +136,9 @@ def main(argv=None) -> int:
                        preemption=not args.no_preemption,
                        request_tracing=not args.no_request_tracing,
                        trace_dump_path=args.trace_dump) as s:
+        if not s.is_leader:
+            s.follow()  # until rank 0 stops
+            return 0
         # Installed explicitly: a shell starts a background job with
         # SIGINT ignored, and Python then never raises KeyboardInterrupt.
         stop = threading.Event()

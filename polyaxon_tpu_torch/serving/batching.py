@@ -56,6 +56,7 @@ from polyaxon_tpu_torch.models import llama, moe, t5
 from polyaxon_tpu_torch.models.common import sample_row
 from polyaxon_tpu_torch.obs import metrics as obs_metrics
 from polyaxon_tpu_torch.obs import reqtrace
+from polyaxon_tpu_torch.serving.gang import OPS
 from polyaxon_tpu_torch.serving.paged import PagePool
 from polyaxon_tpu_torch.serving.speculative import LaneView, SpeculationPolicy
 
@@ -197,7 +198,7 @@ class ContinuousBatchingEngine:
                  request_tracing: bool = True,
                  trace_capacity: int = reqtrace.DEFAULT_RING_CAPACITY,
                  trace_dump_path: Optional[str] = None,
-                 registry=None, device=None):
+                 registry=None, device=None, gang=None):
         family = _family(model)
         if prefill_slots is not None:
             if prefill_slots < 1:
@@ -283,7 +284,11 @@ class ContinuousBatchingEngine:
         self.params = params
         self.slots = slots
         self.max_len = max_len or cfg.max_seq_len
-        self._family_mod = family
+        # Under a serving gang (``serving/gang.py``) every model call and
+        # pool op runs on every rank; ``params`` is then its marker.
+        self._gang = gang
+        self._family_mod = (family if gang is None
+                            else gang.family("target", family))
         # Behind a fleet `registry` is a component-scoped view: every
         # series this engine records carries the replica's identity, and
         # its trace spans name the replica instead of "serving".
@@ -325,6 +330,9 @@ class ContinuousBatchingEngine:
             if spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
             self._draft_family = _family(draft_model)
+            if gang is not None:
+                self._draft_family = gang.family("draft",
+                                                 self._draft_family)
             if getattr(self._draft_family, "SEQ2SEQ", False):
                 raise ValueError(
                     f"draft `{draft_model}` is seq2seq — a drafting "
@@ -1035,9 +1043,15 @@ class ContinuousBatchingEngine:
             self._draft_family.insert_cache_row(self._draft_cache,
                                                 draft_row, b)
 
+    def _op(self, name: str, *args):
+        """A pool op of ``serving/gang.py``'s ``OPS``, on every rank of a
+        gang."""
+        if self._gang is not None:
+            return self._gang.call(f"op:{name}", *args)
+        return OPS[name](*args)
+
     def _copy_page(self, src: int, dst: int) -> None:
-        for arr in self._cache.values():
-            arr[:, dst] = arr[:, src]
+        self._op("copy_page", self._cache, src, dst)
 
     def _page_ids(self, row: int) -> torch.Tensor:
         return torch.as_tensor(self._pool.padded_row(row), dtype=torch.long,
@@ -1054,8 +1068,7 @@ class ContinuousBatchingEngine:
         padded[:len(tokens)] = tokens
         page_ids = self._page_ids(row)
         pref = page_ids[:n_pref].clamp(min=0)
-        kp = self._cache["k"][:, pref].flatten(1, 2)  # [L, n_pref*ps, ...]
-        vp = self._cache["v"][:, pref].flatten(1, 2)
+        kp, vp = self._op("prefix_pages", self._cache, pref)
         k_suf, v_suf = self._family_mod.paged_prefill_suffix_kv(
             self.cfg, self.params,
             torch.as_tensor(padded[None], device=self.device), kp, vp, m)

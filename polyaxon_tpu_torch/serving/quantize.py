@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 _QMAX = 127.0
 # The JAX package quantizes under jit, where XLA turns the division by
@@ -84,11 +85,16 @@ def _eligible(path: tuple, leaf: Any) -> bool:
             and leaf.is_floating_point())
 
 
-def quantize_leaf(w: torch.Tensor) -> QuantizedTensor:
+def quantize_leaf(w: torch.Tensor, groups=()) -> QuantizedTensor:
     """int8 values and f32 scales of one weight, computed as the JAX
-    package computes them (so both give the same bits)."""
+    package computes them (so both give the same bits). ``w`` may be a
+    rank's piece of a sharded weight: ``groups`` are the process groups
+    that shard its contraction axis, over which each channel's maximum
+    is all-reduced, so the piece's scales are the whole weight's."""
     w32 = w.to(torch.float32)
     amax = w32.abs().amax(dim=-2, keepdim=True)
+    for group in groups:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     scale = amax.clamp(min=1e-12) * _INV_QMAX  # zero channels stay finite
     q = torch.clamp(torch.round(w32 / scale), -_QMAX, _QMAX).to(torch.int8)
     return QuantizedTensor(q, scale, w.dtype)
@@ -100,14 +106,17 @@ def _map(tree: Any, fn, path: tuple = ()) -> Any:
     return fn(path, tree)
 
 
-def quantize_tree(params: Any, *, mode: str = "int8") -> Any:
+def quantize_tree(params: Any, *, mode: str = "int8",
+                  groups=lambda path, dim: ()) -> Any:
     """Quantize every matmul-shaped leaf (ndim >= 2, floating, not named
-    like a norm or bias) of a params tree to int8 + per-channel scales."""
+    like a norm or bias) of a params tree to int8 + per-channel scales.
+    A tree of a rank's pieces passes ``groups(path, dim)``: the process
+    groups that shard dimension ``dim`` of the leaf at ``path``."""
     if mode != "int8":
         raise ValueError(f"unknown quantization mode {mode!r} "
                          "(supported: 'int8')")
-    return _map(params, lambda p, w: quantize_leaf(w) if _eligible(p, w)
-                else w)
+    return _map(params, lambda p, w: quantize_leaf(
+        w, groups(p, w.ndim - 2)) if _eligible(p, w) else w)
 
 
 def dequantize_tree(params: Any) -> Any:

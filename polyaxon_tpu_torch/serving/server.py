@@ -39,9 +39,11 @@ checkpoint in the port's store (written by the port's training, or
 converted from the JAX package's Orbax format by
 ``scripts/convert_orbax_to_torch.py``; a LoRA fine-tune merged at
 load), and may be quantized to int8 at load
-(``serving/quantize.py``). Sampled draws
-come from torch generators seeded by the request, so they differ from
-the JAX package's; greedy output is the same.
+(``serving/quantize.py``). With ``mesh_axes`` (``--mesh``) the weights
+are sharded over a gang of processes, one card each, and rank 0's
+engine runs every model call on all of them (``serving/gang.py``).
+Sampled draws come from torch generators seeded by the request, so they
+differ from the JAX package's; greedy output is the same.
 """
 
 from __future__ import annotations
@@ -64,6 +66,11 @@ from polyaxon_tpu_torch.serving.batching import (
     _family,
     validate_sampling,
 )
+from polyaxon_tpu_torch.parallel.sharding import (WHOLE, ShardTaker,
+                                                  require_servable,
+                                                  serving_rules,
+                                                  tree_placements)
+from polyaxon_tpu_torch.serving.gang import ParamsRef, Worker, build_gang
 from polyaxon_tpu_torch.serving.quantize import quantize_tree, tree_bytes
 
 logger = logging.getLogger(__name__)
@@ -78,7 +85,7 @@ def _bucket(n: int, lo: int = 16) -> int:
 
 def load_params(model: str, checkpoint: Optional[str] = None, seed: int = 0,
                 *, device=None, quantize: Optional[str] = None,
-                lora_alpha: float = 16.0):
+                lora_alpha: float = 16.0, mesh=None):
     """(cfg, params) for ``model`` on the device, matrices in
     ``cfg.dtype`` and norm gains in f32: the latest committed step of the
     port's checkpoint directory ``checkpoint`` (a saved train state, whose
@@ -90,44 +97,81 @@ def load_params(model: str, checkpoint: Optional[str] = None, seed: int = 0,
     must match the model's tree and shapes. ``quantize="int8"`` quantizes
     the matrices at load. An Orbax checkpoint of the JAX package is read
     once converted to the port's store by
-    ``scripts/convert_orbax_to_torch.py`` (params only)."""
+    ``scripts/convert_orbax_to_torch.py`` (params only).
+
+    With a ``mesh`` (sharded serving, ``serving/gang.py``) the params are
+    this rank's pieces by the serving rules (``parallel/sharding.py
+    serving_rules``, the JAX server's table): a random init draws every
+    slab from the seed and keeps its piece, a checkpoint's leaves are cut
+    one by one as they are read (a LoRA state is read whole and merged on
+    the host first), and int8 quantizes the pieces with each channel's
+    whole-weight scale."""
     family = _family(model)
     cfg = family.CONFIGS[model]
     dev = resolve_device(device)
+    taker = WHOLE
+    if mesh is not None:
+        taker = ShardTaker(family.logical_axes(cfg)["params"], mesh,
+                           serving_rules(mesh))
     if checkpoint:
         from polyaxon_tpu_torch.runtime.checkpoint import load_tree
 
-        step, tree = load_tree(checkpoint, only="params")
+        template = family.init(cfg, torch.Generator(), device="meta",
+                               param_dtype=cfg.dtype)["params"]
+
+        def cut(path: str, value):
+            """A leaf of the model's tree cut to this rank's piece as it
+            is read (a LoRA state's leaves stay whole: merged below)."""
+            keys = tuple(path.split("/"))[1 if path.startswith("params/")
+                                          else 0:]
+            ref = template
+            for key in keys:
+                ref = ref.get(key) if isinstance(ref, dict) else None
+            if isinstance(ref, dict) or ref is None or \
+                    getattr(value, "shape", None) != ref.shape:
+                return value  # not this model's leaf: _cast_like names it
+            return taker.whole(keys, value)
+
+        step, tree = load_tree(checkpoint, only="params",
+                               **({} if mesh is None else {"take": cut}))
         loaded = tree.get("params", tree)
         if isinstance(loaded, dict) and set(loaded) == {"base", "lora"}:
             from polyaxon_tpu_torch.models.lora import merge_saved
 
             loaded = merge_saved(loaded["base"], loaded["lora"],
-                                 alpha=lora_alpha, device=dev,
+                                 alpha=lora_alpha,
+                                 device=dev if mesh is None else "cpu",
                                  dtype=cfg.dtype)
             logger.info("merged LoRA adapters into %s", model)
-        template = family.init(cfg, torch.Generator(), device="meta",
-                               param_dtype=cfg.dtype)["params"]
         params = _cast_like(template, loaded, dev,
-                            f"checkpoint {checkpoint} step {step}")
+                            f"checkpoint {checkpoint} step {step}",
+                            take=taker)
         logger.info("restored %s step=%s", checkpoint, step)
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        params = family.init(cfg, gen, device=dev,
-                             param_dtype=cfg.dtype)["params"]
+        if getattr(family.model_def(model), "sharded_init", False):
+            params = family.init(cfg, gen, device=dev, param_dtype=cfg.dtype,
+                                 take=taker)["params"]
+        else:
+            params = taker.tree(family.init(
+                cfg, gen, device=dev, param_dtype=cfg.dtype)["params"])
     if quantize:
         full = tree_bytes(params)
-        params = quantize_tree(params, mode=quantize)
+        params = quantize_tree(
+            params, mode=quantize,
+            groups=lambda path, dim: [mesh.group(a)
+                                      for a in taker.axes(path, dim)])
         logger.info("quantized %s weights %s: %.1f MiB -> %.1f MiB", model,
                     quantize, full / 2**20, tree_bytes(params) / 2**20)
     return cfg, params
 
 
 def _cast_like(template: dict, loaded: Any, device, what: str,
-               path: str = "") -> dict:
-    """``loaded`` on ``device`` in ``template``'s dtypes; raises unless
-    its tree and shapes are ``template``'s."""
+               path: str = "", take: ShardTaker = WHOLE) -> dict:
+    """``loaded`` on ``device`` in ``template``'s dtypes, each leaf this
+    rank's piece by ``take`` (cut here, or already as it was read);
+    raises unless its tree and shapes are ``template``'s."""
     if not isinstance(loaded, dict) or set(loaded) != set(template):
         got = sorted(loaded) if isinstance(loaded, dict) else type(loaded)
         raise ValueError(f"{what} does not match the model at "
@@ -137,12 +181,17 @@ def _cast_like(template: dict, loaded: Any, device, what: str,
     for key, ref in template.items():
         value, sub = loaded[key], f"{path}/{key}"
         if isinstance(ref, dict):
-            out[key] = _cast_like(ref, value, device, what, sub)
+            out[key] = _cast_like(ref, value, device, what, sub, take)
             continue
-        if not isinstance(value, torch.Tensor) or value.shape != ref.shape:
+        keys = tuple(sub.strip("/").split("/"))
+        piece = take.leaf(keys, ref.shape).shape
+        if not isinstance(value, torch.Tensor) or value.shape not in (
+                ref.shape, piece):
             raise ValueError(f"{what}: {sub} has shape "
                              f"{getattr(value, 'shape', None)}, the model "
                              f"expects {tuple(ref.shape)}")
+        if value.shape != piece:
+            value = take.whole(keys, value)
         out[key] = value.to(device=device, dtype=ref.dtype)
     return out
 
@@ -163,7 +212,8 @@ class _Engine:
     ``max_new_tokens`` (the same tokens). Budgets are still validated
     against the bucket, so both engines accept and refuse alike."""
 
-    def __init__(self, model: str, cfg, params, draft=None, device=None):
+    def __init__(self, model: str, cfg, params, draft=None, device=None,
+                 gang=None):
         self.model = model
         self.cfg = cfg
         self.params = params
@@ -172,7 +222,11 @@ class _Engine:
         self._served = 0
         self._tokens_out = 0
         self._lock = threading.Lock()  # one generation on the card at a time
+        # Under a serving gang every model call runs on every rank
+        # (``serving/gang.py``); ``params`` is then its marker.
         self._family_mod = _family(model)
+        if gang is not None:
+            self._family_mod = gang.family("target", self._family_mod)
         self._family_mod.check_kernel_shapes(cfg, self.device, paged=False)
         # A seq2seq family's prompt is the encoder input and it decodes
         # into its own cache, so prompt and budget are bounded apart.
@@ -188,6 +242,9 @@ class _Engine:
                     "speculative decoding requires a full-length cache "
                     "(no sliding_window)")
             self._draft_family = _family(draft[0])
+            if gang is not None:
+                self._draft_family = gang.family("draft",
+                                                 self._draft_family)
             missing = [name for name in ("prefill", "decode_step_ragged")
                        if not hasattr(self._draft_family, name)]
             if missing:
@@ -685,6 +742,46 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 
+def serving_mesh(mesh_axes: dict, device):
+    """The mesh of a sharded server over every rank of the process group
+    (started from the bootstrap's env contract when there is none): the
+    axes in the JAX package's order, -1 absorbing the ranks the others
+    leave; the product must be the group's size."""
+    from polyaxon_tpu_torch.parallel import bootstrap
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, canonical_axes
+    from polyaxon_tpu_torch.polyflow.runs import V1MeshSpec
+
+    require_servable(canonical_axes(dict(mesh_axes)))
+    started = not torch.distributed.is_initialized()
+    bootstrap.initialize(device=device)
+    try:
+        mesh = build_mesh(V1MeshSpec(axes=dict(mesh_axes)),
+                          device_type=torch.device(device).type)
+    except ValueError:
+        if started:  # leave no group behind a refused mesh
+            bootstrap.shutdown()
+        raise
+    mesh.device_mesh()   # every rank builds the axes' groups here, alike
+    logger.info("sharded serving over mesh %s (rank %d of %d)", mesh.shape,
+                bootstrap.rank(), mesh.size)
+    return mesh
+
+
+def _view(model: str, cfg, params, mesh):
+    """A rank's view of its params for ``serving/gang.py``'s ``Worker``:
+    the tree as it is without a mesh, else built at each call
+    (``parallel/fsdp.py serving_view``: fsdp shards gathered at use)."""
+    if mesh is None:
+        return lambda: params
+    from polyaxon_tpu_torch.parallel.fsdp import serving_view
+
+    family = _family(model)
+    model_def = family.model_def(model)
+    placements = tree_placements(family.logical_axes(cfg)["params"], mesh,
+                                 serving_rules(mesh))
+    return lambda: serving_view(model_def, params, placements, mesh)
+
+
 class ServingServer:
     """``with ServingServer("llama_tiny", device="cpu") as s: … s.url``
 
@@ -692,8 +789,17 @@ class ServingServer:
     ``batching="continuous"`` through the slot-pool batcher, over a
     dense (the default) or paged (``kv="paged"``) cache. Runs on
     ``device`` (default ``cuda``; without a GPU and without an explicit
-    ``device`` it raises). ``mesh_axes`` (sharded serving) is not ported
-    yet (ROADMAP.md, Queue 1 item 7c)."""
+    ``device`` it raises).
+
+    ``mesh_axes`` (e.g. ``{"tp": 2}``, ``{"fsdp": -1}``: -1 absorbs the
+    ranks the other axes leave) shards the weights (and the draft's)
+    over a mesh of every rank of the process group, one card each
+    (``serving/gang.py``): every rank constructs the server alike; rank
+    0 (``is_leader``) binds the port and runs the engine, the others
+    call ``follow()``, which returns when rank 0 stops. dp, fsdp and tp
+    are served; another axis above 1 raises (ROADMAP.md, Queue 1 item
+    7d). Without a process group one is started from the bootstrap's
+    env contract."""
 
     def __init__(self, model: str, checkpoint: Optional[str] = None,
                  host: str = "127.0.0.1", port: int = 0, seed: int = 0,
@@ -716,10 +822,6 @@ class ServingServer:
                  request_tracing: bool = True,
                  trace_dump_path: Optional[str] = None,
                  device=None):
-        if mesh_axes:
-            raise NotImplementedError(
-                f"mesh_axes={mesh_axes}: sharded serving over a device mesh "
-                "is not ported yet (ROADMAP.md, Queue 1 item 7c)")
         if batching not in ("static", "continuous"):
             raise ValueError(
                 f"unknown batching mode `{batching}` "
@@ -748,8 +850,13 @@ class ServingServer:
                     "static engine runs whole generations, not pooled "
                     "steps)")
         dev = resolve_device(device)
+        self.mesh = serving_mesh(mesh_axes, dev) if mesh_axes else None
         cfg, params = load_params(model, checkpoint, seed=seed, device=dev,
-                                  quantize=quantize, lora_alpha=lora_alpha)
+                                  quantize=quantize, lora_alpha=lora_alpha,
+                                  mesh=self.mesh)
+        worker = Worker()
+        worker.add("target", _family(model), cfg, params,
+                   _view(model, cfg, params, self.mesh))
         draft = None
         if draft_model is not None:
             if spec_k < 1:
@@ -765,10 +872,26 @@ class ServingServer:
                     "garbage and silently collapse acceptance")
             draft_cfg, draft_params = load_params(
                 draft_model, draft_checkpoint, seed=seed, device=dev,
-                quantize=quantize)
+                quantize=quantize, mesh=self.mesh)
+            worker.add("draft", _family(draft_model), draft_cfg,
+                       draft_params, _view(draft_model, draft_cfg,
+                                           draft_params, self.mesh))
             draft = (draft_model, draft_cfg, draft_params, spec_k)
             logger.info("speculative decoding: draft=%s k=%d",
                         draft_model, spec_k)
+        self.gang = build_gang(self.mesh, worker, dev)
+        self.is_leader = self.gang is None or self.gang.rank == 0
+        if self.gang is not None:
+            # The engine holds markers: each rank runs every model call
+            # on its own shards.
+            params = ParamsRef("target")
+            if draft is not None:
+                draft = (draft[0], draft[1], ParamsRef("draft"), draft[3])
+            if not self.is_leader:
+                self.engine = None
+                self.httpd = None
+                self._thread = None
+                return
         if batching == "continuous":
             self.engine = ContinuousBatchingEngine(
                 model, cfg, params, slots=slots, kv=kv,
@@ -783,10 +906,11 @@ class ServingServer:
                 class_max_pending=class_max_pending,
                 preemption=preemption,
                 request_tracing=request_tracing,
-                trace_dump_path=trace_dump_path, device=dev)
+                trace_dump_path=trace_dump_path, device=dev,
+                gang=self.gang)
         else:
             self.engine = _Engine(model, cfg, params, draft=draft,
-                                  device=dev)
+                                  device=dev, gang=self.gang)
         handler = type("BoundHandler", (_Handler,), {"engine": self.engine})
         self.httpd = ThreadingHTTPServer((host, port), handler)
         self.host = host
@@ -797,7 +921,16 @@ class ServingServer:
     def url(self) -> str:
         return f"http://{self.host}:{self.port}"
 
+    def follow(self) -> None:
+        """On a rank of a gang but rank 0: run rank 0's model calls until
+        it stops the server."""
+        if self.is_leader:
+            raise RuntimeError("rank 0 serves; follow() is for the others")
+        self.gang.follow()
+
     def start(self) -> "ServingServer":
+        if not self.is_leader:
+            return self
         self._thread = threading.Thread(
             target=self.httpd.serve_forever, daemon=True)
         self._thread.start()
@@ -805,6 +938,8 @@ class ServingServer:
         return self
 
     def stop(self) -> None:
+        if not self.is_leader:
+            return
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread is not None:
@@ -814,6 +949,8 @@ class ServingServer:
             self._thread = None
         if hasattr(self.engine, "stop"):
             self.engine.stop()
+        if self.gang is not None:
+            self.gang.stop()
 
     def __enter__(self) -> "ServingServer":
         return self.start()

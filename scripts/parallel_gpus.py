@@ -31,7 +31,22 @@ over all of them:
 8. llama3_8b at tp<n>, one 4,096-token row per process (flash, remat
    full), 4 steps: its f32 weights and adamw moments (about 128 GB) do
    not fit one card, so it is held to finite losses and its per-card
-   peak memory, and not against one card.
+   peak memory, and not against one card;
+9. the runtime of 3. with adafactor at fsdp<n> (its factored moments
+   and RMS reduced over the shards), 4 steps;
+10. resnet50 at dp<n> (imagenet_synthetic, 32 images per process), its
+   BatchNorm statistics over the global batch, 4 steps;
+11. sharded serving (``ServingServer(mesh_axes={"tp": n})``, the paged
+   continuous engine, 8 prompts of the 16-request mix, 32 tokens each):
+   llama3_8b, its tokens held against the unsharded paged engine on one
+   card on every row clear of near-ties (``chip_smoke.py`` phase 19's
+   rule), and mixtral_8x7b at its full 32 layers (about 93 GB of bf16
+   weights, 23 GB a card), which no card holds alone: held to
+   well-formed tokens; tokens/s, the median decode step and each card's
+   peak memory.
+
+``--gangs NAME,...`` runs only those (``attention``, the training
+gangs' names, ``serve_8b``, ``serve_mixtral``).
 
 Throughput and MFU count the tokens a step trains: the ranks of a
 replica axis (tp, sp, pp) train the same rows, and under cp the ranks
@@ -87,6 +102,12 @@ MOE_ROWS, MOE_ACCUM, MOE_HELD_ROWS = 8, 2, 2
 LLAMA8B = {"model": "llama3_8b", "dataset": "lm_synthetic",
            "seq_len": FSDP_SEQ, "attention_impl": "flash", "remat": "full",
            "steps": STEPS, "log_every": 1, "prefetch": 0}
+ADAFACTOR = dict(FSDP, optimizer="adafactor")
+RESNET = {"model": "resnet50", "dataset": "imagenet_synthetic",
+          "steps": STEPS, "log_every": 1, "prefetch": 0}
+RESNET_ROWS = 32  # per process
+SERVE = {"serve_8b": "llama3_8b", "serve_mixtral": "mixtral_8x7b"}
+SERVE_PROMPTS, SERVE_NEW, SERVE_HELD = 8, 32, 9
 
 
 def _train(job: dict) -> dict:
@@ -182,8 +203,8 @@ def _jobs(n: int) -> dict:
     not held against one card), and of its timed run, with the rows per
     process of the timed run where they differ."""
     moe_held = dict(MOE, capacity_factor=8.0)
-    # llama3_8b first, on cards that hold nothing yet: each rank draws
-    # the whole f32 model (32 GB) before it keeps its shard.
+    # llama3_8b first among the training gangs, on cards that hold
+    # nothing yet (each rank draws only its shards of the f32 model).
     out = {"tp_8b": {"axes": {"tp": n}, "rows": 1, "held": None,
                      "one": None, "timed": LLAMA8B}}
     jobs = {"cp": ({"dp": 1, "cp": n}, LONGCTX, 1),
@@ -201,10 +222,55 @@ def _jobs(n: int) -> dict:
                  "held": moe_held, "one": moe_held,
                  "timed": dict(MOE, grad_accum_steps=MOE_ACCUM),
                  "timed_rows": MOE_ROWS}
+    out["fsdp_adafactor"] = {"axes": {"fsdp": n}, "rows": FSDP_ROWS,
+                             "held": ADAFACTOR, "one": ADAFACTOR,
+                             "timed": ADAFACTOR}
+    out["resnet_dp"] = {"axes": {"dp": n}, "rows": RESNET_ROWS,
+                        "held": RESNET, "one": RESNET, "timed": RESNET}
     return out
 
 
-def _worker(rank: int, n: int, coordinator: str, out_path: str) -> None:
+def _serve(rank: int, n: int, model: str, prompts: list) -> dict:
+    """``model`` served at tp<n> over every rank: rank 0's engine on
+    ``prompts``, the tokens, tokens/s, the median decode step, every
+    rank's load time and peak memory (on rank 0)."""
+    import torch
+    import torch.distributed as dist
+
+    from polyaxon_tpu_torch.serving.server import ServingServer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = ServingServer(model, seed=SEED, mesh_axes={"tp": n},
+                           batching="continuous", kv="paged", slots=8,
+                           device="cuda")
+    load_s = time.perf_counter() - t0
+    out: dict = {}
+    if server.is_leader:
+        with server:
+            t1 = time.perf_counter()
+            reqs = [server.engine.submit(p, SERVE_NEW) for p in prompts]
+            outs = [r.wait(timeout=1200) for r in reqs]
+            wall = time.perf_counter() - t1
+            stats = server.engine.stats()
+        out = {"serve": model, "tp": n, "outs": outs,
+               "tokens_per_s": sum(map(len, outs)) / wall,
+               "decode_step_ms_median": stats["decode_step_ms_median"],
+               "decode_steps": stats["decode_steps"],
+               "model_calls": server.gang.calls}
+    else:
+        server.follow()
+    torch.cuda.synchronize()
+    mine = (load_s, torch.cuda.max_memory_allocated() / 1e9)
+    both = [None] * n
+    dist.all_gather_object(both, mine)
+    out.update(load_s=[b[0] for b in both], peak_GB=[b[1] for b in both])
+    del server
+    return out
+
+
+def _worker(rank: int, n: int, coordinator: str, out_path: str,
+            gangs: tuple, prompts: list) -> None:
     import torch
 
     from polyaxon_tpu_torch.parallel import bootstrap
@@ -213,8 +279,16 @@ def _worker(rank: int, n: int, coordinator: str, out_path: str) -> None:
     bootstrap.initialize(bootstrap.ProcessGroup(coordinator, n, rank, False),
                          device="cuda")
     try:
-        lines = [_attention(rank, n, impl) for impl in ("ring", "ulysses")]
+        lines = ([_attention(rank, n, impl) for impl in ("ring", "ulysses")]
+                 if "attention" in gangs else [])
+        for name, model in SERVE.items():
+            if name in gangs:
+                gc.collect()
+                torch.cuda.empty_cache()
+                lines.append(_serve(rank, n, model, prompts[model]))
         for name, job in _jobs(n).items():
+            if name not in gangs:
+                continue
             timed_rows = job.get("timed_rows", job["rows"])
             for steps, runtime, rows in ((1, job["held"], job["rows"]),
                                          (STEPS, job["timed"], timed_rows)):
@@ -248,10 +322,68 @@ def _held(label: str, gang: dict, one: dict) -> dict:
             and norm_rel <= chip_smoke.TRAIN_GRAD_REL_TOL}
 
 
+def _reference_8b(prompts: list) -> dict:
+    """llama3_8b's unsharded paged engine on one card: its tokens, and
+    which of each row's first SERVE_HELD tokens are clear of a near-tie
+    (``chip_smoke.py`` phase 19's rule)."""
+    import torch
+
+    import chip_smoke
+    from polyaxon_tpu_torch.models import llama
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.server import load_params
+
+    cfg, params = load_params("llama3_8b", seed=SEED, device="cuda")
+    eng = ContinuousBatchingEngine("llama3_8b", cfg, params, slots=8,
+                                   kv="paged", page_size=16, device="cuda")
+    try:
+        outs = [r.wait(timeout=1200) for r in
+                [eng.submit(p, SERVE_NEW) for p in prompts]]
+    finally:
+        eng.stop()
+    clear = []
+    for p, o in zip(prompts, outs):
+        lw = chip_smoke._gang_logits(torch, llama, cfg, params, p,
+                                     o[:SERVE_HELD], device="cuda")
+        top2 = torch.topk(lw, 2, dim=-1).values
+        clear.append(((top2[:, 0] - top2[:, 1])
+                      >= chip_smoke._tie_tol(torch, lw)).tolist())
+    return {"outs": outs, "clear": clear}
+
+
+def _served(line: dict, reference: dict, vocab: int) -> dict:
+    """A served run's check: well-formed tokens, and against the one-card
+    reference (when there is one) equal over each row's first
+    SERVE_HELD tokens up to a first divergence at a near-tie."""
+    outs = line["outs"]
+    ok = all(len(o) == SERVE_NEW and all(0 <= t < vocab for t in o)
+             for o in outs)
+    parted = {}
+    if reference is not None:
+        for i, (a, b) in enumerate(zip(outs, reference["outs"])):
+            j = next((t for t, (x, y) in enumerate(zip(
+                a[:SERVE_HELD], b[:SERVE_HELD])) if x != y), None)
+            if j is not None:
+                parted[i] = j
+                ok = ok and not reference["clear"][i][j]
+    return {"check": f"{line['tp']}-card serving {line['serve']}",
+            "tokens_per_s": line["tokens_per_s"],
+            "decode_step_ms_median": line["decode_step_ms_median"],
+            "peak_GB": line["peak_GB"], "load_s": line["load_s"],
+            "rows_parted": parted,
+            "against": "one card" if reference is not None else None,
+            "held": bool(ok)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--gpus", type=int, default=4)
-    n = parser.parse_args().gpus
+    parser.add_argument("--gangs", default=None,
+                        help="comma-separated runs (default: all)")
+    args = parser.parse_args()
+    n = args.gpus
+    gangs = tuple(args.gangs.split(",") if args.gangs else
+                  ("attention", *_jobs(n), *SERVE))
 
     import torch
     import torch.multiprocessing as mp
@@ -268,9 +400,21 @@ def main() -> int:
     from polyaxon_tpu_torch.ops import _build
 
     _build.build_all()
+    import chip_smoke
+
+    from polyaxon_tpu_torch.models import family_of
+
+    vocab = {m: family_of(m).CONFIGS[m].vocab_size for m in SERVE.values()}
+    prompts = {m: chip_smoke.make_prompts(v)[:SERVE_PROMPTS]
+               for m, v in vocab.items()}
+    reference = {}
+    if "serve_8b" in gangs:
+        reference["llama3_8b"] = _reference_8b(prompts["llama3_8b"])
+        gc.collect()
+        torch.cuda.empty_cache()
     one = {}
     for name, job in _jobs(n).items():
-        if job["one"] is None:
+        if job["one"] is None or name not in gangs:
             continue
         one[name] = _train({"mesh": {"axes": {a: 1 for a in job["axes"]}},
                             "runtime": dict(job["one"], steps=1,
@@ -282,7 +426,8 @@ def main() -> int:
     out_path = os.path.join(REPO, "chiprun_out", "parallel_gpus.jsonl")
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     mp.start_processes(_worker, nprocs=n, start_method="spawn",
-                       args=(n, f"127.0.0.1:{bootstrap.free_port()}", out_path))
+                       args=(n, f"127.0.0.1:{bootstrap.free_port()}", out_path,
+                             gangs, prompts))
     with open(out_path) as fh:
         lines = [json.loads(line) for line in fh]
     checks = []
@@ -290,6 +435,10 @@ def main() -> int:
         print(json.dumps(line), flush=True)
         if "check" in line:
             checks.append(line)
+        elif "serve" in line:
+            checks.append(_served(line, reference.get(line["serve"]),
+                                  vocab[line["serve"]]))
+            print(json.dumps(checks[-1]), flush=True)
         elif line["steps"] == 1:
             checks.append(_held(f"{n}-card {line['gang']}", line,
                                 one[line["gang"]]))
@@ -301,10 +450,13 @@ def main() -> int:
                            "held": len(losses) == STEPS - 1 and all(
                                map(math.isfinite, losses))})
             print(json.dumps(checks[-1]), flush=True)
-    # The two attention checks, each held gang's first step, and the
-    # llama3_8b run.
-    held = sum(1 for job in _jobs(n).values() if job["held"] is not None)
-    ok = len(checks) == 2 + held + 1 and all(c["held"] for c in checks)
+    # The two attention checks, each held gang's first step, the
+    # llama3_8b run and each served model.
+    want = (2 * ("attention" in gangs)
+            + sum(1 for name, job in _jobs(n).items()
+                  if name in gangs and job["held"] is not None)
+            + ("tp_8b" in gangs) + sum(1 for s in SERVE if s in gangs))
+    ok = len(checks) == want and all(c["held"] for c in checks)
     print(json.dumps({"ok": ok}), flush=True)
     return 0 if ok else 1
 

@@ -164,15 +164,19 @@ LANE_PROMPTS = [[5, 6, 7, 8, 9, 10, 11, 12, 13], [1, 2, 3],
 
 
 def test_lane_engine_parity_handoffs_and_health(weights):
-    """The lane scheduler is output-invisible (the interleaved engine's
-    and the JAX lane engine's tokens) while moving pages prefill →
-    decode; its counters equal the reference's."""
-    out = {}
+    """The lane scheduler is output-invisible: the port's lane engine
+    gives the greedy tokens of the JAX plain (interleaved) engine, the
+    function it must keep, as the port's plain engine does, while moving
+    pages prefill → decode; its counters equal the JAX lane engine's.
+    The JAX lane engine's own tokens are ``tests/test_lanes.py``'s to
+    hold: in a fresh process it gives one prompt other tokens than its
+    plain engine in some runs (ROADMAP.md, Queue 3)."""
+    plain_tokens, lanes = {}, {}
     for pkg in ("jax", "torch"):
         plain = _engine(weights, pkg, slots=2, kv="paged", page_size=4)
         try:
-            want = [plain.submit(p, 6).wait(timeout=300)
-                    for p in LANE_PROMPTS]
+            plain_tokens[pkg] = [plain.submit(p, 6).wait(timeout=300)
+                                 for p in LANE_PROMPTS]
         finally:
             plain.stop()
         eng = _engine(weights, pkg, slots=2, kv="paged", page_size=4,
@@ -184,14 +188,18 @@ def test_lane_engine_parity_handoffs_and_health(weights):
             health, stats = eng.health(), eng.stats()
         finally:
             eng.stop()
-        assert got == want, pkg
-        out[pkg] = (got, stats["handoffs"], stats["handoff_pages"],
-                    health["prefill_pending"], health["decode_active"],
-                    health["spec_tokens_accepted_rate"])
+        lanes[pkg] = (got, (stats["handoffs"], stats["handoff_pages"],
+                            health["prefill_pending"],
+                            health["decode_active"],
+                            health["spec_tokens_accepted_rate"]))
         assert stats["kv_invariant_violations"] == 0
         assert stats["prefill_slots"] == 2
-    assert out["torch"] == out["jax"]
-    assert out["torch"][1] == len(LANE_PROMPTS) and out["torch"][2] > 0
+    want = plain_tokens["jax"]
+    assert plain_tokens["torch"] == want
+    assert lanes["torch"][0] == want
+    assert lanes["torch"][1] == lanes["jax"][1]
+    assert lanes["torch"][1][0] == len(LANE_PROMPTS)
+    assert lanes["torch"][1][1] > 0
 
 
 def test_lane_starve_and_recover(weights):

@@ -312,7 +312,7 @@ def test_generate_tokens_equal(weights):
 
 
 def test_ep_axis_and_undecodable_routers_refuse(tmp_path):
-    """An ``ep`` mesh axis beside ``fsdp`` is not placed yet (item 7c):
+    """An ``ep`` mesh axis beside ``fsdp`` is not placed yet (item 7d):
     the loop refuses the job before it builds anything. Expert-choice
     routing cannot be decoded (both packages refuse it)."""
     from polyaxon_tpu_torch.runtime.loop import run_torchjob
@@ -321,7 +321,7 @@ def test_ep_axis_and_undecodable_routers_refuse(tmp_path):
     job = {"kind": "jaxjob", "mesh": {"axes": {"fsdp": 2, "ep": 2}},
            "runtime": {"model": "moe_tiny", "dataset": "lm_synthetic",
                        "seq_len": 8, "global_batch_size": 2, "steps": 1}}
-    with pytest.raises(NotImplementedError, match="item 7c"):
+    with pytest.raises(NotImplementedError, match="item 7d"):
         run_torchjob(job, artifacts_dir=str(tmp_path), device="cpu")
     ec = dataclasses.replace(tcfg, router="expert_choice")
     with pytest.raises(ValueError, match="top_k"):

@@ -160,7 +160,7 @@ class TestRules:
     def test_model_parallel_axes_raise(self):
         mesh = tmesh.build_mesh(axes={"dp": 2, "pp": 2, "tp": 2},
                                 devices=RANKS)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
             tree_placements({"w": ("embed",)}, mesh, rules_for_mesh(mesh))
 
     @pytest.mark.parametrize("axes", [

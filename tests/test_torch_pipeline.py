@@ -250,8 +250,14 @@ def test_replay_runs_each_microbatch_through_every_stage(double_buffer):
 
 
 def test_lora_over_a_pipelined_model_is_refused():
+    """No longer refused: the reference trains LoRA over a pipelined
+    llama (its adapters merged into the weights before the stages split
+    them), and so does the port, whose adapted weights split into stages
+    as plain tensors do (held against the reference's steps in
+    ``tests/test_torch_sharded_repairs.py``)."""
     from polyaxon_tpu_torch.models import get_model
     from polyaxon_tpu_torch.models.lora import lora_model_def
 
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        lora_model_def(get_model("llama_tiny", **STEP_OVERRIDES), 4, 8.0)
+    wrapped = lora_model_def(get_model("llama_tiny", **STEP_OVERRIDES), 4,
+                             8.0)
+    assert wrapped.pipeline_parallel and not wrapped.sharded_init

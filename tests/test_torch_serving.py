@@ -99,9 +99,11 @@ def test_eos_sampling_and_validation():
 
 
 def test_deferred_features_refuse():
-    """What still waits for another item raises naming it: sharded
-    serving (item 7). The MoE and t5 families load and serve now; t5 has
-    no paged surface, which the engine refuses as the reference's does."""
+    """What still waits for another item raises naming it: serving over
+    a mesh axis the gang does not serve yet (item 7; dp, fsdp and tp are
+    served, ``tests/test_torch_sharded_serving.py``). The MoE and t5
+    families load and serve now; t5 has no paged surface, which the
+    engine refuses as the reference's does."""
     for model in ("moe_tiny", "t5_tiny"):
         cfg, params = load_params(model, device="cpu")
         assert cfg.dtype == torch.bfloat16 and "embed" in params
@@ -110,7 +112,7 @@ def test_deferred_features_refuse():
         ContinuousBatchingEngine("t5_tiny", cfg, params, kv="paged",
                                  device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
-        ServingServer("llama_tiny", mesh_axes={"tp": 2}, device="cpu")
+        ServingServer("llama_tiny", mesh_axes={"sp": 2}, device="cpu")
 
 
 @pytest.mark.parametrize("model", sorted(tllama.CONFIGS))

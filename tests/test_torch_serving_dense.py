@@ -750,11 +750,13 @@ def test_cli_main_builds_the_server_with_the_reference_defaults(
 
 
 def test_waiting_features_raise_naming_their_item(tmp_path, monkeypatch):
-    """Sharded serving still raises naming item 7. The MoE and t5 models
+    """A serving mesh with an axis the gang does not serve yet (cp, sp,
+    ep, pp) raises naming item 7 (sharded serving over dp, fsdp and tp
+    is ``tests/test_torch_sharded_serving.py``'s). The MoE and t5 models
     serve, and a LoRA checkpoint (item 3b) is merged at load with the
     alpha and rank of its ``_meta``."""
     with pytest.raises(NotImplementedError, match="item 7"):
-        ServingServer("llama_tiny", mesh_axes={"tp": 2}, device="cpu")
+        ServingServer("llama_tiny", mesh_axes={"cp": 2}, device="cpu")
     for model in ("moe_tiny", "t5_tiny"):
         server = ServingServer(model, device="cpu")
         assert server.engine.model == model

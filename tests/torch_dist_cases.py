@@ -369,6 +369,14 @@ def _full(t, like):
                               stride=like.stride()).full_tensor()
 
 
+def _tensor_tree(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v) for k, v in tree.items()}
+    return torch.tensor(tree)
+
+
 def _overrides(case: dict) -> dict:
     import torch
 
@@ -403,9 +411,10 @@ def parallel_steps(rank: int, world: int, cases: list) -> dict:
             out[case["name"]] = run_job(rank, world, case["job"],
                                         case["artifacts"])
             continue
-        if kind in ("vocab_ce", "pipeline", "moe_forward"):
+        if kind in ("vocab_ce", "pipeline", "moe_forward", "init"):
             body = {"vocab_ce": vocab_ce_case, "pipeline": pipeline_case,
-                    "moe_forward": moe_forward_case}[kind]
+                    "moe_forward": moe_forward_case,
+                    "init": sharded_init_case}[kind]
             out[case["name"]] = body(rank, world, case)
             continue
         mesh = build_mesh(axes=case["axes"])
@@ -420,19 +429,30 @@ def parallel_steps(rank: int, world: int, cases: list) -> dict:
             model_def, opt, params = _with_lora(model_def, opt, params,
                                                 case["lora"])
         res = {"loss": [], "grad_norm": []}
+        accum = case.get("accum", 1)
+        state0 = (_tensor_tree(case["state0"]) if "state0" in case
+                  else None)
         with use_mesh(mesh):
             opt = _Recording(opt)
             state = build_init(model_def, opt, device="cpu", params=params,
-                               mesh=mesh, rules=rules_for_mesh(mesh))(0)
+                               state=state0, mesh=mesh,
+                               rules=rules_for_mesh(mesh))(0)
             step = build_train_step(model_def, opt, mesh=mesh,
-                                    accum_steps=case.get("accum", 1))
+                                    accum_steps=accum)
             batches = (case["rank_batches"][rank] if "rank_batches" in case
                        else case["batches"])
+            if case.get("loop_rows"):  # the loop's layout of its rows
+                from polyaxon_tpu_torch.runtime.step import rank_rows
+
+                batches = [rank_rows(b, mesh, accum) for b in batches]
             for i, batch in enumerate(batches):
                 state, metrics = step(state, {k: torch.from_numpy(v)
                                               for k, v in batch.items()})
                 res["loss"].append(float(metrics["loss"]))
                 res["grad_norm"].append(float(metrics["grad_norm"]))
+                if "router_aux" in metrics:
+                    res.setdefault("router_aux", []).append(
+                        float(metrics["router_aux"]))
                 if i == 0:
                     leaves = [(name, p) for name, p in
                               _named_leaves(state["params"])
@@ -442,6 +462,8 @@ def parallel_steps(rank: int, world: int, cases: list) -> dict:
                         for (name, p), g in zip(leaves, opt.grads)}
             res["params"] = {name: _numpy_tree({"x": p})["x"] for name, p
                              in _named_leaves(state["params"])}
+            res["state"] = {name: t.numpy() for name, t
+                            in _named_leaves(state["state"])}
         out[case["name"]] = res
     return out
 
@@ -543,3 +565,145 @@ def moe_forward_case(rank: int, world: int, case: dict) -> dict:
                                placed, mesh)
         logits, aux = moe.forward(cfg, view, local)
     return {"logits": logits.numpy(), "aux": float(aux)}
+
+
+# ------------------------------------------------------- sharded serving
+def _post(url: str, payload: dict) -> dict:
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/generate", method="POST",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.load(resp)
+
+
+def _stream(url: str, payload: dict) -> list:
+    """The tokens of each row of a streamed request, from its events."""
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/generate", method="POST",
+                                 data=json.dumps(dict(payload, stream=True))
+                                 .encode(),
+                                 headers={"Content-Type": "application/json"})
+    rows: dict = {}
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                event = json.loads(line[len("data: "):])
+                if "token" in event:
+                    rows.setdefault(event["index"], []).append(event["token"])
+    return [rows[i] for i in sorted(rows)]
+
+
+def serving_cases(rank: int, world: int, cases: list) -> dict:
+    """Each case a ``ServingServer`` over ``axes`` (every rank of the
+    gang) on the case's model and checkpoint, its ``server`` keyword
+    arguments, on the CPU: rank 0 answers the case's ``requests`` (name
+    → payload; ``"stream"`` in the name streams it) and, with
+    ``logits``, the sharded prefill of that prompt and its first decode
+    step through the gang (both logits, whole); the other ranks follow.
+    Returns, on rank 0, each case's answers; the gang's model calls and
+    the bytes of this rank's parameters, on every rank."""
+    import dataclasses
+
+    import torch
+
+    from polyaxon_tpu_torch.serving.gang import ParamsRef
+    from polyaxon_tpu_torch.serving.quantize import tree_bytes
+    from polyaxon_tpu_torch.serving.server import ServingServer
+
+    out = {}
+    for case in cases:
+        for model in case.get("f32", ()):  # serve these configs in f32
+            from polyaxon_tpu_torch.models import family_of
+
+            configs = family_of(model).CONFIGS
+            configs[model] = dataclasses.replace(configs[model],
+                                                 dtype=torch.float32)
+        server = ServingServer(case["model"], case.get("checkpoint"),
+                               mesh_axes=case["axes"], device="cpu",
+                               **case.get("server", {}))
+        family, cfg, params, _ = server.gang.worker.roles["target"]
+        res: dict = {"param_bytes": tree_bytes(params)}
+        if not server.is_leader:
+            server.follow()
+            res["calls"] = server.gang.calls
+            out[case["name"]] = res
+            continue
+        with server:
+            for name, payload in case.get("requests", {}).items():
+                res[name] = (_stream(server.url, payload) if "stream" in name
+                             else _post(server.url, payload)["tokens"])
+            if "logits" in case:
+                fam = server.gang.family("target", family)
+                prompt = torch.tensor([case["logits"]], dtype=torch.long)
+                logits, cache = fam.prefill(cfg, ParamsRef("target"),
+                                            prompt, 32)
+                step, _ = fam.decode_step(cfg, ParamsRef("target"), cache,
+                                          logits.argmax(-1),
+                                          prompt.shape[1])
+                res["prefill_logits"] = logits.numpy()
+                res["decode_logits"] = step.numpy()
+        res["calls"] = server.gang.calls
+        out[case["name"]] = res
+    return out
+
+
+def sharded_init_case(rank: int, world: int, case: dict) -> dict:
+    """``build_init`` of ``model`` (with ``overrides``) from seed 0 over
+    ``axes`` (every rank): the bytes of this rank's parameters against
+    the bytes of its shards by the rules, the largest tensor any
+    operation made meanwhile, and the parameters gathered whole."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from polyaxon_tpu_torch.models import get_model
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh, use_mesh
+    from polyaxon_tpu_torch.parallel.sharding import (rules_for_mesh,
+                                                      tree_placements)
+    from polyaxon_tpu_torch.runtime.config import RuntimeConfig
+    from polyaxon_tpu_torch.runtime.optim import build_optimizer
+    from polyaxon_tpu_torch.runtime.step import build_init
+
+    class Largest(TorchDispatchMode):
+        largest = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                # A DTensor's own storage is its local tensor's, which
+                # its local operation made.
+                if isinstance(t, torch.Tensor) and not isinstance(t,
+                                                                  DTensor):
+                    Largest.largest = max(Largest.largest,
+                                          t.numel() * t.element_size())
+            return out
+
+    mesh = build_mesh(axes=case["axes"])
+    model_def = get_model(case["model"], dtype=torch.float32,
+                          **case.get("overrides", {}))
+    opt = build_optimizer(RuntimeConfig.from_dict(_job(case["axes"], 1)[
+        "runtime"]))
+    with use_mesh(mesh), Largest():
+        state = build_init(model_def, opt, device="cpu", mesh=mesh,
+                           rules=rules_for_mesh(mesh))(0)
+    placements = tree_placements(model_def.logical_axes()["params"], mesh,
+                                 rules_for_mesh(mesh))
+    shard_bytes = 0
+    for (_, p), (_, pl) in zip(_named_leaves(state["params"]),
+                               _named_leaves(placements)):
+        n = p.numel() * p.element_size()
+        for name, one in zip(mesh.axis_names, pl):
+            if one.is_shard():
+                n //= mesh.shape[name]
+        shard_bytes += n
+    return {"local_bytes": sum(p.to_local().numel() * p.element_size()
+                               for _, p in _named_leaves(state["params"])),
+            "shard_bytes": shard_bytes, "largest": Largest.largest,
+            "params": {name: p.full_tensor().detach().numpy()
+                       for name, p in _named_leaves(state["params"])}}

@@ -102,11 +102,14 @@ def lora_params(base: dict, lora: dict) -> dict:
 
 def jax_steps(model: str, overrides: dict, axes: dict, params0: dict,
               global_batches: list, runtime: dict,
-              lora: dict | None = None) -> dict:
+              lora: dict | None = None, accum: int = 1,
+              state0: dict | None = None) -> dict:
     """The reference's train step over ``axes`` (with LoRA adapters when
     ``lora`` is given: its masked optimizer, ``params0`` the {base,
-    lora} tree): losses and grad norms of each step, the parameters
-    after the last (flat)."""
+    lora} tree; ``accum`` microbatches; ``state0`` the model's mutable
+    state): losses and grad norms of each step (and the router aux of a
+    model that reports it), the parameters and the mutable state after
+    the last (flat)."""
     from polyaxon_tpu.models import lora as jlora
     from polyaxon_tpu.parallel import rules_for_mesh as jrules
     from polyaxon_tpu.parallel.sharding import tree_shardings
@@ -124,15 +127,21 @@ def jax_steps(model: str, overrides: dict, axes: dict, params0: dict,
         rules = jrules(mesh)
         params = jax.device_put(params0, tree_shardings(
             mdef.logical_axes()["params"], mesh, rules))
-        state = {"params": params, "state": {}, "opt_state": opt.init(params),
+        state = {"params": params,
+                 "state": jax.tree.map(jnp.asarray, state0 or {}),
+                 "opt_state": opt.init(params),
                  "step": jnp.zeros((), jnp.int32)}
-        train = jstep(mdef, opt, mesh, rules)
+        train = jstep(mdef, opt, mesh, rules, accum_steps=accum)
         for b in global_batches:
             state, m = train(state, jax.tree.map(jnp.asarray, b),
                              jax.random.key(1))
             out["loss"].append(float(m["loss"]))
             out["grad_norm"].append(float(m["grad_norm"]))
+            if "router_aux" in m:
+                out.setdefault("router_aux", []).append(
+                    float(m["router_aux"]))
         out["params"] = flat(jax.tree.map(np.asarray, state["params"]))
+        out["state"] = flat(jax.tree.map(np.asarray, state["state"]))
     return out
 
 
