@@ -116,9 +116,10 @@ Phases, each of which must pass:
    restored here and its leaf CRC-32s held against the manifest, and
    tier 0 is timed here (the replica a spill restore promotes, then a
    snapshot published as the replica), with no further disk write. The
-   drill's files go to a fresh temporary directory; its depth is cut
-   only if three checkpoints do not fit in the free disk or in
-   DRILL_DISK_BUDGET, or the launcher's snapshot in host memory.
+   drill's files go to a fresh temporary directory; its depth is cut to
+   DRILL_LAYERS (4 of 16) for phase 20's time, and further only if three
+   checkpoints do not fit in the free disk or in DRILL_DISK_BUDGET, or
+   the launcher's snapshot in host memory.
 8. The paged engine serves the drill's checkpoint: two requests of 16
    new tokens (flash forward and paged decode at head_dim 64, counters
    zeroed before and read after), then the first admission against the
@@ -142,8 +143,9 @@ Phases, each of which must pass:
    twice as often. Prints submit to compiled, the compile span, queued to
    the process's start, the process's wall, submit to SUCCEEDED and the
    plane's overhead (the last less the process), and tokens/s and MFU
-   beside phase 4's. The depth is cut only if one checkpoint does not
-   fit, by the drill's rule.
+   beside phase 4's. The depth is cut to PLAN_LAYERS (8 of 16) for phase
+   20's time, and further only if one checkpoint does not fit, by the
+   drill's rule.
 10. The acceptance sweep on the card: SWEEP, a copy of
    ``tests/test_acceptance.py``'s HYPERBAND_SWEEP whose trials are
    llama_200m at full width and depth (flash attention, seq 2048, global
@@ -201,9 +203,9 @@ Phases, each of which must pass:
    must move) and mnist_cnn (``examples/mnist.yaml``).
 15. LoRA: ``examples/lora_finetune.yaml``'s runtime, llama3_8b at full
    width, rank 16, alpha 32, seq 4096, LORA_STEPS steps of LORA_BATCH
-   rows in microbatches of 1, one checkpoint, the depth cut only by
-   ``lora_depth``: each backward kernel once per layer and microbatch,
-   optimizer state for the adapters alone, the base equal to its seeded
+   rows in microbatches of 1, one checkpoint, the depth cut to
+   LORA_LAYERS (4 of 32) by ``lora_depth`` for phase 20's time: each
+   backward kernel once per layer and microbatch, optimizer state for the adapters alone, the base equal to its seeded
    init, every B moved. ``ServingServer("llama3_8b", checkpoint=...)``
    then merges the adapters from the checkpoint's ``_meta``, answers one
    request, and its first admission is held against the plain path.
@@ -284,6 +286,25 @@ Phases, each of which must pass:
    and each rank's peak memory. Phase 1 also holds the kernels at the
    tp-local serving shapes (``PATH_CASES``: the 2,048-token prefill at
    16:4 heads; ``decode_cases``: 8 ragged rows at 16:4 and 8:2).
+
+20. An elastic gang (``20. elastic`` lines): ``ELASTIC_SPEC``
+   (llama3_1b at full width, cut to ELASTIC_LAYERS = 2 of 16 layers,
+   adafactor, dp2, checkpoints every 2 steps that restore on start)
+   submitted to the port's plane and run by ``Agent(plane,
+   in_process=True, local_devices=[0, 0])``: two local devices sharing
+   the card, each rank re-running this script as ``--train-rank``
+   (gloo; NCCL refuses two ranks on one device). First unresized with
+   checkpointing off; then with chaos ``slice-loss`` kill after the
+   first checkpoint and restore after the third, so the run trains
+   dp2 → dp1 (in the agent's thread) → dp2, with the inline prewarm.
+   The run must reach SUCCEEDED with no retry, the two resizes in
+   ``meta["elastic"]``, three segments, ``loss-continuity`` passing and
+   every emitted loss within TRAIN_LOSS_REL_TOL of the unresized run's;
+   the training kernels must launch in the ranks and in the thread.
+   Prints each segment's step ms and restore (seconds, tier), each
+   resize's forced save, prewarm, relaunch and restore seconds, the
+   gangs' stop agreement per step, ``meta["elastic"]`` and
+   ``meta["checkpoint"]``.
 
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
@@ -2267,6 +2288,11 @@ DRILL_CKPT = {"enabled": True, "intervalSteps": 2, "maxToKeep": 1,
 # links keep after the store has pruned it (SPILL_KEEP = 2), and the step
 # being written.
 DRILL_FILE_STATES = 3
+# The depth of the drill (phase 7) and of the compiled plan (phase 9),
+# cut for phase 20's share of the script's time (llama3_1b's 16 layers
+# took 170-180 s and 99 s of it); the width stays.
+DRILL_LAYERS = 4
+PLAN_LAYERS = 8
 # The most disk the drill's files may take at once, whatever is free:
 # machines that run this script may cap how far a job's disk use grows
 # (at 45 GiB on some), and the builds and logs need a little of that.
@@ -2313,14 +2339,14 @@ def _json_lines(path: str) -> list[dict]:
 
 def fit_depth(torch, llama, free_disk: float, free_host: float,
               file_states: int, label: str, model: str = "llama3_1b",
-              host_states: int = 1):
+              host_states: int = 1, cap: int = 0):
     """``model``'s depth for a phase that keeps ``file_states``
-    checkpoints on the disk at once: its full depth, cut only if those do
-    not fit in the free disk or in DRILL_DISK_BUDGET, or ``host_states``
-    host copies of one (the launcher's snapshot; an in-process sweep's
-    tier-0 replicas) do not fit in the host's available memory less
-    DRILL_HOST_MARGIN (a cut is printed). Returns (layers, checkpoint
-    bytes)."""
+    checkpoints on the disk at once: its full depth or ``cap`` layers,
+    cut further only if those do not fit in the free disk or in
+    DRILL_DISK_BUDGET, or ``host_states`` host copies of one (the
+    launcher's snapshot; an in-process sweep's tier-0 replicas) do not
+    fit in the host's available memory less DRILL_HOST_MARGIN (a cut is
+    printed). Returns (layers, checkpoint bytes)."""
     cfg = llama.CONFIGS[model]
     full = cfg.n_layers
     meta = llama.init(cfg, torch.Generator(), device="meta")["params"]
@@ -2337,26 +2363,32 @@ def fit_depth(torch, llama, free_disk: float, free_host: float,
                 and host_states * state_bytes(layers)
                 <= free_host - DRILL_HOST_MARGIN)
 
-    layers = full
+    layers = min(full, cap) if cap else full
+    if layers < full:
+        print(f"{label}: {model}'s depth cut from {full} to {layers} "
+              f"layers for phase 20's time, width kept", flush=True)
+    top = layers
     while layers > 1 and not fits(layers):
         layers -= 1
-    if layers < full:
+    if layers < top:
         print(f"{label}: {file_states} checkpoints of "
-              f"{state_bytes(full) / 1e9:.2f} GB do not fit in "
+              f"{state_bytes(top) / 1e9:.2f} GB do not fit in "
               f"{min(free_disk, DRILL_DISK_BUDGET) / 1e9:.1f} GB of disk "
               f"({free_disk / 1e9:.1f} GB free, budget "
               f"{DRILL_DISK_BUDGET / 1e9:.1f} GB), or {host_states} in "
               f"{free_host / 1e9:.1f} GB of host memory: {model}'s depth "
-              f"cut from {full} to {layers} layers, width kept", flush=True)
+              f"cut from {top} to {layers} layers, width kept", flush=True)
     return layers, state_bytes(layers)
 
 
 def drill_job(torch, llama, free_disk: float, free_host: float):
     """The drill's job and its depth: TRAIN_JOB with DRILL_CKPT at full
-    width, at ``fit_depth``'s depth for DRILL_FILE_STATES checkpoints.
+    width, at ``fit_depth``'s depth (at most DRILL_LAYERS) for
+    DRILL_FILE_STATES checkpoints.
     Returns (job, layers, checkpoint bytes)."""
     layers, nbytes = fit_depth(torch, llama, free_disk, free_host,
-                               DRILL_FILE_STATES, "checkpoint drill")
+                               DRILL_FILE_STATES, "checkpoint drill",
+                               cap=DRILL_LAYERS)
     job = json.loads(json.dumps(TRAIN_JOB))
     job["checkpointing"] = dict(DRILL_CKPT)
     if layers < TRAIN_LAYERS:
@@ -3042,10 +3074,12 @@ def _compiled_launch(torch, llama, train_result, tmp):
     print(f"{label}: corpus of {nbytes} bytes, {ndocs} documents, written "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # The depth: full unless one checkpoint (the final save; the spill
-    # hard-links the store's files) does not fit, by the drill's rule.
+    # The depth: PLAN_LAYERS unless one checkpoint (the final save; the
+    # spill hard-links the store's files) does not fit, by the drill's
+    # rule.
     layers, ckpt_bytes = fit_depth(torch, llama, shutil.disk_usage(tmp).free,
-                                   meminfo()["MemAvailable"], 1, label)
+                                   meminfo()["MemAvailable"], 1, label,
+                                   cap=PLAN_LAYERS)
     preset = json.loads(json.dumps(H100_PRESET))
     if layers < TRAIN_LAYERS:
         preset["runPatch"]["runtime"]["n_layers"] = layers
@@ -3481,9 +3515,12 @@ T5_NEW_TOKENS = 32
 T5_PROMPTS = (512, 400, 300, 200, 129, 64, 37, 5)
 # Phase 15: lora_finetune.yaml's runtime at 3 steps of global batch 4 in
 # microbatches of 1 (its 16-row batch at one row per microbatch would be
-# 16 microbatches a step).
+# 16 microbatches a step), llama3_8b cut to LORA_LAYERS of its 32 layers
+# at full width: its 32 GB checkpoint took 115-130 s of the script's time
+# budget, which phase 20 needs.
 LORA_STEPS = 3
 LORA_BATCH = 4
+LORA_LAYERS = 4
 
 
 def compile_example(path: str, label: str, *, params=None, axes=None,
@@ -4346,10 +4383,10 @@ def other_families(torch, flash, paged):
 
 def lora_depth(torch, llama, free_disk: float, free_host: float,
                rank: int, label: str) -> int:
-    """llama3_8b's depth for the LoRA phase: full, cut only if one
-    checkpoint (the f32 base, the adapters and their adamw moments) does
-    not fit in the free disk or DRILL_DISK_BUDGET, or its host snapshot
-    in the available host memory less DRILL_HOST_MARGIN."""
+    """llama3_8b's depth for the LoRA phase: LORA_LAYERS, cut further
+    only if one checkpoint (the f32 base, the adapters and their adamw
+    moments) does not fit in the free disk or DRILL_DISK_BUDGET, or its
+    host snapshot in the available host memory less DRILL_HOST_MARGIN."""
     from polyaxon_tpu_torch.models import lora
 
     cfg = llama.CONFIGS["llama3_8b"]
@@ -4368,7 +4405,7 @@ def lora_depth(torch, llama, free_disk: float, free_host: float,
         return (state_bytes(layers) <= min(free_disk, DRILL_DISK_BUDGET)
                 and state_bytes(layers) <= free_host - DRILL_HOST_MARGIN)
 
-    layers = cfg.n_layers
+    layers = min(cfg.n_layers, LORA_LAYERS)
     while layers > 1 and not fits(layers):
         layers -= 1
     print(f"{label}: one checkpoint of {state_bytes(layers) / 1e9:.2f} GB "
@@ -4385,7 +4422,7 @@ def lora_phase(torch, llama, flash, paged):
     """Phase 15: the runtime section of examples/lora_finetune.yaml
     (llama3_8b at full width, rank 16, alpha 32, seq 4096, flash, remat
     dots) for LORA_STEPS steps of LORA_BATCH rows in microbatches of 1,
-    one checkpoint, depth cut only by ``lora_depth``. Only the adapters
+    one checkpoint, depth cut by ``lora_depth``. Only the adapters
     change (the base equals its seeded init), the optimizer holds state
     for them alone, the backward kernels launch per layer and
     microbatch. Then ``ServingServer("llama3_8b", checkpoint=...)``
@@ -5437,6 +5474,267 @@ def sharded_serving(torch, llama, flash, paged):
     return counts  # rank 0's (rank 1 runs the same calls on its heads)
 
 
+# Phase 20: an elastic gang on the one card. llama3_1b at full width, cut
+# to ELASTIC_LAYERS of its 16 layers (the gloo all-reduce of the f32
+# gradients dominates a step, and the vocabulary's two 263 M-parameter
+# matrices dominate those), dp2 as two ranks sharing the card over gloo,
+# adafactor (its factored moments keep a checkpoint at the parameters'
+# 2.6 GB), checkpoints every 2 steps; chaos slice loss after the first
+# checkpoint, capacity back after the third, so the shrunk segment trains
+# timed steps too.
+ELASTIC_LAYERS = 2
+ELASTIC_STEPS = 8
+ELASTIC_SPEC = {
+    "kind": "operation",
+    "termination": {"maxRetries": 1},
+    "component": {"name": "chip-smoke-elastic", "run": {
+        "kind": "jaxjob", "numProcesses": 1,
+        "mesh": {"axes": {"dp": 2}},
+        "checkpointing": {"enabled": True, "intervalSteps": 2,
+                          "maxToKeep": 3, "asyncSave": False,
+                          "restoreOnStart": True},
+        "runtime": {
+            "model": "llama3_1b", "n_layers": ELASTIC_LAYERS,
+            "dataset": "lm_packed_synthetic", "steps": ELASTIC_STEPS,
+            "seq_len": 4096, "global_batch_size": 4,
+            "learning_rate": 3e-4, "optimizer": "adafactor",
+            "remat": "dots",
+            "attention_impl": "flash", "log_every": 1, "seed": SEED,
+        },
+    }},
+}
+ELASTIC_TIMEOUT = 600
+TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+
+
+def train_rank() -> None:
+    """One rank of phase 20's local gangs: two ranks share the card, so
+    the rank starts a gloo group from the gang's env contract (NCCL
+    refuses two ranks on one device; gloo carries the collectives of
+    CUDA tensors, ``scripts/probe_gloo_cuda.py``) and then runs the
+    launcher, which keeps that group."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from polyaxon_tpu_torch.parallel import bootstrap
+    from polyaxon_tpu_torch.runtime import launch
+
+    group = bootstrap.read_env_contract()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{group.coordinator}",
+        world_size=group.num_processes, rank=group.process_id)
+    sys.exit(launch.main())
+
+
+def _rank_launches(log_dir: str) -> dict:
+    """Every ``launches`` line the gangs' ranks printed, summed."""
+    total = dict.fromkeys(("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                           "paged_decode"), 0)
+    for name in sorted(os.listdir(log_dir)):
+        if name.startswith("rank-"):
+            for rec in _json_lines(os.path.join(log_dir, name)):
+                for k, v in rec.get("launches", {}).items():
+                    total[k] += v
+    return total
+
+
+def _segments(trace: list) -> list:
+    """Per segment (its ``runtime`` span, in time order): the mean step
+    ms of its timed steps and its restore span."""
+    spans = [r for r in trace if r.get("type") == "span"
+             and r.get("end") is not None]
+    out = []
+    for run in sorted((r for r in spans if r["name"] == "runtime"),
+                      key=lambda r: r["start"]):
+        mine = [r for r in spans if r.get("parent_id") == run["span_id"]]
+        steps = [r["attributes"] for r in mine if r["name"] == "step"
+                 and r["attributes"].get("steps")]
+        n = sum(a["steps"] for a in steps)
+        out.append({
+            "run": run,
+            "devices": run["attributes"].get("devices"),
+            "steps": n,
+            "step_ms": (sum(a["step_time_ms"] * a["steps"] for a in steps)
+                        / n if n else None),
+            "restore": next((r for r in mine if r["name"] == "restore"),
+                            None),
+            "saves": [r for r in mine if r["name"] == "checkpoint"],
+        })
+    return out
+
+
+def elastic_gang(torch, flash, paged):
+    """Phase 20: ``ELASTIC_SPEC`` submitted to the port's plane and run by
+    its in-process agent over two local devices that share the card
+    (``Agent(local_devices=[0, 0])``, each rank ``train_rank``), first
+    unresized with checkpointing off, then with chaos slice loss, so it
+    trains dp2 → dp1 → dp2: two ranks, then one in the agent's thread,
+    then two. Prints each segment's step ms, each resize's seconds
+    (prewarm, the forced save, the relaunch up to the restore, the
+    restore), the restore tiers, ``meta["elastic"]`` and each step's
+    loss against the unresized run's (TRAIN_LOSS_REL_TOL relative).
+    Returns the elastic run's launches, its ranks' and its thread's."""
+    import copy
+    import shutil
+    import tempfile
+
+    from polyaxon_tpu_torch import chaos
+    from polyaxon_tpu_torch.agent import Agent
+    from polyaxon_tpu_torch.controlplane import ControlPlane
+    from polyaxon_tpu_torch.lifecycle import V1Statuses
+    from polyaxon_tpu_torch.obs.trace import read_trace
+    from polyaxon_tpu_torch.runtime import elastic, tiers
+
+    label = "20. elastic"
+    t_phase = time.perf_counter()
+    rank_cmd = [sys.executable, os.path.abspath(__file__), "--train-rank"]
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-elastic-")
+    prewarm_env = os.environ.get(elastic.ENV_ELASTIC_PREWARM)
+    # The structural prewarm: the default one-step child is driven on
+    # four cards (scripts/parallel_gpus.py --gangs elastic).
+    os.environ[elastic.ENV_ELASTIC_PREWARM] = "inline"
+    try:
+        plane = ControlPlane(os.path.join(tmp, "home"))
+        agent = Agent(plane, in_process=True, local_devices=[0, 0])
+
+        def run(spec, what):
+            record = plane.submit(spec)
+            plane.compile_run(record.uuid)
+            plan = plane.get_run(record.uuid).launch_plan
+            proc = plan["processes"][0]
+            if list(proc["command"]) + list(proc["args"]) != LAUNCHER:
+                fail(f"{label}: the plan runs {proc['command']}")
+            proc["command"], proc["args"] = rank_cmd, []
+            plane.store.update_run(record.uuid, launch_plan=plan)
+            t0 = time.perf_counter()
+            status = agent.run_until_done(record.uuid,
+                                          timeout=ELASTIC_TIMEOUT)
+            wall = time.perf_counter() - t0
+            art = plane.run_artifacts_dir(record.uuid)
+            if status != V1Statuses.SUCCEEDED:
+                tails = "".join(_tail(os.path.join(art, "logs", n), 3000)
+                                for n in sorted(os.listdir(
+                                    os.path.join(art, "logs"))))
+                fail(f"{label}: the {what} run ended {status.value}: "
+                     f"{plane.get_statuses(record.uuid)[-1]}\n{tails}")
+            losses = {e["step"]: e["value"] for e in plane.streams.get_metrics(
+                record.uuid, ["loss"])["loss"]}
+            return record, art, losses, wall
+
+        ref_spec = copy.deepcopy(ELASTIC_SPEC)
+        ref_spec["component"]["run"]["checkpointing"] = {"enabled": False}
+        _, _, want, ref_wall = run(ref_spec, "unresized")
+        if sorted(want) != list(range(1, ELASTIC_STEPS)):
+            fail(f"{label}: the unresized run emitted steps {sorted(want)}")
+
+        _zero(flash, paged)
+        chaos.install(chaos.ChaosPlan.from_dict({"seed": SEED, "faults": [
+            {"seam": "slice-loss", "op": "kill",
+             "config": {"min_checkpoints": 1}},
+            {"seam": "slice-loss", "op": "restore",
+             "config": {"min_checkpoints": 3}}]}))
+        try:
+            record, art, got, wall = run(ELASTIC_SPEC, "elastic")
+            fired = chaos.active_plan().consumed
+        finally:
+            chaos.uninstall()
+        threaded = _counts(flash, paged)
+        record = plane.get_run(record.uuid)
+        audit = record.meta.get("elastic") or {}
+        attempts = [(a["direction"], a["outcome"], a["from_devices"],
+                     a["to_devices"]) for a in audit.get("attempts", [])]
+        if attempts != [("shrink", "ok", 2, 1), ("grow", "ok", 1, 2)] \
+                or record.retries or len(fired) != 2:
+            fail(f"{label}: resizes {audit}, retries {record.retries}, "
+                 f"faults fired {fired}")
+        outputs = plane.streams.get_outputs(record.uuid)
+        if outputs["steps"] != ELASTIC_STEPS:
+            fail(f"{label}: {outputs['steps']} steps, want {ELASTIC_STEPS}")
+        verdicts = {v["invariant"]: v["verdict"]
+                    for v in plane.verify(record.uuid)["verdicts"]}
+        if verdicts["loss-continuity"] != "pass":
+            fail(f"{label}: loss-continuity {verdicts['loss-continuity']}")
+        if len(got) < 3 or not set(got) <= set(want):
+            fail(f"{label}: emitted steps {sorted(got)}")
+        worst = 0.0
+        for step in sorted(got):
+            rel = abs(got[step] - want[step]) / abs(want[step])
+            worst = max(worst, rel)
+            if not math.isfinite(got[step]) or rel > TRAIN_LOSS_REL_TOL:
+                fail(f"{label}: step {step} loss {got[step]} against the "
+                     f"unresized {want[step]} (relative {rel:.2e}, tol "
+                     f"{TRAIN_LOSS_REL_TOL})")
+            print(f"{label} step {step}: loss={got[step]:.6f} unresized="
+                  f"{want[step]:.6f} rel={rel:.2e}", flush=True)
+
+        trace = read_trace(art)
+        segments = _segments(trace)
+        resizes = sorted((r for r in trace if r.get("name") == "resize"
+                          and r.get("end") is not None),
+                         key=lambda r: r["start"])
+        if [s["devices"] for s in segments] != [2, 1, 2] \
+                or len(resizes) != 2:
+            fail(f"{label}: segments over {[s['devices'] for s in segments]}"
+                 f" devices, {len(resizes)} resize spans")
+        for i, seg in enumerate(segments):
+            restore = seg["restore"]
+            step_ms = seg["step_ms"] and round(seg["step_ms"], 1)
+            print(f"{label} segment {i}: {seg['devices']} rank(s), "
+                  f"{seg['steps']} timed steps, step_ms={step_ms}, restore="
+                  + (f"{restore['duration_ms'] / 1e3:.2f}s tier "
+                     f"{restore['attributes'].get('restore_tier')} from step "
+                     f"{restore['attributes'].get('restored_from_step')}"
+                     if restore else "none"), flush=True)
+        for i, rz in enumerate(resizes):
+            before, after = segments[i], segments[i + 1]
+            final = [c for c in before["saves"]
+                     if c["attributes"].get("final")]
+            if not final or after["restore"] is None:
+                fail(f"{label}: resize {i} lacks its forced save or restore")
+            save_s = final[-1]["duration_ms"] / 1e3
+            prewarm_s = rz["duration_ms"] / 1e3
+            relaunch_s = after["restore"]["start"] - rz["end"]
+            restore_s = after["restore"]["duration_ms"] / 1e3
+            print(f"{label} resize {i} ({rz['attributes']['direction']} "
+                  f"{rz['attributes']['from_devices']}→"
+                  f"{rz['attributes']['to_devices']} at step "
+                  f"{rz['attributes']['from_step']}): forced_save_s="
+                  f"{save_s:.2f} prewarm_s={prewarm_s:.2f} (inline, with "
+                  f"the tier-0 warm) relaunch_s={relaunch_s:.2f} (to the "
+                  f"restore's start) restore_s={restore_s:.2f} tier "
+                  f"{after['restore']['attributes'].get('restore_tier')}; "
+                  f"sum {save_s + prewarm_s + relaunch_s + restore_s:.2f}s",
+                  flush=True)
+        stops = [r["outputs"]["stop_check_ms"] for r in _json_lines(
+            os.path.join(art, "logs", "rank-0.log")) if "outputs" in r]
+        launches = _rank_launches(os.path.join(art, "logs"))
+        counts = {k: launches[k] + threaded[k] for k in launches}
+        for name in TRAINING_KERNELS:
+            if threaded[name] <= 0 or launches[name] <= 0:
+                fail(f"{label}: {name} launched {threaded[name]} times in "
+                     f"the thread's segment, {launches[name]} in the ranks'")
+        print(f"{label}: meta[\"elastic\"]={json.dumps(audit)}", flush=True)
+        print(f"{label}: meta[\"checkpoint\"]="
+              f"{json.dumps(record.meta.get('checkpoint'))}; the gangs' "
+              f"stop agreement (one gloo all-reduce a step) "
+              f"stop_check_ms={[round(x, 3) for x in stops]}; elastic "
+              f"wall_s={wall:.1f} unresized wall_s={ref_wall:.1f}; loss "
+              f"worst rel {worst:.2e}; launches ranks {launches} thread "
+              f"{threaded}", flush=True)
+    finally:
+        if prewarm_env is None:
+            os.environ.pop(elastic.ENV_ELASTIC_PREWARM, None)
+        else:
+            os.environ[elastic.ENV_ELASTIC_PREWARM] = prewarm_env
+        tiers.TIER0.clear()
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -5536,6 +5834,8 @@ def main() -> None:
     entry_counts = model_parallel(torch, llama, flash, paged_attention)
     torch.cuda.empty_cache()
     gang_counts = sharded_serving(torch, llama, flash, paged_attention)
+    torch.cuda.empty_cache()
+    elastic_counts = elastic_gang(torch, flash, paged_attention)
 
     # Each kernel's launches are the sum over the main-path runs that
     # reach it (each printed above): the engine, phases a-g, the two
@@ -5544,10 +5844,11 @@ def main() -> None:
     # its checkpoint, the launcher the agent ran from the compiled plan,
     # the sweep's trials and the engine serving its best trial, the runs
     # of phases 11-15, the longcontext run of phase 17, the entry
-    # point's run of phase 18 and rank 0 of phase 19's gang.
+    # point's run of phase 18, rank 0 of phase 19's gang and phase 20's
+    # elastic run (its gangs' ranks and its one-device segment).
     runs = (counts, *serve_counts, train_counts, gemma_counts, *drill_counts,
             plan_counts, *sweep_counts, *family_counts, ring_counts,
-            entry_counts, gang_counts)
+            entry_counts, gang_counts, elastic_counts)
 
     def total(name):
         return sum(run.get(name, 0) for run in runs)
@@ -5596,5 +5897,7 @@ def _leaves(tree):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-rank"]:  # phase 19's gang ranks
         serve_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--train-rank"]:  # phase 20's gang ranks
+        train_rank()
     else:
         main()

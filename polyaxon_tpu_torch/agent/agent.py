@@ -11,7 +11,9 @@ topologies), and one loop drives scheduler ticks + executor reconcile:
 
 Port of ``polyaxon_tpu/agent/agent.py``. Its executor is the port's
 ``LocalExecutor``; ``device`` is where in-process gangs train (the card
-unless the caller names another). Not ported yet: the native slice pool
+unless the caller names another) and ``local_devices`` the devices such
+a job holds (every card by default; a list of ids, or a count on the
+CPU). Not ported yet: the native slice pool
 (``slice_manager``, ROADMAP.md, Queue 1 item 10).
 """
 
@@ -41,6 +43,7 @@ class Agent:
         slice_manager=None,
         admission: Optional[AdmissionController] = None,
         device=None,
+        local_devices=None,
     ):
         if slice_manager is not None:
             raise NotImplementedError(
@@ -49,7 +52,8 @@ class Agent:
         self.plane = plane
         self.scheduler = Scheduler(plane)
         self.executor = executor or LocalExecutor(
-            plane, in_process=in_process, device=device)
+            plane, in_process=in_process, device=device,
+            local_devices=local_devices)
         self.max_concurrent = max_concurrent
         self.admission = admission or AdmissionController(plane)
         self._notified: set[str] = set()

@@ -13,13 +13,18 @@ Modes per process:
 - ``in_process=True`` (tests/CLI fast path, single-process jaxjob
   gangs) → execute the builtin runtime (``run_torchjob``) in a thread
   on the executor's ``device``, skipping a fresh interpreter's start.
+  A job that holds several local devices (``local_devices``: every card
+  by default, or the CPU ids the caller lists) trains as a local gang
+  of rank processes, one per device, which the thread supervises
+  (``runtime/local_gang.py``: a thread cannot hold a multi-rank group);
+  each rank runs the plan process's command. A job whose checkpointing
+  restores on start gets a resize channel (``runtime/elastic.py``):
+  slice loss files a shrink, returned capacity a grow, and each segment
+  is a new gang over the surviving devices.
 
-Port of ``polyaxon_tpu/agent/executor.py``. Left out until their ROADMAP
-items land: elastic gangs (the JAX executor runs an in-process job that
-checkpoints through ``runtime.elastic``; here ``run_torchjob`` runs it
-directly and :meth:`LocalExecutor.request_resize` raises, Queue 1 item
-7d) and the persistent XLA compile cache (there is none; the env is
-accepted and nothing is set, item 8). A multi-process gang's
+Port of ``polyaxon_tpu/agent/executor.py``. Left out until its ROADMAP
+item lands: the persistent XLA compile cache (there is none; the env is
+accepted and nothing is set, Queue 1 item 8). A multi-process gang's
 coordinator is ``127.0.0.1`` at a free port, one per gang, where the
 JAX executor keeps the plan's fixed port.
 """
@@ -43,6 +48,7 @@ from polyaxon_tpu_torch.controlplane.service import ControlPlane
 from polyaxon_tpu_torch.lifecycle import V1Statuses
 from polyaxon_tpu_torch.obs import flight as obs_flight
 from polyaxon_tpu_torch.obs import trace as obs_trace
+from polyaxon_tpu_torch.runtime import elastic as elastic_mod
 
 
 class InitTimeoutError(RuntimeError):
@@ -86,6 +92,11 @@ class _Gang:
     # POLYAXON_TRACE_PARENT, the in-process runtime via a passed tracer.
     tracer: Optional[obs_trace.RunTracer] = None
     span: Optional[obs_trace.Span] = None
+    # Elastic resize channel (runtime.elastic): present only for
+    # in-process jaxjob gangs whose checkpointing makes a cross-mesh
+    # restore possible; slice loss files a shrink here instead of a kill.
+    elastic: Optional[elastic_mod.ElasticController] = None
+    failed_resizes_dumped: int = 0  # postmortems already written
     # Restore audit from the runtime (ISSUE 16): which tier satisfied
     # the run's restore, mirrored into meta["checkpoint"] on poll so
     # ops surfaces read the store, not the thread.
@@ -95,7 +106,7 @@ class _Gang:
 
 class LocalExecutor:
     def __init__(self, plane: ControlPlane, *, in_process: bool = False,
-                 device=None):
+                 device=None, local_devices=None):
         self.plane = plane
         self.store = plane.store
         self.in_process = in_process
@@ -103,6 +114,13 @@ class LocalExecutor:
         # another device (``run_torchjob``'s rule). Subprocess gangs run
         # the plan's command, whose launcher trains on the card.
         self.device = device
+        # The local devices an in-process job holds: a list of ids, or a
+        # count (ids 0..n-1); by default ``bootstrap.local_devices``
+        # (every card, or one CPU device, as JAX's host platform has one
+        # unless XLA_FLAGS asks for more).
+        self.local_devices = (list(range(local_devices))
+                              if isinstance(local_devices, int)
+                              else local_devices)
         self._gangs: dict[str, _Gang] = {}
         # The JAX executor resolves POLYAXON_TPU_COMPILE_CACHE=1 to a
         # shared XLA cache dir here. The port has no XLA cache: the env
@@ -301,6 +319,7 @@ class LocalExecutor:
                 init_span.set(phases=[p.kind for p in plan.init])
                 self._run_init_phases(plan)
             if self.in_process and self._can_run_in_process(plan):
+                gang.elastic = self._make_elastic(plan)
                 gang.thread = threading.Thread(
                     target=self._run_in_process, args=(gang,), daemon=True
                 )
@@ -395,22 +414,58 @@ class LocalExecutor:
             and ENV_JAXJOB_SPEC in plan.processes[0].env
         )
 
+    def _make_elastic(self, plan: V1LaunchPlan) -> Optional[
+            elastic_mod.ElasticController]:
+        """A resize channel for gangs that can actually survive one:
+        jaxjob with checkpointing + restore-on-start (the segment
+        boundary is a forced save and a cross-mesh restore)."""
+        try:
+            job = json.loads(plan.processes[0].env[ENV_JAXJOB_SPEC])
+        except (KeyError, ValueError):
+            return None
+        if not elastic_mod.elastic_capable(job):
+            return None
+        try:
+            prior = ((self.store.get_run(plan.run_uuid).meta or {})
+                     .get("elastic") or {}).get("attempts")
+        except KeyError:
+            prior = None
+        return elastic_mod.ElasticController(plan.run_uuid,
+                                             prior_attempts=prior)
+
     def request_resize(self, run_uuid: str, direction: str, *,
                        reason: str = "",
                        target_devices: Optional[int] = None) -> bool:
-        """Elastic resizing (the JAX executor's ``runtime.elastic``
-        channel) is not ported: ROADMAP.md, Queue 1 item 7d."""
-        raise NotImplementedError(
-            f"elastic resize ({direction}) of run {run_uuid}: the port has "
-            "no elastic gangs yet (ROADMAP.md, Queue 1 item 7d)")
+        """File a resize against a live elastic gang. False means the
+        gang cannot resize (no channel, budget exhausted, already
+        resizing, dead thread) — callers fall back to :meth:`preempt`."""
+        gang = self._gangs.get(run_uuid)
+        if (gang is None or gang.elastic is None or gang.preempted
+                or gang.thread is None or not gang.thread.is_alive()):
+            return False
+        granted = gang.elastic.request(direction, reason=reason,
+                                       target_devices=target_devices)
+        if granted and gang.span is not None:
+            gang.span.add_event("resize_requested", direction=direction,
+                                reason=reason)
+        return granted
+
+    def shrunk_elastic_runs(self) -> list[str]:
+        """Live gangs currently training on a shrunk mesh — the set the
+        agent offers a grow to when slice capacity returns."""
+        return [uuid for uuid, gang in self._gangs.items()
+                if gang.elastic is not None and gang.elastic.shrunk
+                and not gang.preempted
+                and gang.thread is not None and gang.thread.is_alive()]
 
     def _run_in_process(self, gang: _Gang) -> None:
         from polyaxon_tpu_torch.runtime.loop import run_torchjob
         from polyaxon_tpu_torch.tracking.run import Run
 
         plan = gang.plan
+        proc_spec = plan.processes[0]
         # The job as the launcher reads it from the same env var.
-        job = json.loads(plan.processes[0].env[ENV_JAXJOB_SPEC])
+        job = json.loads(proc_spec.env[ENV_JAXJOB_SPEC])
         tracking = Run(plan.run_uuid, plan.artifacts_dir)
         # The runtime thread gets its OWN tracer (thread-owned writer
         # handle) parented under the gang's `execute` span — the same
@@ -419,25 +474,51 @@ class LocalExecutor:
             plan.artifacts_dir, plan.run_uuid, component="runtime",
             parent_id=gang.span.span_id if gang.span is not None else None)
         ckpt_dir = os.path.join(plan.artifacts_dir, "checkpoints")
+        # A local gang's ranks run the plan process's command in its env.
+        gang_command = list(proc_spec.command) + list(proc_spec.args)
+        gang_env = {**os.environ, **proc_spec.env}
 
         def should_stop() -> bool:
             # Chaos gang seam for the in-process fast path: a thread
             # has no pid to SIGKILL, so a due kill-fault raises inside
-            # the step loop — the same abrupt member death, observed
+            # the step loop (or the local gang's supervision, which
+            # kills the ranks) — the same abrupt member death, observed
             # through the same FAILED reap. `preempted` stops the loop
             # too: an in-process gang has no process to kill, so the
             # preempt signal must reach the step loop itself.
             fault_plan = chaos.active_plan()
             if fault_plan is not None:
                 fault_plan.maybe_kill_gang(plan.run_uuid, ckpt_dir)
+                if gang.elastic is not None and not gang.elastic.resizing:
+                    # Slice-loss seam, consulted per step (per poll of a
+                    # local gang's supervision) against checkpoint
+                    # counts: "kill" files a shrink (denied → budget
+                    # exhausted → plain preemption), "restore" files a
+                    # grow. NOT consulted mid-resize: the request would
+                    # be denied and the fired fault swallowed — the next
+                    # step retries.
+                    op = fault_plan.slice_loss_due(plan.run_uuid, ckpt_dir)
+                    if op == "kill":
+                        if not gang.elastic.request(
+                                "shrink", reason="ChaosSliceLoss"):
+                            gang.preempted = True
+                    elif op == "restore":
+                        gang.elastic.request(
+                            "grow", reason="ChaosCapacityReturned")
             return gang.stop_event.is_set() or gang.preempted
 
         try:
             tracking.log_status(V1Statuses.RUNNING)
-            result = run_torchjob(job, artifacts_dir=plan.artifacts_dir,
-                                  on_metrics=tracking.log_metrics_cb(),
-                                  should_stop=should_stop, tracer=tracer,
-                                  device=self.device)
+            kwargs = dict(artifacts_dir=plan.artifacts_dir,
+                          on_metrics=tracking.log_metrics_cb(),
+                          should_stop=should_stop, tracer=tracer,
+                          device=self.device, devices=self.local_devices,
+                          gang_command=gang_command, gang_env=gang_env)
+            if gang.elastic is not None:
+                result = elastic_mod.run_elastic(
+                    job, controller=gang.elastic, **kwargs)
+            else:
+                result = run_torchjob(job, **kwargs)
             if result.restore_skipped_steps:
                 gang.warning = (
                     f"restored checkpoint step {result.restored_from_step} "
@@ -469,6 +550,13 @@ class LocalExecutor:
                 pass  # the poll reap owns the PREEMPTED transition
             else:
                 tracking.log_succeeded()
+        except elastic_mod.ResizeAborted as exc:
+            # A shrink that could not prewarm (or whose budget ran out)
+            # degrades to the EXISTING preemption path: the poll reap
+            # transitions PREEMPTED and the scheduler backoff-requeues.
+            gang.preempted = True
+            with open(os.path.join(plan.artifacts_dir, "logs", "main-0.log"), "a") as fh:
+                fh.write(f"elastic resize aborted: {exc}\n")
         except Exception as exc:
             gang.thread_error = f"{type(exc).__name__}: {exc}"
             with open(os.path.join(plan.artifacts_dir, "logs", "main-0.log"), "a") as fh:
@@ -501,24 +589,33 @@ class LocalExecutor:
                         live[0].kill()
                     except OSError:
                         pass
-            # Chaos slice-loss seam: with no resize channel in the port,
-            # losing a slice is a plain preemption (the JAX executor's
-            # floor for gangs without one).
+            # Chaos slice-loss seam for gangs WITHOUT a resize channel
+            # (subprocess, or checkpointing off): losing a slice is a
+            # plain preemption — the pre-elastic behavior, kept as the
+            # degradation floor. Elastic gangs consult the seam from
+            # their own step loop (deterministic against checkpoints).
             for run_uuid, gang in list(self._gangs.items()):
+                if gang.elastic is not None:
+                    continue
                 ckpt_dir = os.path.join(gang.plan.artifacts_dir,
                                         "checkpoints")
                 if fault_plan.slice_loss_due(run_uuid, ckpt_dir) == "kill":
                     self.preempt(run_uuid)
         actions = 0
         for run_uuid, gang in list(self._gangs.items()):
+            # Mirror the resize audit into meta["elastic"] on every poll
+            # while the gang is LIVE: the scheduler's resizing-hold and
+            # the ops surfaces read the store, not the controller.
+            self._flush_elastic(run_uuid, gang)
             self._flush_checkpoint(run_uuid, gang)
         for run_uuid, gang in list(self._gangs.items()):
             status = self._gang_status(gang)
             if status is None:
                 continue
             del self._gangs[run_uuid]
-            # Final audit flush: the thread may have finished between the
-            # live flush above and its exit.
+            # Final audit flush: the thread may have finished an attempt
+            # between the live flush above and its exit.
+            self._flush_elastic(run_uuid, gang)
             self._flush_checkpoint(run_uuid, gang)
             record = self.store.get_run(run_uuid)
             if record.status == V1Statuses.STOPPING:
@@ -575,6 +672,36 @@ class LocalExecutor:
                     obs_flight.RECORDER.discard(run_uuid)
             actions += 1
         return actions
+
+    def _flush_elastic(self, run_uuid: str, gang: _Gang) -> None:
+        """Write the controller's audit into ``meta["elastic"]`` when it
+        changed, and dump a postmortem for every newly FAILED resize
+        attempt — a failed resize is evidence worth keeping on disk even
+        when the run survives it (grow failures don't kill the run)."""
+        if gang.elastic is None:
+            return
+        snap = gang.elastic.snapshot(consume_dirty=True)
+        if snap is None:
+            return
+        try:
+            record = self.store.get_run(run_uuid)
+        except KeyError:
+            return
+        meta = dict(record.meta or {})
+        meta["elastic"] = snap
+        self.store.update_run(run_uuid, meta=meta)
+        failed = sum(1 for a in snap["attempts"]
+                     if a["outcome"] == "failed")
+        if failed > gang.failed_resizes_dumped:
+            gang.failed_resizes_dumped = failed
+            last = next(a for a in reversed(snap["attempts"])
+                        if a["outcome"] == "failed")
+            obs_flight.RECORDER.dump(
+                run_uuid, gang.plan.artifacts_dir,
+                status=V1Statuses.RUNNING.value, reason="ResizeFailed",
+                message=(f"{last['direction']} {last['from_devices']}→"
+                         f"{last['to_devices']} devices: "
+                         f"{last.get('error', '')}")[:500])
 
     def _flush_checkpoint(self, run_uuid: str, gang: _Gang) -> None:
         """Write the runtime's restore audit into ``meta["checkpoint"]``

@@ -11,6 +11,16 @@ a real one-rank group too, so that a single card runs the code a gang
 runs. ``shutdown`` destroys a group that ``initialize`` started, so a
 later run in the same process starts clean.
 
+A process of the plan holds every local device unless
+``POLYAXON_TPU_LOCAL_DEVICE_IDS`` names some (``local_devices``: all
+the cards on CUDA; on the CPU the ids the caller lists, one by default,
+as JAX's host platform has one device unless ``XLA_FLAGS`` asks for
+more). A process holding several devices becomes a local gang of ranks,
+one per device (``runtime/local_gang.py``); each rank's env names its
+one device and ``POLYAXON_TPU_RANKS_PER_PROCESS``, the ranks of one
+plan process, so the loop draws each plan process's rows once
+(``ranks_per_process``).
+
 ``process_group(device)`` is the in-process runs' form: it starts a
 one-rank group when none exists and destroys it when the last run that
 entered it leaves, so concurrent in-process runs (the agent's threads)
@@ -39,6 +49,7 @@ ENV_COORDINATOR = "POLYAXON_TPU_COORDINATOR"
 ENV_NUM_PROCESSES = "POLYAXON_TPU_NUM_PROCESSES"
 ENV_PROCESS_ID = "POLYAXON_TPU_PROCESS_ID"
 ENV_LOCAL_DEVICE_IDS = "POLYAXON_TPU_LOCAL_DEVICE_IDS"
+ENV_RANKS_PER_PROCESS = "POLYAXON_TPU_RANKS_PER_PROCESS"
 
 # Collectives that wait longer than this fail instead of hanging a gang.
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -72,6 +83,30 @@ def read_env_contract(env: Optional[dict[str, str]] = None) -> ProcessGroup:
         process_id=int(env.get(ENV_PROCESS_ID, "0")),
         initialized=False,
     )
+
+
+def local_devices(device, env: Optional[dict[str, str]] = None
+                  ) -> list[int]:
+    """The local devices one process of the plan holds: the ids in
+    ``POLYAXON_TPU_LOCAL_DEVICE_IDS`` when set, else every card on CUDA
+    and one device on the CPU."""
+    env = os.environ if env is None else env
+    ids = env.get(ENV_LOCAL_DEVICE_IDS)
+    if ids:
+        return [int(i) for i in ids.split(",") if i.strip()]
+    if resolve_device(device).type == "cuda":
+        return list(range(torch.cuda.device_count()))
+    return [0]
+
+
+def ranks_per_process() -> int:
+    """The ranks of one plan process (its local gang's size; 1 when each
+    process is one rank). Divides the world size."""
+    per = int(os.environ.get(ENV_RANKS_PER_PROCESS, "1"))
+    if per < 1 or world_size() % per:
+        raise RuntimeError(f"{ENV_RANKS_PER_PROCESS}={per} does not divide "
+                           f"the world size {world_size()}")
+    return per
 
 
 # Held while the default group or a mesh's groups are started or
@@ -147,11 +182,30 @@ def initialize(group: Optional[ProcessGroup] = None, *, device=None,
         return group
 
 
+_host_groups: dict = {}  # default group -> its gloo group
+
+
+def host_group():
+    """A gloo group over every rank, for small host-side agreements (a
+    stop flag per step) that must not wait on the device's stream: the
+    world group itself when it is gloo, else one made once per default
+    group. Every rank must make its first call at the same point."""
+    world = dist.group.WORLD
+    if dist.get_backend() == "gloo":
+        return world
+    with group_lock:
+        if world not in _host_groups:
+            _host_groups.clear()  # a destroyed group's entry
+            _host_groups[world] = dist.new_group(backend="gloo")
+        return _host_groups[world]
+
+
 def shutdown() -> None:
     """Destroy the default group if ``initialize`` started it."""
     global _owned
     with group_lock:
         if _owned and dist.is_initialized():
+            _host_groups.clear()
             dist.destroy_process_group()
         _owned = False
 

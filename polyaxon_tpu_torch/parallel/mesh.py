@@ -277,14 +277,23 @@ def row_block_axes(mesh: Optional[Mesh]) -> tuple:
     return axes_above_one(mesh, BATCH_AXES)
 
 
-def row_block(mesh: Optional[Mesh]) -> tuple[int, int]:
-    """(number of row blocks, this rank's block): the ranks of
-    ``row_block_axes`` in the order the global batch lays its rows out
-    (outer axes first)."""
+def row_block(mesh: Optional[Mesh], rank: Optional[int] = None
+              ) -> tuple[int, int]:
+    """(number of row blocks, the block of ``rank``, default this
+    rank's): the ranks of ``row_block_axes`` in the order the global
+    batch lays its rows out (outer axes first)."""
+    axes = row_block_axes(mesh)
+    if not axes:
+        return 1, 0
+    if rank is None:
+        from polyaxon_tpu_torch.parallel.bootstrap import rank as own
+
+        rank = own()
+    coords = mesh.coords(rank)
     n, index = 1, 0
-    for name in row_block_axes(mesh):
+    for name in axes:
         n *= mesh.shape[name]
-        index = index * mesh.shape[name] + axis_rank(mesh, name)
+        index = index * mesh.shape[name] + coords[name]
     return n, index
 
 

@@ -12,7 +12,7 @@ per mesh dimension) and ``distribute`` places a parameter tree by them.
 The port places every axis. A few combinations of the model-parallel
 axes raise (``require_ported``): ``pp`` beside any axis but ``dp``,
 ``tp`` beside ``cp``, ``ep`` or ``pp``, and ``ep`` beside ``fsdp``,
-``cp`` or ``tp`` (ROADMAP.md, Queue 1 item 7d).
+``cp`` or ``tp`` (ROADMAP.md, Queue 1 item 7d, second half).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ STRATEGY_RULES: dict[str, Rules] = {
 }
 
 # Axes that the port places beside a model-parallel axis only as these
-# pairs allow: the others are ROADMAP.md, Queue 1 item 7d.
+# pairs allow: the others are ROADMAP.md, Queue 1 item 7d, second half.
 REFUSED_BESIDE = {
     "pp": ("fsdp", "cp", "sp", "ep", "tp"),
     "tp": ("cp", "ep", "pp"),
@@ -99,7 +99,7 @@ def require_ported(shape: dict) -> None:
         if clash:
             raise NotImplementedError(
                 f"mesh axes {dict(shape)}: `{axis}` beside {clash} is not "
-                "ported yet (ROADMAP.md, Queue 1 item 7d)")
+                "ported yet (ROADMAP.md, Queue 1 item 7d, second half)")
 
 
 def merge_rules(*rule_sets: Rules) -> Rules:
@@ -138,14 +138,15 @@ SERVED_AXES = ("dp", "fsdp", "tp")
 
 def require_servable(shape: dict) -> None:
     """Raise for a serving mesh (its axes' sizes) with an axis above 1
-    that the gang does not serve yet (ROADMAP.md, Queue 1 item 7d)."""
+    that the gang does not serve yet (ROADMAP.md, Queue 1 item 7d, second
+    half)."""
     other = sorted(a for a, n in shape.items()
                    if n != 1 and a not in SERVED_AXES)
     if other:
         raise NotImplementedError(
             f"serving over mesh axes {dict(shape)}: {other} above 1 is not "
-            "ported yet (ROADMAP.md, Queue 1 item 7d); a serving mesh "
-            f"holds {list(SERVED_AXES)}")
+            "ported yet (ROADMAP.md, Queue 1 item 7d, second half); a "
+            f"serving mesh holds {list(SERVED_AXES)}")
 
 
 def serving_rules(mesh) -> Rules:

@@ -22,8 +22,19 @@ directory, resumes from the newest committed step. Every process of a
 gang runs this entry: it starts the process group from the plan's env
 contract (``parallel/bootstrap.py``: NCCL on the card, gloo on the CPU;
 one process is a one-rank group) and destroys it at the end; rank 0
-alone keeps the tracking record. Exit codes: 2 without a spec, 0 on
-success, 1 on a failure (after printing the traceback).
+alone keeps the tracking record.
+
+A process that holds several devices (every card of the host, or the
+ids in ``POLYAXON_TPU_LOCAL_DEVICE_IDS``: ``bootstrap.local_devices``)
+trains as a local gang instead (``runtime/local_gang.py``): it runs its
+own command again once per device, as ranks ``p·D .. p·D + D - 1`` of
+the plan's ``P·D``, supervises them and keeps the tracking record from
+what rank 0 prints; its ``launches`` line sums its ranks'. A rank of
+such a gang (``POLYAXON_TPU_GANG_DEVICE`` set) keeps no record: rank 0
+prints its emissions and result, stops when the supervisor's stop file
+appears, and the mesh takes ``POLYAXON_TPU_MESH_AXES`` when set. Exit
+codes: 2 without a spec, 0 on success, 1 on a failure (after printing
+the traceback).
 """
 
 from __future__ import annotations
@@ -45,13 +56,16 @@ def _emit(step: int, vals: dict) -> None:
 
 
 def _emit_launches() -> None:
+    """This process's kernel launches and its local gangs' ranks'."""
     from polyaxon_tpu_torch.ops import flash, paged_attention
+    from polyaxon_tpu_torch.runtime.local_gang import LAUNCHES
 
-    print(json.dumps({"launches": {
-        "flash_fwd": flash.launches,
-        "flash_bwd_dkdv": flash.bwd_dkdv_launches,
-        "flash_bwd_dq": flash.bwd_dq_launches,
-        "paged_decode": paged_attention.launches}}), flush=True)
+    own = {"flash_fwd": flash.launches,
+           "flash_bwd_dkdv": flash.bwd_dkdv_launches,
+           "flash_bwd_dq": flash.bwd_dq_launches,
+           "paged_decode": paged_attention.launches}
+    print(json.dumps({"launches": {k: v + LAUNCHES.get(k, 0)
+                                   for k, v in own.items()}}), flush=True)
 
 
 def main(device=None) -> int:
@@ -64,8 +78,10 @@ def main(device=None) -> int:
     if not spec_json:
         print(f"{ENV_JAXJOB_SPEC} is not set", file=sys.stderr)
         return 2
+    from polyaxon_tpu_torch.device import resolve_device
     from polyaxon_tpu_torch.lifecycle import V1Statuses
     from polyaxon_tpu_torch.parallel import bootstrap
+    from polyaxon_tpu_torch.runtime import local_gang
     from polyaxon_tpu_torch.tracking.run import Run
 
     run_uuid = os.environ.get(ENV_RUN_UUID, "local")
@@ -74,8 +90,13 @@ def main(device=None) -> int:
     os.makedirs(artifacts_dir, exist_ok=True)
 
     group = bootstrap.read_env_contract()
+    in_gang = local_gang.supervised()
+    if in_gang:
+        local_gang.die_with_parent()
+        device = device or os.environ[local_gang.ENV_GANG_DEVICE]
+    lead = group.process_id == 0
     tracking = None
-    if group.process_id == 0:
+    if lead and not in_gang:
         tracking = Run(run_uuid, artifacts_dir, collect_system_metrics=True)
         tracking.log_status(V1Statuses.RUNNING)
         log_metrics = tracking.log_metrics_cb()
@@ -87,11 +108,32 @@ def main(device=None) -> int:
     try:
         from polyaxon_tpu_torch.runtime.loop import run_torchjob
 
-        bootstrap.initialize(group, device=device)
         job = json.loads(spec_json)
-        result = run_torchjob(job, artifacts_dir=artifacts_dir,
-                              on_metrics=on_metrics if tracking else None,
-                              device=device)
+        devices = [] if in_gang else bootstrap.local_devices(device)
+        if len(devices) > 1:
+            result = local_gang.run(
+                job, devices=devices, device=resolve_device(device),
+                artifacts_dir=artifacts_dir,
+                on_metrics=on_metrics if tracking else None,
+                command=[sys.executable, *sys.orig_argv[1:]],
+                process_id=group.process_id,
+                num_processes=group.num_processes,
+                coordinator=group.coordinator)
+        else:
+            bootstrap.initialize(group, device=device)
+            axes = os.environ.get(local_gang.ENV_MESH_AXES)
+            stop_file = os.environ.get(local_gang.ENV_STOP_FILE)
+            result = run_torchjob(
+                job, artifacts_dir=artifacts_dir,
+                on_metrics=(on_metrics if tracking
+                            else _emit if in_gang and lead else None),
+                mesh_axes=json.loads(axes) if axes else None,
+                should_stop=((lambda: os.path.exists(stop_file))
+                             if in_gang and lead and stop_file else None),
+                device=device)
+        if in_gang and lead:
+            print(json.dumps({"outputs": dataclasses.asdict(result)}),
+                  flush=True)
         if tracking is None:
             return 0
         tracking.log_outputs(

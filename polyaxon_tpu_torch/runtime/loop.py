@@ -7,8 +7,13 @@ over the ranks of the process group — a gang's, started by the launcher
 in-process run and destroys after it — and the parameters are placed on
 it (``runtime/step.py``). Every axis is placed (a few combinations of
 the model-parallel axes raise: ``parallel/sharding.py``); each process
-drives one device. Emissions, tracking and checkpoint writes
-come from rank 0.
+drives one device. A caller that holds several devices (``devices``, by
+default every card) trains as a local gang of ranks, one per device
+(``runtime/local_gang.py``), as a JAX process spans its chips; each plan
+process's rows are drawn once and split over its ranks. In a gang the
+ranks agree on ``should_stop`` before every step (one host-side
+all-reduce), so they stop at one step. Emissions, tracking and
+checkpoint writes come from rank 0.
 
 ``run_torchjob`` takes the job as a dict (the JSON form of a jaxjob run
 spec: ``runtime``, and optionally ``mesh`` and ``checkpointing``) and
@@ -24,8 +29,10 @@ With an artifacts dir it writes the lifecycle spans ``run_jaxjob``
 writes, under the same names (``obs/trace.py``): ``runtime`` over the
 run, ``restore``, ``jit_compile`` (the warm-up step), one ``step`` per
 metrics-emission window, ``eval`` and ``checkpoint``. The port's windows
-hold only timed steps (the warm-up step is ``jit_compile``'s), so its
-first ``step`` span starts one step after the JAX loop's.
+time only timed steps (the warm-up step is ``jit_compile``'s), but the
+first window's step range starts at the warm-up step, as the JAX loop's
+does, so the windows of a run and of its resumed segments are
+contiguous.
 """
 
 from __future__ import annotations
@@ -47,10 +54,9 @@ from polyaxon_tpu_torch.obs import flight as obs_flight
 from polyaxon_tpu_torch.obs import metrics as obs_metrics
 from polyaxon_tpu_torch.obs import trace as obs_trace
 from polyaxon_tpu_torch.parallel import bootstrap
-from polyaxon_tpu_torch.parallel.compat import (BATCH_AXES, axes_product,
-                                                axis_size)
+from polyaxon_tpu_torch.parallel.compat import axis_size
 from polyaxon_tpu_torch.parallel.mesh import (build_mesh, canonical_axes,
-                                              use_mesh)
+                                              row_block, use_mesh)
 from polyaxon_tpu_torch.parallel.sharding import (param_bytes,
                                                   require_ported,
                                                   rules_for_mesh)
@@ -88,6 +94,9 @@ class TrainResult:
     input_wait_ms: float = 0.0
     # Wall time of the warm-up step (kernel builds included).
     compile_time_s: float = 0.0
+    # Host time per step the ranks of a gang spent agreeing to go on (the
+    # stop flag's all-reduce); 0 in a one-rank group.
+    stop_check_ms: float = 0.0
     # Checkpoint accounting, empty without checkpointing: bytes per
     # checkpoint, and seconds per save (the step loop's stall: waiting for
     # the previous commit, then the host copy), per commit and per restore
@@ -95,18 +104,22 @@ class TrainResult:
     checkpoint: dict = dataclasses.field(default_factory=dict)
 
 
-def _job_mesh(job: dict, device: torch.device):
+def _job_mesh(job: dict, device: torch.device,
+              mesh_axes: Optional[dict[str, int]] = None):
     """The job's mesh over the process group's ranks (every rank when the
-    job names none, as the JAX loop's ``{"dp": n}``). A combination of
-    axes the port does not place raises first, before anything is
-    built."""
+    job names none, as the JAX loop's ``{"dp": n}``); ``mesh_axes``
+    overrides the resolved axes. A combination of axes the port does not
+    place raises first, before anything is built."""
     mesh_spec = (V1MeshSpec.from_dict(job["mesh"]) if job.get("mesh")
                  else None)
-    if mesh_spec is not None:
+    if mesh_axes is not None:
+        require_ported(canonical_axes(mesh_axes))
+    elif mesh_spec is not None:
         require_ported(canonical_axes(mesh_spec.axes))
     topology = (V1TpuTopology.from_dict(job["topology"])
                 if job.get("topology") else None)
-    mesh = build_mesh(mesh_spec, topology, device_type=device.type)
+    mesh = build_mesh(mesh_spec, topology, axes=mesh_axes,
+                      device_type=device.type)
     require_ported(mesh.shape)
     return mesh
 
@@ -215,15 +228,43 @@ def _span(tracer: Optional[obs_trace.RunTracer], name: str, **attrs):
     return tracer.span(name, attributes=attrs or None)
 
 
+def _stop_agreed(should_stop: Optional[Callable[[], bool]],
+                 n_ranks: int) -> bool:
+    """Whether to stop before the next step. In a gang every rank asks
+    its ``should_stop`` (the launcher gives one to rank 0) and the ranks
+    agree on the answer through one all-reduce of one element on a gloo
+    group, which waits on no device stream: a stop one rank saw alone
+    would leave the others in the next step's collectives."""
+    stop = should_stop is not None and bool(should_stop())
+    if n_ranks == 1:
+        return stop
+    flag = torch.tensor([int(stop)], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                    group=bootstrap.host_group())
+    return bool(flag.item())
+
+
 def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
                  on_metrics: Optional[MetricsCallback] = None,
+                 devices: Optional[list[int]] = None,
+                 mesh_axes: Optional[dict[str, int]] = None,
                  should_stop: Optional[Callable[[], bool]] = None,
                  device=None,
-                 tracer: Optional[obs_trace.RunTracer] = None
+                 tracer: Optional[obs_trace.RunTracer] = None,
+                 gang_command: Optional[list[str]] = None,
+                 gang_env: Optional[dict[str, str]] = None
                  ) -> TrainResult:
     """Train the job's ``runtime`` section (on ``cuda`` unless the caller
     names another device; raises without a GPU) over the job's mesh,
-    which must resolve to the process group's ranks. With an artifacts
+    which must resolve to the process group's ranks; ``mesh_axes``
+    overrides its resolved axes, as ``run_jaxjob``'s does.
+
+    Outside a gang, ``devices`` are the local devices this call holds
+    (default ``bootstrap.local_devices``: every card, or one CPU device).
+    Over more than one it trains as a local gang, one rank per device,
+    and supervises it (``local_gang.run``): each rank runs
+    ``gang_command`` (the launcher by default) with ``gang_env`` (this
+    process's env by default). With an artifacts
     dir, ``checkpointing``
     saves to and restores from ``<artifacts>/checkpoints`` and
     ``profile_steps`` traces to ``<artifacts>/profile``. ``lora_rank >
@@ -244,9 +285,22 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
     ckpt_spec = (CheckpointSpec.from_dict(ckpt_job) if ckpt_job is not None
                  else CheckpointSpec(enabled=False))
     device = resolve_device(device)
+    if bootstrap.world_size() == 1:
+        devices = (list(devices) if devices is not None
+                   else bootstrap.local_devices(device))
+        if len(devices) > 1:
+            from polyaxon_tpu_torch.runtime import local_gang
+
+            return local_gang.run(
+                job, devices=devices, device=device, mesh_axes=mesh_axes,
+                artifacts_dir=artifacts_dir, on_metrics=on_metrics,
+                should_stop=should_stop, tracer=tracer,
+                command=gang_command, env=gang_env)
+        if device.type == "cuda" and device.index is None and devices:
+            device = torch.device("cuda", devices[0])
 
     with bootstrap.process_group(device):
-        mesh = _job_mesh(job, device)
+        mesh = _job_mesh(job, device, mesh_axes)
         lead = bootstrap.rank() == 0
         if not lead:  # rank 0 emits, tracks and traces
             on_metrics = tracer = None
@@ -294,27 +348,36 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
             f"model `{cfg.model}` does not shard sequences over a cp axis "
             "(the port's context parallelism is the llama family's)")
 
-    n_proc = bootstrap.world_size()
+    n_ranks = bootstrap.world_size()
+    per_process = bootstrap.ranks_per_process()
+    n_proc = n_ranks // per_process  # the plan's processes
+    if n_ranks > 1:
+        bootstrap.host_group()  # made by every rank at one point
     global_batch = cfg.global_batch_size or (cfg.batch_size or 8) * mesh.size
     if global_batch % n_proc:
         raise ValueError(
             f"global batch {global_batch} must divide process count {n_proc}")
-    # Every process draws its rows from the same seed, as the JAX loop's
-    # processes do (ROADMAP.md, Queue 3: the reference's duplicated
-    # per-process data). A process drives one device, so its rows are its
-    # batch shard (dp, fsdp, and ep under EP_RULES) as they stand (the
-    # reference's `shard_batches` lays them out the same way). The ranks
+    # Every plan process draws its rows from the same seed, as the JAX
+    # loop's processes do (ROADMAP.md, Queue 3: the reference's
+    # duplicated per-process data). Its ranks (one, or a local gang's)
+    # hold `local_blocks` row blocks of the batch axes (dp, fsdp, and ep
+    # under EP_RULES) and split its rows between them, as the reference's
+    # `shard_batches` lays a process's rows over its devices. The ranks
     # of a replica axis (tp, sp, pp) train the same rows; under cp every
     # rank keeps the whole rows and the model cuts its sequence shard
-    # after the next-token shift. So a step trains per_host_batch rows
-    # per batch shard, per_host_batch x dp x fsdp x ep in all. Under
-    # gradient accumulation each rank's microbatch m is its block of the
-    # global batch's m-th slice, as the reference cuts microbatches
-    # (``rank_rows``).
+    # after the next-token shift. So a step trains per_host_batch /
+    # local_blocks rows per batch shard. Under gradient accumulation each
+    # rank's microbatch m is its block of the global batch's m-th slice,
+    # as the reference cuts microbatches (``rank_rows``).
     per_host_batch = global_batch // n_proc
+    first = bootstrap.rank() // per_process * per_process
+    n_blocks, _ = row_block(mesh)
+    local_blocks = len({row_block(mesh, r)[1]
+                        for r in range(first, first + per_process)})
     accum = max(int(cfg.grad_accum_steps or 1), 1)
-    if per_host_batch % accum:
-        raise ValueError(f"grad_accum_steps {accum} must divide the "
+    if per_host_batch % (local_blocks * accum):
+        raise ValueError(f"grad_accum_steps {accum} x the process's "
+                         f"{local_blocks} row block(s) must divide the "
                          f"per-process batch {per_host_batch} (global batch "
                          f"{global_batch})")
     dataset_name = cfg.dataset or data_lib.dataset_for_model(cfg.model)
@@ -323,7 +386,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
     # The units a step trains (throughput and MFU count these; the JAX
     # loop counts global_batch x seq under every axis: ROADMAP.md,
     # Queue 3).
-    units_per_step = (per_host_batch * axes_product(mesh, BATCH_AXES)
+    units_per_step = (per_host_batch // local_blocks * n_blocks
                       * (seq if model_def.unit == "tokens" else 1))
 
     optimizer = build_optimizer(cfg)
@@ -395,7 +458,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
     # Each rank lays its rows out so that its microbatches are its blocks
     # of the global batch's (``rank_rows``).
     host = data_lib.host_batches(
-        (rank_rows(b, mesh, accum) for b in data_lib.get_dataset(
+        (rank_rows(b, mesh, accum, local_blocks) for b in data_lib.get_dataset(
             dataset_name, start_batch=start_step, **ds_kwargs)),
         pin=pin)
     if cfg.prefetch > 0:
@@ -442,6 +505,8 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
         # window halves step_time_ms and doubles tokens/s (ROADMAP.md,
         # Queue 3).
         steps_since_emit = 0
+        window_from = start_step  # the warm-up step opens the first window
+        stop_s, stop_checks = 0.0, 0
         emitted_compile = False
         wait_window = wait_total = 0.0
         timed_steps = 0
@@ -449,7 +514,11 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
         t0 = t_emit = time.perf_counter()
         t_emit_wall = time.time()  # wall twin of t_emit for step spans
         for step in range(start_step + 1, cfg.steps):
-            if should_stop is not None and should_stop():
+            t_stop = time.perf_counter()
+            stop = _stop_agreed(should_stop, n_ranks)
+            stop_s += time.perf_counter() - t_stop
+            stop_checks += 1
+            if stop:
                 logger.info("stop requested at step %d", step)
                 break
             profiler = None
@@ -504,7 +573,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
                         parent_id=(run_span.span_id if run_span is not None
                                    else None),
                         attributes={
-                            "from_step": step - steps_since_emit + 1,
+                            "from_step": window_from,
                             "to_step": step,
                             "steps": steps_since_emit,
                             **{k: round(vals[k], 3) for k in
@@ -512,6 +581,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
                                if k in vals},
                         })
                 steps_since_emit = 0
+                window_from = step + 1
                 wait_window = 0.0
                 if tracer is not None:
                     # The flight ring keeps the last emissions a dying
@@ -539,7 +609,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
                 # copy) is kept off the training clock, as eval is.
                 t_save = time.perf_counter()
                 with _span(tracer, "checkpoint", step=step):
-                    _save(ckpt, step, state, n_proc)
+                    _save(ckpt, step, state, n_ranks)
                 dt_save = time.perf_counter() - t_save
                 t_emit += dt_save
                 t_emit_wall = time.time()
@@ -555,19 +625,24 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
             final_metrics.update(last_eval)
         final_step = state["step"]
         # Flush the un-emitted window (an early stop lands between
-        # emissions), so the step spans cover every timed step.
-        if tracer is not None and steps_since_emit:
+        # emissions), so the step spans cover every step trained.
+        if tracer is not None and window_from < final_step:
             window = time.perf_counter() - t_emit
-            flush_to = final_step - 1
-            attrs = {"from_step": flush_to - steps_since_emit + 1,
-                     "to_step": flush_to, "steps": steps_since_emit}
-            if window > 0:
+            attrs = {"from_step": window_from, "to_step": final_step - 1,
+                     "steps": steps_since_emit}
+            if window > 0 and steps_since_emit:
                 attrs["step_time_ms"] = round(
                     1e3 * window / steps_since_emit, 3)
                 attrs["input_wait_ms"] = round(
                     1e3 * wait_window / steps_since_emit, 3)
                 obs_metrics.training_step_hist().observe(
                     window / steps_since_emit)
+            elif window > 0:
+                # A segment stopped right after its warm-up step: the
+                # window holds that step alone and the time since it, as
+                # the JAX loop's window that counts its warm-up step.
+                attrs["step_time_ms"] = round(1e3 * window, 3)
+                attrs["input_wait_ms"] = 0.0
             if "loss" in final_metrics:
                 attrs["loss"] = round(final_metrics["loss"], 3)
             tracer.record_completed(
@@ -577,7 +652,7 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
                 attributes=attrs)
         if ckpt:
             with _span(tracer, "checkpoint", step=final_step, final=True):
-                _save(ckpt, final_step, state, n_proc, force=True)
+                _save(ckpt, final_step, state, n_ranks, force=True)
     finally:
         if prefetcher is not None:
             prefetcher.close()
@@ -594,5 +669,6 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
         restore_skipped_steps=restore_skipped, restore_tier=restore_tier,
         input_wait_ms=1e3 * wait_total / timed_steps if timed_steps else 0.0,
         compile_time_s=compile_time_s,
+        stop_check_ms=1e3 * stop_s / stop_checks if stop_checks else 0.0,
         checkpoint=_checkpoint_report(ckpt, ckpt_bytes) if ckpt else {})
 

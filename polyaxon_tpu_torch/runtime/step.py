@@ -166,21 +166,25 @@ def _sum_pieces(t: torch.Tensor, mesh) -> torch.Tensor:
     return t if mesh is None else all_reduce_over(t, mesh, PIECE_AXES)
 
 
-def rank_rows(batch: dict, mesh, accum_steps: int) -> dict:
-    """This rank's rows of a step, from the rows every process of a gang
-    draws alike (``batch``: the JAX loop's per-process rows, of which the
-    global batch holds one copy per process), laid out so that its m-th
+def rank_rows(batch: dict, mesh, accum_steps: int,
+              local_blocks: int = 1) -> dict:
+    """This rank's rows of a step, from the rows every plan process draws
+    alike (``batch``: the JAX loop's per-process rows, of which the
+    global batch holds one copy per process; its process's ranks hold
+    ``local_blocks`` different row blocks), laid out so that its m-th
     microbatch is its row block of the global batch's m-th contiguous
-    slice, as the JAX step cuts microbatches: row ``m·n·L/A + r·L/A + j``
-    of the global batch (``n`` row blocks of ``L`` rows, this rank's
-    block ``r``, ``A`` microbatches) is ``batch`` row that number mod
-    ``L``. Without accumulation or row blocks, ``batch`` as it is."""
+    slice, as the JAX step cuts microbatches: with ``n`` row blocks of
+    ``R = L / local_blocks`` rows (``L`` rows drawn), this rank's block
+    ``r`` and ``A`` microbatches, row ``m·n·R/A + r·R/A + j`` of the
+    global batch is ``batch`` row that number mod ``L``. Without
+    accumulation or row blocks, ``batch`` as it is."""
     n, r = row_block(mesh)
-    if accum_steps == 1 or n == 1:
+    if n == 1 or (accum_steps == 1 and local_blocks == 1):
         return batch
     L = len(next(iter(batch.values())))
-    per = L // accum_steps
-    idx = [(m * n * L // accum_steps + r * per + j) % L
+    per = L // (local_blocks * accum_steps)
+    rows = n * L // local_blocks
+    idx = [(m * rows // accum_steps + r * per + j) % L
            for m in range(accum_steps) for j in range(per)]
     return {k: v[idx] for k, v in batch.items()}
 

@@ -14,7 +14,7 @@ with the bootstrap's env contract (``POLYAXON_TPU_COORDINATOR``
 ``POLYAXON_TPU_PROCESS_ID``, ``POLYAXON_TPU_LOCAL_DEVICE_IDS``; NCCL on
 the cards): rank 0 binds the port, the others follow it
 (``serving/gang.py``). Another axis above 1 is refused (ROADMAP.md,
-Queue 1 item 7d).
+Queue 1 item 7d, second half).
 """
 
 from __future__ import annotations

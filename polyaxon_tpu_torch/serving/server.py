@@ -798,8 +798,8 @@ class ServingServer:
     0 (``is_leader``) binds the port and runs the engine, the others
     call ``follow()``, which returns when rank 0 stops. dp, fsdp and tp
     are served; another axis above 1 raises (ROADMAP.md, Queue 1 item
-    7d). Without a process group one is started from the bootstrap's
-    env contract."""
+    7d, second half). Without a process group one is started from the
+    bootstrap's env contract."""
 
     def __init__(self, model: str, checkpoint: Optional[str] = None,
                  host: str = "127.0.0.1", port: int = 0, seed: int = 0,

@@ -45,8 +45,23 @@ over all of them:
    well-formed tokens; tokens/s, the median decode step and each card's
    peak memory.
 
+12. ``elastic``, from this process through the port's plane, NCCL on
+   every card and no command rewritten: (i) ``examples/packed_pretrain
+   .yaml`` as a one-process plan (the gpu preset, checkpointing off),
+   which the agent starts as one launcher that spans the host's cards
+   as a local gang of n ranks at fsdp<n>: its first step held against
+   the same job on one card, then 4 steps timed; (ii) the elastic drill:
+   llama3_1b at full depth with adafactor (its factored moments keep a
+   checkpoint at the parameters' 5 GB), ``{dp: 2, fsdp: n/2}``,
+   checkpoints every 2 steps, run by the in-process agent over the n
+   cards with chaos slice loss after the first checkpoint and capacity
+   back after the third, so it trains dp2 → dp1 → dp2 with the
+   default one-step prewarm child at each target; every emitted loss
+   held against an unresized run of the same job, and each resize's
+   seconds printed (forced save, prewarm, relaunch, restore).
+
 ``--gangs NAME,...`` runs only those (``attention``, the training
-gangs' names, ``serve_8b``, ``serve_mixtral``).
+gangs' names, ``serve_8b``, ``serve_mixtral``, ``elastic``).
 
 Throughput and MFU count the tokens a step trains: the ranks of a
 replica axis (tp, sp, pp) train the same rows, and under cp the ranks
@@ -121,7 +136,8 @@ def _train(job: dict) -> dict:
 
     emitted: list = []
     torch.cuda.reset_peak_memory_stats()
-    result = run_torchjob(job, device="cuda",
+    # One card outside a gang (a gang's ranks ignore ``devices``).
+    result = run_torchjob(job, device="cuda", devices=[0],
                           on_metrics=lambda s, v: emitted.append(
                               {"step": s, **v}))
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -308,6 +324,200 @@ def _worker(rank: int, n: int, coordinator: str, out_path: str,
         bootstrap.shutdown()
 
 
+ELASTIC_EXAMPLE = "examples/packed_pretrain.yaml"
+GPU_PRESET = "tests/fixtures/presets/gpu.yaml"
+ELASTIC_TIMED_STEPS = 4
+ELASTIC_STEPS = 10
+ELASTIC_TIMEOUT = 1200
+
+
+def _elastic_drill(n: int) -> dict:
+    return {
+        "kind": "operation",
+        "termination": {"maxRetries": 1},
+        "component": {"name": "elastic-drill", "run": {
+            "kind": "jaxjob", "numProcesses": 1,
+            "mesh": {"axes": {"dp": 2, "fsdp": n // 2}},
+            "checkpointing": {"enabled": True, "intervalSteps": 2,
+                              "maxToKeep": 3, "asyncSave": False,
+                              "restoreOnStart": True},
+            "runtime": dict(ADAFACTOR, steps=ELASTIC_STEPS,
+                            global_batch_size=n * FSDP_ROWS, seed=SEED),
+        }},
+    }
+
+
+def _plane_run(plane, agent, spec, label: str, **submit) -> tuple:
+    """``spec`` submitted to the port's plane and run by ``agent`` to
+    SUCCEEDED (else the rank logs' tails raise); (record, artifacts dir,
+    losses by step, wall seconds)."""
+    from polyaxon_tpu_torch.lifecycle import V1Statuses
+
+    record = plane.submit(spec, **submit)
+    t0 = time.perf_counter()
+    status = agent.run_until_done(record.uuid, timeout=ELASTIC_TIMEOUT)
+    wall = time.perf_counter() - t0
+    art = plane.run_artifacts_dir(record.uuid)
+    if status != V1Statuses.SUCCEEDED:
+        logs = os.path.join(art, "logs")
+        tails = "".join(open(os.path.join(logs, f), errors="replace")
+                        .read()[-3000:] for f in sorted(os.listdir(logs)))
+        raise RuntimeError(f"{label} ended {status.value}: "
+                           f"{plane.get_statuses(record.uuid)[-1]}\n{tails}")
+    losses = {e["step"]: e["value"] for e in plane.streams.get_metrics(
+        record.uuid, ["loss"])["loss"]}
+    return plane.get_run(record.uuid), art, losses, wall
+
+
+def _meshes(art: str) -> list:
+    with open(os.path.join(art, "logs", "rank-0.log"),
+              errors="replace") as fh:
+        return [ln.split("mesh axes=")[1].strip() for ln in fh
+                if "mesh axes=" in ln]
+
+
+def _elastic(n: int) -> list:
+    """The ``elastic`` gang's checks, run from this process."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    import chip_smoke
+    from polyaxon_tpu_torch import chaos
+    from polyaxon_tpu_torch.agent import Agent
+    from polyaxon_tpu_torch.compiler import ENV_JAXJOB_SPEC
+    from polyaxon_tpu_torch.controlplane import ControlPlane
+    from polyaxon_tpu_torch.obs.trace import read_trace
+    from polyaxon_tpu_torch.runtime import tiers
+
+    checks = []
+    tmp = tempfile.mkdtemp(prefix="parallel-gpus-elastic-")
+    try:
+        # (i) One plan process over every card.
+        corpus = os.path.join(tmp, "corpus.txt")
+        chip_smoke.write_corpus(corpus, chip_smoke.CORPUS_ROWS * 4096, SEED)
+        plane = ControlPlane(os.path.join(tmp, "home"))
+        agent = Agent(plane)
+        lines = {}
+        for steps in (1, ELASTIC_TIMED_STEPS):
+            preset = {"isPreset": True, "patchStrategy": "post_merge",
+                      "runPatch": {"numProcesses": 1,
+                                   "checkpointing": {"enabled": False},
+                                   "runtime": {"steps": steps,
+                                               "log_every": 1}}}
+            record, art, _, wall = _plane_run(
+                plane, agent, os.path.join(REPO, ELASTIC_EXAMPLE),
+                f"{ELASTIC_EXAMPLE} ({steps} steps)",
+                params={"corpus": corpus},
+                presets=[os.path.join(REPO, GPU_PRESET), preset])
+            outputs = plane.streams.get_outputs(record.uuid)
+            lines[steps] = {"outputs": outputs, "wall_s": wall,
+                            "meshes": _meshes(art),
+                            "ranks": sorted(f for f in os.listdir(
+                                os.path.join(art, "logs"))
+                                if f.startswith("rank-")),
+                            "job": json.loads(record.launch_plan[
+                                "processes"][0]["env"][ENV_JAXJOB_SPEC])}
+        job = lines[1]["job"]
+        one = _train(dict(job, runtime=dict(job["runtime"],
+                                            grad_accum_steps=4)))
+        first = lines[1]["outputs"]
+        held = _held(f"{n}-card one-process {ELASTIC_EXAMPLE}",
+                     {"final": {"loss": first["final_loss"],
+                                "grad_norm": first["final_grad_norm"]}},
+                     one)
+        timed = lines[ELASTIC_TIMED_STEPS]
+        held.update(
+            meshes=lines[1]["meshes"], ranks=lines[1]["ranks"],
+            tokens_per_s=timed["outputs"]["throughput"],
+            timed_wall_s=timed["wall_s"])
+        held["held"] = (held["held"] and lines[1]["meshes"]
+                        == [f"{{'fsdp': {n}}} devices={n}"]
+                        and len(lines[1]["ranks"]) == n)
+        checks.append(held)
+        print(json.dumps(held), flush=True)
+        shutil.rmtree(os.path.join(tmp, "home"), ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (ii) The drill over every card, and the same job unresized.
+        plane = ControlPlane(os.path.join(tmp, "home2"))
+        agent = Agent(plane, in_process=True)
+        ref = copy.deepcopy(_elastic_drill(n))
+        ref["component"]["run"]["checkpointing"] = {"enabled": False}
+        _, _, want, ref_wall = _plane_run(plane, agent, ref, "unresized")
+        chaos.install(chaos.ChaosPlan.from_dict({"seed": SEED, "faults": [
+            {"seam": "slice-loss", "op": "kill",
+             "config": {"min_checkpoints": 1}},
+            {"seam": "slice-loss", "op": "restore",
+             "config": {"min_checkpoints": 3}}]}))
+        try:
+            record, art, got, wall = _plane_run(plane, agent,
+                                                _elastic_drill(n), "elastic")
+        finally:
+            chaos.uninstall()
+            tiers.TIER0.clear()
+        audit = record.meta.get("elastic") or {}
+        trace = read_trace(art)
+        segments = chip_smoke._segments(trace)
+        resizes = sorted((r for r in trace if r.get("name") == "resize"
+                          and r.get("end") is not None),
+                         key=lambda r: r["start"])
+        parts = []
+        for i, rz in enumerate(resizes[:len(segments) - 1]):
+            before, after = segments[i], segments[i + 1]
+            final = [c for c in before["saves"]
+                     if c["attributes"].get("final")]
+            restore = after["restore"] or {}
+            parts.append({
+                "direction": rz["attributes"]["direction"],
+                "at_step": rz["attributes"]["from_step"],
+                "forced_save_s": final[-1]["duration_ms"] / 1e3
+                if final else None,
+                "prewarm_s": rz["duration_ms"] / 1e3,
+                "relaunch_s": (restore["start"] - rz["end"]
+                               if restore else None),
+                "restore_s": restore.get("duration_ms", 0) / 1e3,
+                "restore_tier": (restore.get("attributes") or {}).get(
+                    "restore_tier")})
+        rel = {s: abs(got[s] - want[s]) / abs(want[s])
+               for s in got if s in want}
+        worst = max(rel.values(), default=float("inf"))
+        stops = [json.loads(ln)["outputs"]["stop_check_ms"]
+                 for ln in open(os.path.join(art, "logs", "rank-0.log"),
+                                errors="replace")
+                 if ln.startswith('{"outputs"')]
+        check = {
+            "check": f"{n}-card elastic drill dp2 x fsdp{n // 2} -> dp1 -> "
+                     f"dp2 against the unresized run",
+            "attempts": [(a["direction"], a["outcome"], a["from_devices"],
+                          a["to_devices"], a.get("duration_s"))
+                         for a in audit.get("attempts", [])],
+            "meshes": _meshes(art),
+            "segments": [{"devices": s["devices"], "steps": s["steps"],
+                          "step_ms": s["step_ms"]} for s in segments],
+            "resizes": parts, "losses": got, "unresized": want,
+            "loss_rel": rel, "stop_check_ms": stops,
+            "restore": record.meta.get("checkpoint"),
+            "wall_s": wall, "unresized_wall_s": ref_wall,
+            "held": ([(a["direction"], a["outcome"])
+                      for a in audit.get("attempts", [])]
+                     == [("shrink", "ok"), ("grow", "ok")]
+                     and record.retries == 0
+                     and plane.streams.get_outputs(
+                         record.uuid)["steps"] == ELASTIC_STEPS
+                     and len(rel) >= 3 and set(got) <= set(want)
+                     and worst <= chip_smoke.TRAIN_LOSS_REL_TOL
+                     and all(map(math.isfinite, got.values())))}
+        checks.append(check)
+        print(json.dumps(check), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return checks
+
+
 def _held(label: str, gang: dict, one: dict) -> dict:
     import chip_smoke
 
@@ -383,7 +593,7 @@ def main() -> int:
     args = parser.parse_args()
     n = args.gpus
     gangs = tuple(args.gangs.split(",") if args.gangs else
-                  ("attention", *_jobs(n), *SERVE))
+                  ("attention", *_jobs(n), *SERVE, "elastic"))
 
     import torch
     import torch.multiprocessing as mp
@@ -423,14 +633,16 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    checks = _elastic(n) if "elastic" in gangs else []
     out_path = os.path.join(REPO, "chiprun_out", "parallel_gpus.jsonl")
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
-    mp.start_processes(_worker, nprocs=n, start_method="spawn",
-                       args=(n, f"127.0.0.1:{bootstrap.free_port()}", out_path,
-                             gangs, prompts))
-    with open(out_path) as fh:
-        lines = [json.loads(line) for line in fh]
-    checks = []
+    lines = []
+    if set(gangs) - {"elastic"}:
+        mp.start_processes(_worker, nprocs=n, start_method="spawn",
+                           args=(n, f"127.0.0.1:{bootstrap.free_port()}",
+                                 out_path, gangs, prompts))
+        with open(out_path) as fh:
+            lines = [json.loads(line) for line in fh]
     for line in lines:
         print(json.dumps(line), flush=True)
         if "check" in line:
@@ -451,8 +663,8 @@ def main() -> int:
                                map(math.isfinite, losses))})
             print(json.dumps(checks[-1]), flush=True)
     # The two attention checks, each held gang's first step, the
-    # llama3_8b run and each served model.
-    want = (2 * ("attention" in gangs)
+    # llama3_8b run, each served model and the two elastic checks.
+    want = (2 * ("attention" in gangs) + 2 * ("elastic" in gangs)
             + sum(1 for name, job in _jobs(n).items()
                   if name in gangs and job["held"] is not None)
             + ("tp_8b" in gangs) + sum(1 for s in SERVE if s in gangs))

@@ -235,26 +235,36 @@ def test_in_process_trace_holds_the_jax_span_names(plane, tmp_path):
     assert "restore" in runtime_span_names(jread_trace(jart))
 
 
-def test_elastic_meta_is_a_recorded_divergence(plane, tmp_path):
-    """The JAX executor runs an in-process jaxjob that checkpoints and
-    restores on start (``LLAMA_PRETRAIN``) as an elastic gang, so its
-    record gains ``meta["elastic"]``; the port's executor runs
-    ``run_torchjob`` directly and records none (ROADMAP.md, Queue 3;
-    elastic gangs are Queue 1 item 7)."""
+def test_elastic_meta_matches_the_reference(plane, tmp_path):
+    """Both executors give ``LLAMA_PRETRAIN`` (checkpointing that
+    restores on start) a resize channel, so an in-process run records
+    ``meta["elastic"]`` with the JAX executor's keys: one segment over
+    the one CPU device, no attempt."""
     from polyaxon_tpu.agent import LocalExecutor as JExecutor
     from polyaxon_tpu.compiler.plan import V1LaunchPlan as JPlan
     from polyaxon_tpu.controlplane import ControlPlane as JPlane
+    from polyaxon_tpu.runtime.elastic import ElasticController
     from polyaxon_tpu_torch.agent import LocalExecutor
+    from polyaxon_tpu_torch.compiler.plan import V1LaunchPlan
 
     jplane = JPlane(str(tmp_path / "jax"))
     jrecord = jplane.submit(pretrain_copy())
     jplane.compile_run(jrecord.uuid)
     jplan = JPlan.from_dict(jplane.get_run(jrecord.uuid).launch_plan)
-    assert JExecutor(jplane, in_process=True)._make_elastic(jplan) is not None
+    jchannel = JExecutor(jplane, in_process=True)._make_elastic(jplan)
+    assert jchannel is not None
 
     record = plane.submit(pretrain_copy())
+    plane.compile_run(record.uuid)
+    plan = V1LaunchPlan.from_dict(plane.get_run(record.uuid).launch_plan)
+    channel = LocalExecutor(plane, in_process=True,
+                            device="cpu")._make_elastic(plan)
+    assert channel is not None
+    assert channel.snapshot() == jchannel.snapshot()
+
     agent = Agent(plane, in_process=True, device="cpu")
     assert agent.run_until_done(record.uuid, timeout=300) == \
         V1Statuses.SUCCEEDED
-    assert "elastic" not in (plane.get_run(record.uuid).meta or {})
-    assert not hasattr(LocalExecutor, "_make_elastic")
+    meta = plane.get_run(record.uuid).meta["elastic"]
+    assert meta == ElasticController("u", budget=meta["budget"]).snapshot()
+    assert meta["attempts"] == [] and meta["used"] == 0

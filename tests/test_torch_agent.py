@@ -331,14 +331,6 @@ def test_watchloop_module_runs(tmp_path):
 
 
 class TestRefusals:
-    def test_elastic_resize_names_item_7(self, tmp_path):
-        from polyaxon_tpu_torch.agent import LocalExecutor
-        from polyaxon_tpu_torch.controlplane import ControlPlane
-
-        ex = LocalExecutor(ControlPlane(str(tmp_path)))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            ex.request_resize("run", "shrink")
-
     def test_slice_pool_names_item_10(self, tmp_path):
         from polyaxon_tpu_torch.agent import Agent
         from polyaxon_tpu_torch.controlplane import ControlPlane
