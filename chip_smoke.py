@@ -306,6 +306,26 @@ Phases, each of which must pass:
    gangs' stop agreement per step, ``meta["elastic"]`` and
    ``meta["checkpoint"]``.
 
+21. The axis pairs (``21a.`` and ``21b.`` lines). (a) The new pairs'
+   rank programs replayed in this process at full width, forward and
+   backward through the flash kernels, each against the unsplit step
+   (phase 18's tolerances): llama3_8b, cut to PAIR_LAYERS of its 32
+   layers, at pp2 x tp2 (a 2-stage GPipe schedule of two 4,096-token
+   microbatches whose stages run each tp rank's blocks) and at tp2 x cp2
+   (one 4,096-token row, each tp rank's heads through the zigzag ring of
+   two cp ranks), with the vocab-parallel embedding and cross entropy;
+   moe_8x200m at full width and depth at tp2 x ep2 (each tp rank's heads,
+   and the ragged dispatch at ep2 through each tp rank's share of every
+   expert's mlp), at no-drop capacity with the unsplit run's routing
+   replayed. (b) moe_8x200m served at ep2 by two processes sharing the
+   card over gloo (each rank 4 of the 8 experts; decode through the
+   dense dispatch), the paged engine on the mix's first eight prompts,
+   every row held by phase 12's rule (``moe_rows_check``) against the
+   unsharded paged engine with each engine's routing replayed. Phase 1
+   also holds the kernels at the pairs' shapes (``PATH_CASES``: 16:4
+   heads at D=128 over a 4,096-token row, and a tp rank's zigzag blocks,
+   16:4 at 2,048 rows, causal and not).
+
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -992,7 +1012,12 @@ def time_flash_bwd(torch, flash, peaks, gen, B, S, H, KV, D, seg):
 # And the tp-local heads of phase 18 and of the four-card tp4 gangs:
 # llama3_8b at tp4 (8:2 heads, D=128, one 4,096-token row) and llama3_1b
 # at tp4 (8:2 heads, D=64, four rows); and of phase 19's tp2 prefill
-# (16:4 heads, one 2,048-token prompt).
+# (16:4 heads, one 2,048-token prompt). And phase 21's pairs: llama3_8b's
+# tp2 heads (16:4, D=128) over a 4,096-token microbatch (pp2 x tp2) and
+# as tp2 x cp2's zigzag blocks (S/(2 cp) = 1,024 rows, causal diagonals
+# and full blocks), moe_8x200m's tp2 heads (8:4) at its training
+# microbatch, and the four-card tp_cp gang's blocks (llama3_1b's 16:4 at
+# 32,768 tokens over cp2: 8,192-row chunks).
 PATH_CASES = (("t5_base encoder training B=32 S=512", 32, 512, 12, 12, False,
                64),
               ("t5_base served encoder S=300", 1, 300, 12, 12, False, 64),
@@ -1006,7 +1031,17 @@ PATH_CASES = (("t5_base encoder training B=32 S=512", 32, 512, 12, 12, False,
               ("llama3_8b tp4 B=1 S=4096", 1, 4096, 8, 2, True, 128),
               ("llama3_8b tp2 prefill B=1 S=2048", 1, 2048, 16, 4, True,
                128),
-              ("llama3_1b tp4 B=4 S=4096", 4, 4096, 8, 2, True, 64))
+              ("llama3_1b tp4 B=4 S=4096", 4, 4096, 8, 2, True, 64),
+              ("llama3_8b pp2 x tp2 B=1 S=4096", 1, 4096, 16, 4, True, 128),
+              ("llama3_8b tp2 x cp2 diagonal S=1024", 1, 1024, 16, 4, True,
+               128),
+              ("llama3_8b tp2 x cp2 step block S=1024", 1, 1024, 16, 4,
+               False, 128),
+              ("moe_8x200m tp2 B=4 S=2048", 4, 2048, 8, 4, True, 64),
+              ("llama3_1b tp2 x cp2 diagonal S=8192", 1, 8192, 16, 4, True,
+               64),
+              ("llama3_1b tp2 x cp2 step block S=8192", 1, 8192, 16, 4,
+               False, 64))
 # The plain versions hold f32 [B, h, S, S] scores: past this many bytes
 # they run on the first KV group's heads only (the kernels run on all of
 # them; the plain time is scaled up to all heads).
@@ -5311,40 +5346,56 @@ def _gang_logits(torch, family, cfg, params, prompt, toks, device="cuda"):
 
 
 def serve_rank(rank: int, port: int, workdir: str) -> None:
-    """One rank of phase 19's tp2 gang, sharing the card with the other
-    over a gloo group (``scripts/probe_gloo_cuda.py``: gloo carries the
-    gang's collectives of CUDA tensors; NCCL refuses two ranks on one
-    device): a ``ServingServer`` over ``{"tp": 2}`` whose rank 0 runs the
-    paged engine on the job's prompts and the teacher-forced logits
-    through the gang, and writes them to ``workdir``."""
+    """One rank of a serving gang sharing the card with the other over a
+    gloo group (``scripts/probe_gloo_cuda.py``: gloo carries the gang's
+    collectives of CUDA tensors; NCCL refuses two ranks on one device):
+    a ``ServingServer`` over the job's mesh (phase 19: llama3_8b at
+    ``{"tp": 2}``; phase 21b: moe_8x200m at ``{"ep": 2}`` with its
+    ``capacity_factor``) whose rank 0 runs the paged engine on the job's
+    prompts and writes what it served to ``workdir``: for phase 19 the
+    teacher-forced logits through the gang too, for an MoE each row's
+    recorded routing (``_EngineRoutes``)."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from polyaxon_tpu_torch.models import llama
+    from polyaxon_tpu_torch.models import family_of
     from polyaxon_tpu_torch.ops import flash, paged_attention
     from polyaxon_tpu_torch.serving.gang import ParamsRef
+    from polyaxon_tpu_torch.serving.quantize import tree_bytes
     from polyaxon_tpu_torch.serving.server import ServingServer
 
+    with open(os.path.join(workdir, "job.json")) as fh:
+        job = json.load(fh)
+    model = job.get("model", GANG_MODEL)
+    axes = job.get("axes", {"tp": GANG_TP})
+    family = family_of(model)
+    if "capacity_factor" in job:
+        family.CONFIGS[model] = dataclasses.replace(
+            family.CONFIGS[model], capacity_factor=job["capacity_factor"])
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=GANG_TP, rank=rank)
+                            world_size=math.prod(axes.values()), rank=rank)
     t0 = time.perf_counter()
-    server = ServingServer(GANG_MODEL, seed=SEED, mesh_axes={"tp": GANG_TP},
+    server = ServingServer(model, seed=SEED, mesh_axes=axes,
                            batching="continuous", kv="paged", slots=8,
                            device="cuda")
     load_s = time.perf_counter() - t0
-    out = {"rank": rank, "load_s": load_s}
+    params = server.gang.worker.roles["target"][2]
+    out = {"rank": rank, "load_s": load_s,
+           "param_gb": tree_bytes(params) / 1e9}
     try:
         if not server.is_leader:
             server.follow()
         else:
             server.start()  # stop() below shuts down its HTTP loop
-            with open(os.path.join(workdir, "job.json")) as fh:
-                job = json.load(fh)
             cfg = server.gang.worker.roles["target"][1]
-            fam = server.gang.family("target", llama)
+            routing = None
+            if "want" not in job:  # an MoE: record each row's routing
+                routing = _Routing(torch, family).__enter__()
+                routes = _EngineRoutes(torch, server.engine, routing,
+                                       cfg.n_layers)
             _zero(flash, paged_attention)
             t1 = time.perf_counter()
             reqs = [server.engine.submit(p, GANG_NEW) for p in job["prompts"]]
@@ -5355,11 +5406,19 @@ def serve_rank(rank: int, port: int, workdir: str) -> None:
             out.update(outs=outs, wall_s=wall,
                        decode_step_ms_median=stats["decode_step_ms_median"],
                        decode_steps=stats["decode_steps"])
-            logits = [_gang_logits(torch, fam, cfg, ParamsRef("target"),
-                                   p, w)
-                      for p, w in zip(job["prompts"], job["want"])]
-            np.save(os.path.join(workdir, "logits.npy"),
-                    torch.stack(logits).cpu().numpy())
+            if routing is not None:
+                routing.__exit__()
+                routes.finish()
+                out["routes"] = [
+                    routes.row(r, p + o, len(p) + len(o) - 1).tolist()
+                    for r, p, o in zip(reqs, job["prompts"], outs)]
+            else:
+                fam = server.gang.family("target", family)
+                logits = [_gang_logits(torch, fam, cfg, ParamsRef("target"),
+                                       p, w)
+                          for p, w in zip(job["prompts"], job["want"])]
+                np.save(os.path.join(workdir, "logits.npy"),
+                        torch.stack(logits).cpu().numpy())
             server.stop()
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["calls"] = server.gang.calls
@@ -5735,6 +5794,354 @@ def elastic_gang(torch, flash, paged):
     return counts
 
 
+# Phase 21: the axis pairs. (a) The new pairs' rank programs replayed
+# in this process at full width (depth cut to PAIR_LAYERS of llama3_8b's
+# 32 layers to keep the phase near 150 s; moe_8x200m at its full 12);
+# (b) moe_8x200m served at ep2 by two processes sharing the card over
+# gloo.
+PAIR_MODEL = "llama3_8b"
+PAIR_LAYERS = 8
+PAIR_SEQ = 4096
+PAIR_ROWS = 2          # pp2 x tp2: two microbatches of one row
+PAIR_TP, PAIR_PP, PAIR_CP, PAIR_EP = 2, 2, 2, 2
+EP_GANG_MODEL = "moe_8x200m"
+EP_GANG = 2
+
+
+def _vocab_replay(torch, llama, tensor, cfg, params, inputs, n):
+    """Each tp rank's vocab-parallel embedding rows of ``inputs``, summed
+    as the all-reduce sums them."""
+    rows = cfg.vocab_size // n
+    return tensor.replay_tp(
+        lambda table: llama._embed(cfg, {"embed": table}, inputs,
+                                   cfg.dtype), n,
+        lambda j: (params["embed"][j * rows:(j + 1) * rows],))
+
+
+def _vocab_ce_replay(torch, tensor, cfg, params, x, tokens, n):
+    """The vocab-parallel cross entropy of every tp rank's head columns:
+    the mean loss."""
+    rows = cfg.vocab_size // n
+    head = params["lm_head"]
+    nll, _ = tensor.replay_vocab_ce(
+        [(x @ head[:, j * rows:(j + 1) * rows]).float() for j in range(n)],
+        tokens)
+    return nll.mean()
+
+
+def pair_replays(torch, llama, flash, paged):
+    """Phase 21a: the rank programs of the new pairs, every rank's in this
+    process, forward and backward through the flash kernels, each held
+    against the unsplit step (phase 18's tolerances): llama3_8b (random
+    bf16 weights from SEED, full width, PAIR_LAYERS layers) at pp2 x tp2
+    (a 2-stage GPipe schedule of 2 one-row microbatches,
+    ``replay_pipeline``, whose stages run each tp rank's column- and
+    row-parallel blocks, ``replay_tp``) and at tp2 x cp2 on one row (each
+    tp rank's heads through the zigzag ring of two cp ranks,
+    ``replay_zigzag``), both with the vocab-parallel embedding and cross
+    entropy; moe_8x200m (full width and depth, bf16) at tp2 x ep2 on its
+    training microbatch: each tp rank's attention heads, and the ragged
+    dispatch at ep2 (``replay_ep``) through each tp rank's share of every
+    expert's ``mlp``, at no-drop capacity, the routing replayed from the
+    unsplit run (``_Routing``). Returns the launches of the split runs."""
+    from polyaxon_tpu_torch.models import moe
+    from polyaxon_tpu_torch.models.common import rms_norm, shift_right, unstack
+    from polyaxon_tpu_torch.ops import ring
+    from polyaxon_tpu_torch.parallel import tensor
+    from polyaxon_tpu_torch.parallel.pipeline import (replay_pipeline,
+                                                      stack_stages)
+    from polyaxon_tpu_torch.runtime.data import lm_synthetic
+
+    t_phase = time.perf_counter()
+    runs = []
+    cfg = dataclasses.replace(llama.CONFIGS[PAIR_MODEL], n_layers=PAIR_LAYERS,
+                              attention_impl="flash")
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda", param_dtype=torch.bfloat16)["params"]
+    for t in _leaves(params):
+        t.requires_grad_(True)
+    tokens = torch.from_numpy(next(lm_synthetic(
+        PAIR_ROWS, seq_len=PAIR_SEQ, vocab_size=cfg.vocab_size,
+        seed=SEED + 7))["tokens"]).cuda().long()
+
+    def grads_of(loss):
+        loss.backward()
+        out = {}
+        for path, t in _named_leaves(params):
+            out[path] = t.grad
+            t.grad = None
+        torch.cuda.synchronize()
+        return loss.item(), out
+
+    n = PAIR_TP
+
+    def tp_layer(attn_out):
+        """One layer as every tp rank computes it: ``attn_out(x, shard,
+        positions)`` and the MLP partials, summed."""
+        def body(x, layer, positions, _segments=None):
+            x = x + tensor.replay_tp(
+                attn_out, n,
+                lambda j: (x, _tp_shard(cfg, layer, n, j), positions),
+                remat=True)
+            return x + tensor.replay_tp(
+                functools.partial(llama._mlp_out, cfg), n,
+                lambda j: (x, _tp_shard(cfg, layer, n, j)), remat=True)
+        return body
+
+    def ring_attn_out(x, layer, positions):
+        B, S, _ = x.shape
+        q, k, v = llama._qkv(cfg, layer, x, positions)
+        o = ring.replay_zigzag(q, k, v, PAIR_CP)
+        return o.reshape(B, S, -1) @ layer["wo"].to(cfg.dtype)
+
+    cases = {
+        f"pp{PAIR_PP} x tp{n}": (tokens, lambda x: replay_pipeline(
+            llama.stage_fn(tp_layer(functools.partial(llama._attn_out,
+                                                       cfg))),
+            stack_stages(params["layers"], PAIR_PP), x,
+            n_microbatches=PAIR_ROWS, n_stages=PAIR_PP)),
+        f"tp{n} x cp{PAIR_CP}": (tokens[:1], lambda x: llama.stage_fn(
+            tp_layer(ring_attn_out))(params["layers"], x)),
+    }
+    for label, (toks, layers) in cases.items():
+        t0 = time.perf_counter()
+        want_loss, want = grads_of(llama.apply(
+            cfg, {"params": params, "state": {}}, {"tokens": toks})[0])
+        want = {k: g.to("cpu") for k, g in want.items()}
+        _zero(flash, paged)
+        x = _vocab_replay(torch, llama, tensor, cfg, params,
+                          shift_right(toks), n)
+        x = llama._norm(cfg, layers(x), params["final_norm"])
+        loss, got = grads_of(_vocab_ce_replay(torch, tensor, cfg, params, x,
+                                              toks, n))
+        counts = _counts(flash, paged)
+        runs.append(counts)
+        if not all(counts[k] for k in TRAINING_KERNELS):
+            fail(f"21a. {label}: launches {counts}")
+        held = _hold_training(f"21a. {label}", loss, want_loss,
+                              _grad_rels(torch, got, want))
+        print(f"21a. {label} replay: {PAIR_MODEL} at full width, "
+              f"{PAIR_LAYERS} of {llama.CONFIGS[PAIR_MODEL].n_layers} layers, "
+              f"{toks.shape[0]} x {PAIR_SEQ} "
+              f"tokens, {cfg.n_heads // n}:{cfg.n_kv_heads // n} heads per tp "
+              f"rank, D={cfg.head_dim}; loss {loss:.6f} vs unsplit "
+              f"{want_loss:.6f}; {held}; launches {counts}; fwd+bwd_s="
+              f"{time.perf_counter() - t0:.2f}", flush=True)
+        del got, want, x
+    del params
+    torch.cuda.empty_cache()
+
+    # moe_8x200m at tp2 x ep2.
+    t0 = time.perf_counter()
+    base = moe.CONFIGS["moe_8x200m"]
+    mcfg = dataclasses.replace(base, attention_impl="flash",
+                               capacity_factor=8.0)
+    mparams = moe.init(mcfg, torch.Generator(device="cuda").manual_seed(SEED),
+                       device="cuda", param_dtype=torch.bfloat16)["params"]
+    layers = mparams["layers"]
+    for t in _leaves(layers):
+        t.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    x0 = torch.randn(EP_BATCH, EP_SEQ, mcfg.dim, generator=gen,
+                     device="cuda", dtype=torch.bfloat16).requires_grad_(True)
+    do = torch.randn(x0.shape, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    positions = llama._positions(EP_BATCH, EP_SEQ, "cuda")
+    leaves = [x0, *(t for _, t in _named_leaves(layers))]
+    names = ["x", *(p for p, _ in _named_leaves(layers))]
+
+    def run(stack):
+        out = stack()
+        grads = torch.autograd.grad((out.float() * do.float()).sum(),
+                                    leaves)
+        torch.cuda.synchronize()
+        return out.detach(), dict(zip(names, grads))
+
+    def unsplit():
+        x = x0
+        for layer in unstack(layers):
+            x = moe._layer(mcfg, x, layer, positions)[0]
+        return x
+
+    def mlp_share(key, w, j):  # tp rank j's share of each expert's mlp
+        f = mcfg.ffn_dim // n
+        return (w[:, j * f:(j + 1) * f] if key == "w_down"
+                else w[..., j * f:(j + 1) * f])
+
+    def split():
+        x = x0
+        T = EP_BATCH * EP_SEQ
+        for layer in unstack(layers):
+            x = x + tensor.replay_tp(
+                functools.partial(llama._attn_out, mcfg), n,
+                lambda j: (x, _tp_shard(mcfg, layer, n, j), positions),
+                remat=True)
+            h = rms_norm(x, layer["moe_norm"], mcfg.norm_eps).reshape(T, -1)
+            out = tensor.replay_tp(
+                lambda wg, wu, wd: moe.replay_ep(mcfg, h, layer["router"],
+                                                 wg, wu, wd, PAIR_EP)[0],
+                n, lambda j: tuple(mlp_share(k, layer[k], j)
+                                   for k in ("w_gate", "w_up", "w_down")))
+            x = x + out.reshape(x.shape)
+        return x
+
+    with _Routing(torch, moe) as rec:
+        want_out, want = run(unsplit)
+    # Per layer, each tp rank routes each ep rank's token chunk.
+    chunk = EP_BATCH * EP_SEQ // PAIR_EP
+    replay = [call[i * chunk:(i + 1) * chunk] for call in rec.calls
+              for _ in range(n) for i in range(PAIR_EP)]
+    _zero(flash, paged)
+    with _Routing(torch, moe, replay=replay) as routed:
+        out, got = run(split)
+    counts = _counts(flash, paged)
+    runs.append(counts)
+    label = f"21a. moe tp{n} x ep{PAIR_EP}"
+    if not all(counts[k] for k in TRAINING_KERNELS):
+        fail(f"{label}: launches {counts}")
+    err = _rel(out, want_out)
+    rels = _grad_rels(torch, got, want)
+    worst = max(rels, key=rels.get)
+    if err > MODEL_REL_TOL or not all(map(math.isfinite, rels.values())) \
+            or rels[worst] > TRAIN_GRAD_REL_TOL:
+        fail(f"{label}: out rel {err}, grad rel {rels}")
+    print(f"{label} replay: moe_8x200m at full width and depth "
+          f"({mcfg.n_layers} layers), {EP_BATCH} x {EP_SEQ} tokens, "
+          f"{mcfg.n_experts // PAIR_EP} experts per ep rank, "
+          f"{mcfg.ffn_dim // n} of each expert's {mcfg.ffn_dim} mlp columns "
+          f"per tp rank, {mcfg.n_heads // n}:{mcfg.n_kv_heads // n} heads; "
+          f"capacity 8.0; out rel err {err:.3e}; grad rel over {len(rels)} "
+          f"leaves worst {worst}={rels[worst]:.3e}; routing flips replayed "
+          f"{sum(routed.flips)}; launches {counts}; fwd+bwd_s="
+          f"{time.perf_counter() - t0:.2f}", flush=True)
+    del mparams, layers, x0, want, got
+    torch.cuda.empty_cache()
+    print(f"21a: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return runs
+
+
+class _SavedRoutes:
+    """A gang rank's recorded rows (``_EngineRoutes.row`` per request
+    index), read back in this process for ``moe_rows_check``."""
+
+    def __init__(self, torch, rows: list):
+        self.rows = [torch.tensor(r) for r in rows]
+
+    def row(self, req, seq, n: int):
+        return self.rows[req][:n]
+
+
+def ep_serving(torch, llama, flash, paged):
+    """Phase 21b: moe_8x200m (random bf16 weights from SEED, no-drop
+    capacity) served at ep2 through the gang engine, two processes
+    sharing the card over gloo (all-reduce, broadcast and all-gather,
+    ``scripts/probe_gloo_cuda.py``): each rank holds its 4 of the 8
+    experts; a decode step's MoE blocks take the dense dispatch, each
+    rank running its experts and the ep group summing their parts; the
+    prompt pass the ragged dispatch of the whole batch, each rank its
+    experts' pairs. The paged continuous engine on the mix's first eight
+    prompts, each engine's routing recorded (``_Routing``,
+    ``_EngineRoutes``): every token of both engines' rows is the target's
+    greedy choice given its own prefix with that engine's routing
+    replayed, up to a near-tie, and a row that parts from the unsharded
+    engine's does so where the routings differ or at a near-tie
+    (``moe_rows_check``, phase 12's rule). Returns rank 0's launches."""
+    import tempfile
+
+    from polyaxon_tpu_torch.models import moe
+    from polyaxon_tpu_torch.parallel.bootstrap import free_port
+    from polyaxon_tpu_torch.serving.batching import ContinuousBatchingEngine
+    from polyaxon_tpu_torch.serving.server import load_params
+
+    label = "21b. moe ep serving"
+    t_phase = time.perf_counter()
+    base = moe.CONFIGS[EP_GANG_MODEL]
+    no_drop = base.n_experts / base.experts_per_token
+    saved = moe.CONFIGS[EP_GANG_MODEL]
+    moe.CONFIGS[EP_GANG_MODEL] = dataclasses.replace(
+        base, capacity_factor=no_drop)
+    try:
+        cfg, params = load_params(EP_GANG_MODEL, seed=SEED, device="cuda")
+    finally:
+        moe.CONFIGS[EP_GANG_MODEL] = saved
+    prompts = [p[:cfg.max_seq_len - GANG_NEW]
+               for p in make_prompts(cfg.vocab_size)[:GANG_PROMPTS]]
+    eng = ContinuousBatchingEngine(EP_GANG_MODEL, cfg, params, slots=8,
+                                   kv="paged", page_size=16, device="cuda")
+    with _Routing(torch, moe) as routing:
+        routes = _EngineRoutes(torch, eng, routing, cfg.n_layers)
+        try:
+            reqs, want, wall = _run_engine_mix(eng, prompts, GANG_NEW)
+        finally:
+            eng.stop()
+    routes.finish()
+    print(f"{label}: unsharded paged engine {len(prompts)} prompts x "
+          f"{GANG_NEW} tokens in {wall:.2f}s", flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        with open(os.path.join(workdir, "job.json"), "w") as fh:
+            json.dump({"prompts": prompts, "model": EP_GANG_MODEL,
+                       "family": "moe", "axes": {"ep": EP_GANG},
+                       "capacity_factor": no_drop}, fh)
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--serve-rank", str(r), str(port),
+                                   workdir]) for r in range(EP_GANG)]
+        try:
+            codes = [p.wait(timeout=GANG_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            fail(f"{label}: the ep{EP_GANG} gang's ranks exited with "
+                 f"{codes}")
+        ranks = []
+        for r in range(EP_GANG):
+            with open(os.path.join(workdir, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    lead = ranks[0]
+    _check_outs(label, prompts, lead["outs"], GANG_NEW, cfg.vocab_size)
+    if len({r["calls"] for r in ranks}) != 1:
+        fail(f"{label}: the ranks ran different model calls: "
+             f"{[r['calls'] for r in ranks]}")
+    counts = lead["counts"]
+    for name in SERVING_KERNELS:
+        if counts[name] <= 0:
+            fail(f"{label}: the gang never launched the {name} kernel")
+    gang_routes = _SavedRoutes(torch, lead["routes"])
+    parted, differ = moe_rows_check(
+        torch, moe, cfg, params, label, prompts,
+        {"unsharded": (reqs, want),
+         f"ep{EP_GANG} gang": (list(range(len(prompts))), lead["outs"])},
+        {"unsharded": routes, f"ep{EP_GANG} gang": gang_routes})
+    tokens = sum(len(o) for o in lead["outs"])
+    print(f"{label}: {EP_GANG_MODEL} ep{EP_GANG} gang (two processes on one "
+          f"card, gloo), {cfg.n_experts // EP_GANG} of {cfg.n_experts} "
+          f"experts a rank: {len(prompts)} prompts x {GANG_NEW} tokens, "
+          f"tokens_per_s={tokens / lead['wall_s']:.1f} "
+          f"decode_step_ms_median={lead['decode_step_ms_median']:.3f} "
+          f"model_calls={lead['calls']} "
+          f"param_gb_per_rank={[round(r['param_gb'], 3) for r in ranks]} "
+          f"peak_gb_per_rank={[round(r['peak_gb'], 2) for r in ranks]}; rows "
+          f"equal to the unsharded engine's {len(prompts) - parted}/"
+          f"{len(prompts)}, of the {parted} that part {differ} where the "
+          f"routings differ; launches rank 0 {counts}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 21b: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return counts
+
+
+def axis_pairs(torch, llama, flash, paged):
+    """Phase 21; returns the launches of its runs."""
+    t0 = time.perf_counter()
+    runs = pair_replays(torch, llama, flash, paged)
+    runs.append(ep_serving(torch, llama, flash, paged))
+    print(f"phase 21: {time.perf_counter() - t0:.1f}s", flush=True)
+    return runs
+
+
 def main() -> None:
     import torch
 
@@ -5836,6 +6243,8 @@ def main() -> None:
     gang_counts = sharded_serving(torch, llama, flash, paged_attention)
     torch.cuda.empty_cache()
     elastic_counts = elastic_gang(torch, flash, paged_attention)
+    torch.cuda.empty_cache()
+    pair_counts = axis_pairs(torch, llama, flash, paged_attention)
 
     # Each kernel's launches are the sum over the main-path runs that
     # reach it (each printed above): the engine, phases a-g, the two
@@ -5844,11 +6253,12 @@ def main() -> None:
     # its checkpoint, the launcher the agent ran from the compiled plan,
     # the sweep's trials and the engine serving its best trial, the runs
     # of phases 11-15, the longcontext run of phase 17, the entry
-    # point's run of phase 18, rank 0 of phase 19's gang and phase 20's
-    # elastic run (its gangs' ranks and its one-device segment).
+    # point's run of phase 18, rank 0 of phase 19's gang, phase 20's
+    # elastic run (its gangs' ranks and its one-device segment) and phase
+    # 21's split runs and rank 0 of its ep gang.
     runs = (counts, *serve_counts, train_counts, gemma_counts, *drill_counts,
             plan_counts, *sweep_counts, *family_counts, ring_counts,
-            entry_counts, gang_counts, elastic_counts)
+            entry_counts, gang_counts, elastic_counts, *pair_counts)
 
     def total(name):
         return sum(run.get(name, 0) for run in runs)

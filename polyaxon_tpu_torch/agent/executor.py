@@ -48,6 +48,7 @@ from polyaxon_tpu_torch.controlplane.service import ControlPlane
 from polyaxon_tpu_torch.lifecycle import V1Statuses
 from polyaxon_tpu_torch.obs import flight as obs_flight
 from polyaxon_tpu_torch.obs import trace as obs_trace
+from polyaxon_tpu_torch.parallel.bootstrap import ENV_LOCAL_DEVICE_IDS
 from polyaxon_tpu_torch.runtime import elastic as elastic_mod
 
 
@@ -73,6 +74,26 @@ def _safe_join(root: str, rel: str) -> str:
         raise RuntimeError(
             f"init path {rel!r} escapes the run's artifacts dir")
     return joined
+
+
+def device_shares(n_proc: int, pool: Optional[list[int]]
+                  ) -> list[Optional[str]]:
+    """Per plan process, the cards it holds as
+    ``POLYAXON_TPU_LOCAL_DEVICE_IDS``: process ``p`` of ``P`` on a host of
+    ``D`` cards (``pool``) takes ``[p·D/P, (p+1)·D/P)``, so that no two
+    processes share a card. None for each (every process holds what
+    ``bootstrap.local_devices`` gives it) with one process, or without a
+    pool of cards (the CPU, which processes share). Raises
+    ``ValueError`` when the cards do not split evenly."""
+    if pool is None or n_proc == 1:
+        return [None] * n_proc
+    n = len(pool)
+    if n % n_proc:
+        raise ValueError(f"{n} local devices do not split evenly over the "
+                         f"plan's {n_proc} processes")
+    per = n // n_proc
+    return [",".join(str(d) for d in pool[p * per:(p + 1) * per])
+            for p in range(n_proc)]
 
 
 @dataclass
@@ -330,9 +351,13 @@ class LocalExecutor:
                 from polyaxon_tpu_torch.parallel.bootstrap import free_port
 
                 coordinator = f"127.0.0.1:{free_port()}"
-                for proc_spec in plan.processes:
+                shares = device_shares(len(plan.processes),
+                                       self._card_pool())
+                for proc_spec, share in zip(plan.processes, shares):
                     env = dict(os.environ)
                     env.update(proc_spec.env)
+                    if share is not None:
+                        env.setdefault(ENV_LOCAL_DEVICE_IDS, share)
                     # Trace propagation rides the same env plumbing as
                     # the graft/tracking contract: the child's runtime
                     # spans parent under this gang's `execute` span.
@@ -406,6 +431,24 @@ class LocalExecutor:
         finally:
             gang.tracer.close()
             gang.tracer = gang.span = None
+
+    def _card_pool(self) -> Optional[list[int]]:
+        """The cards this host's plan processes share out
+        (``device_shares``): the executor's ``local_devices``, else
+        ``bootstrap.local_devices`` on a host with cards (every card, or
+        the ids of this process's ``POLYAXON_TPU_LOCAL_DEVICE_IDS``);
+        None without cards, or for an executor that names another
+        device."""
+        import torch
+
+        from polyaxon_tpu_torch.parallel import bootstrap
+
+        if self.local_devices is not None:
+            return list(self.local_devices)
+        if (not torch.cuda.is_available() or self.device is not None
+                and torch.device(self.device).type != "cuda"):
+            return None
+        return bootstrap.local_devices("cuda")
 
     def _can_run_in_process(self, plan: V1LaunchPlan) -> bool:
         return (

@@ -471,11 +471,15 @@ def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
 
 
 def _pipelined_layers(cfg: LlamaConfig, body, layer_params: dict,
-                      x: torch.Tensor):
+                      x: torch.Tensor, start: int = 0):
     """The layer stack as a ``pp`` pipeline (``parallel/pipeline.py``):
     (the last stage's output, None on the other stages; the schedule's
-    tail). Positions are contiguous 0..S-1 (the pretraining case): each
-    microbatch rebuilds them instead of sending them down the chain."""
+    tail). Positions are contiguous from ``start`` (0, or a cp shard's
+    first position: the pretraining case): each microbatch rebuilds them
+    instead of sending them down the chain. A stage's layers compute on
+    the shards of the other axes as an unpipelined layer does: fsdp
+    gathers at use, tp and sp shards, cp's ring over this rank's cp
+    group."""
     from polyaxon_tpu_torch.parallel.pipeline import (pipeline_forward,
                                                       stack_stages)
 
@@ -484,19 +488,19 @@ def _pipelined_layers(cfg: LlamaConfig, body, layer_params: dict,
         raise ValueError(
             f"pipeline_stages={cfg.pipeline_stages} needs a mesh with a "
             "`pp` axis in context (`parallel.mesh.use_mesh`)")
-    return pipeline_forward(mesh, stage_fn(body),
+    return pipeline_forward(mesh, stage_fn(body, start),
                             stack_stages(layer_params, cfg.pipeline_stages),
                             x, n_microbatches=cfg.pipeline_microbatches,
                             double_buffer=cfg.pipeline_double_buffer)
 
 
-def stage_fn(body):
+def stage_fn(body, start: int = 0):
     """A pipeline stage: ``body`` over its layers, at contiguous
-    positions."""
+    positions from ``start``."""
 
     def run(local_layers, x_mb):
         mb, S, _ = x_mb.shape
-        positions = _positions(mb, S, x_mb.device)
+        positions = _positions(mb, S, x_mb.device, start)
         for layer in unstack(local_layers):
             x_mb = body(x_mb, layer, positions, None)
         return x_mb
@@ -515,12 +519,13 @@ def _check_pipelined_inputs(cfg: LlamaConfig, positions, segment_ids
 
 
 def _pipelined_hidden(cfg: LlamaConfig, params: dict,
-                      tokens: torch.Tensor):
-    """Pipelined ``hidden_states``: (the final-norm hidden states on the
-    last stage, None elsewhere; the schedule's tail)."""
+                      tokens: torch.Tensor, start: int = 0):
+    """Pipelined ``hidden_states`` at contiguous positions from
+    ``start``: (the final-norm hidden states on the last stage, None
+    elsewhere; the schedule's tail)."""
     x = _embed(cfg, params, tokens, cfg.dtype)
     out, tail = _pipelined_layers(cfg, _layer_body(cfg), params["layers"],
-                                  x)
+                                  x, start)
     if out is not None:
         out = _norm(cfg, out, params["final_norm"])
     return out, tail
@@ -630,8 +635,10 @@ def apply(cfg: LlamaConfig, variables: Variables, batch: dict,
     if cfg.pipeline_stages > 1:
         from polyaxon_tpu_torch.parallel.pipeline import from_last_stage
 
-        _check_pipelined_inputs(cfg, positions, segments)
-        x, tail = _pipelined_hidden(cfg, params, inputs)
+        # A cp shard's positions are contiguous from its first.
+        _check_pipelined_inputs(cfg, None, segments)
+        x, tail = _pipelined_hidden(cfg, params, inputs,
+                                    shard.start if shard is not None else 0)
         stats = None if x is None else torch.stack(lm_loss(
             cfg, lm_head(cfg, params).to(cfg.dtype), x, tokens, mask))
         loss, acc = from_last_stage(stats, tail, (2,), torch.float32,

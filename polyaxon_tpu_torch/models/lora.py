@@ -193,22 +193,21 @@ def _tp_summed(adapters: dict, logical_axes) -> dict:
     tensor.py``): a rank's merged shard ``W_j + s·A@B_j`` (or
     ``A_j@B``) gives that factor only this rank's part of its gradient,
     and the backward's all-reduce sums the parts, so every rank holds
-    the whole gradient its Replicate placement says. Without tp, as
+    the whole gradient its Replicate placement says. A factor computes
+    on its tp share wherever ``TP_RULES`` shards one of its axes, placed
+    so or taken at use (``parallel/fsdp.py _tp_share``). Without tp, as
     they are."""
     from polyaxon_tpu_torch.parallel.mesh import current_mesh
-    from polyaxon_tpu_torch.parallel.sharding import (logical_to_spec,
-                                                      rules_for_mesh)
+    from polyaxon_tpu_torch.parallel.sharding import TP_RULES
     from polyaxon_tpu_torch.parallel.tensor import copy_to_tp, tp_axis
 
-    mesh = current_mesh()
-    if tp_axis()[0] == 1 or mesh is None:
+    if tp_axis()[0] == 1 or current_mesh() is None:
         return adapters
-    rules = rules_for_mesh(mesh)
     axes, _ = split_meta(logical_axes()["params"]["lora"])
+    tp_names = {name for name, target in TP_RULES if target == "tp"}
 
     def on_tp(logical):
-        return any(e == "tp" or (isinstance(e, tuple) and "tp" in e)
-                   for e in logical_to_spec(logical, rules, mesh=mesh))
+        return any(name in tp_names for name in logical)
 
     out = {}
     for path, ab in adapters.items():

@@ -34,10 +34,15 @@ Two dispatch formulations, as in the JAX package:
   global batch, as GSPMD's do: the per-choice, per-expert counts of
   every row block (``_Blocks``) place this rank's pairs after theirs. A
   served batch is the same on every rank (``parallel/mesh.py
-  replicated_rows``): one block.
+  replicated_rows``): one block. Over an ep axis each rank runs its
+  ``E/ep`` experts on the tokens of every row block, and the ep group
+  sums their parts (``moe_block``); a served batch's prompt pass takes
+  the ragged dispatch as the JAX server computes it, the ``ep == 1``
+  function, each rank its experts' pairs (``_moe_ragged_served``).
 
 ``router="expert_choice"`` lets experts pick their top-capacity tokens
-(balanced by construction, no aux loss); it cannot be decoded.
+of the global batch (balanced by construction, no aux loss); it cannot
+be decoded.
 
 Under ``tp`` the attention is the llama block's and each expert's
 ``mlp`` is column-parallel ``w_gate``/``w_up`` and row-parallel
@@ -427,6 +432,34 @@ class _Blocks:
         return out
 
 
+def _moe_ragged_served(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate,
+                       w_up, w_down):
+    """The ragged dispatch of a served batch over ep, the same tokens
+    x [T, D] on every rank: the JAX server binds no ep axis around its
+    calls, so it runs the ``ep == 1`` function over the whole batch.
+    Each rank routes every pair as that function does and runs the pairs
+    of its own ``E/ep`` experts; the ep group sums the parts."""
+    from polyaxon_tpu_torch.parallel.fsdp import all_gather
+    from polyaxon_tpu_torch.parallel.mesh import axis_rank
+    from polyaxon_tpu_torch.parallel.tensor import _Reduce
+
+    ep, group = _ep_axis()
+    T = x.shape[0]
+    capacity, s_cap = _capacities(cfg, T, 1)
+    router = all_gather(_w(router_w, cfg.dtype), -1, group)
+    d = _route(cfg, x, router, 1)
+    _keep_sent(cfg, d, None, s_cap)
+    _place(cfg, d, x, None, capacity, s_cap, 1)
+    E_loc = cfg.n_experts // ep
+    first = axis_rank(current_mesh(), "ep") * E_loc * capacity
+    code = d.send_code
+    mine = (code >= first) & (code < first + E_loc * capacity)
+    back = _owner(cfg, d.send_x, torch.where(mine, code - first, -1),
+                  capacity, w_gate, w_up, w_down)
+    out = _Reduce.apply(_combine(d, back, T), group)
+    return out, _router_aux_loss(cfg, d.frac_tokens, d.frac_probs)
+
+
 def _moe_ragged_sharded(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate,
                         w_up, w_down):
     """Ragged expert dispatch for this rank's token shard x [T_loc, D]
@@ -440,9 +473,12 @@ def _moe_ragged_sharded(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate,
     from polyaxon_tpu_torch.ops.ulysses import _all_to_all, all_to_all
     from polyaxon_tpu_torch.parallel.fsdp import all_gather
 
-    T_loc = x.shape[0]
     ep, group = _ep_axis()
-    blocks = _Blocks(current_mesh(), ep)
+    mesh = current_mesh()
+    if ep > 1 and "ep" not in row_block_axes(mesh):
+        return _moe_ragged_served(cfg, x, router_w, w_gate, w_up, w_down)
+    T_loc = x.shape[0]
+    blocks = _Blocks(mesh, ep)
     capacity, s_cap = _capacities(cfg, T_loc * blocks.n // ep, ep)
     router = _w(router_w, cfg.dtype)
     if ep > 1:
@@ -510,61 +546,59 @@ def replay_ep(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate, w_up,
     return out, aux
 
 
-def moe_block(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate, w_up,
-              w_down, min_capacity: int = 0
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, D] → (output [B, S, D], router aux loss f32 scalar).
+class _SumOwnRows(torch.autograd.Function):
+    """Partials [n·T, D] of the ``n`` row blocks of an ep group (in
+    order) summed over the group, this rank's block ``index`` kept; the
+    backward hands each rank's partial the gradient of every block of
+    the group (an all-gather over ep)."""
 
-    ``min_capacity`` floors the per-expert buffer; decode passes its
-    group size so serving never drops tokens."""
-    B, S, D = x.shape
+    @staticmethod
+    def forward(ctx, partial, group, n, index):
+        import torch.distributed as dist
+
+        ctx.group, ctx.n = group, n
+        total = partial.contiguous().clone()
+        dist.all_reduce(total, group=group)
+        return total.chunk(n)[index].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(g, memory_format=torch.contiguous_format)
+                 for _ in range(ctx.n)]
+        dist.all_gather(parts, g.contiguous(), group=ctx.group)
+        return torch.cat(parts), None, None, None
+
+
+def _rows_of_blocks(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The tokens of every row block of the global batch, in block order
+    (``_Blocks``), gathered differentiably: the backward sums each
+    rank's gradient of every block into the block's own rank."""
+    from polyaxon_tpu_torch.parallel.fsdp import all_gather
+
+    for name in reversed(row_block_axes(mesh)):
+        x = all_gather(x, 0, mesh.group(name))
+    return x
+
+
+def _gshard(cfg: MoEConfig, tokens: torch.Tensor, probs: torch.Tensor,
+            experts: tuple, lo: int, capacity: int,
+            blocks: "_Blocks") -> tuple[torch.Tensor, torch.Tensor]:
+    """The GShard top-k dispatch of tokens [T, D] routed by probs [T, E]
+    through the experts ``lo …`` whose weights ``experts`` holds: (their
+    part of the output [T, D], the top-1 fractions [E]). Each (choice,
+    token) pair's slot in its expert's buffer is how many pairs picked
+    that expert before it, choice-major over the global batch, as GSPMD
+    counts them: every block's pairs of the earlier choices, then the
+    pairs of its choice in the row blocks ahead of this one (``blocks``),
+    then this block's own earlier tokens'."""
     E, K = cfg.n_experts, cfg.experts_per_token
-    T = B * S
-    capacity = max(int(math.ceil(T * cfg.capacity_factor * K / E)), K,
-                   min_capacity)
     dt = cfg.dtype
-    if cfg.dispatch not in ("dense", "ragged"):
-        raise ValueError(f"unknown MoE dispatch `{cfg.dispatch}`")
-    tokens = x.reshape(T, D)
-    if (cfg.dispatch == "ragged" and cfg.router == "top_k"
-            and min_capacity == 0):
-        out, aux = _moe_ragged_sharded(cfg, tokens, router_w, w_gate, w_up,
-                                       w_down)
-        return out.reshape(B, S, D), aux
-    if _ep_axis()[0] > 1:
-        raise NotImplementedError(
-            "over an ep mesh axis the port dispatches by the ragged top_k "
-            f"path only (dispatch={cfg.dispatch!r}, router={cfg.router!r})")
-
-    logits = (tokens @ _w(router_w, dt)).to(torch.float32)  # [T, E]
-    probs = torch.softmax(logits, dim=-1)
-
-    if cfg.router == "expert_choice":
-        # Experts pick their top-capacity tokens; tokens outside every
-        # expert's choice pass through the residual unchanged.
-        g, idx = torch.topk(probs.T, min(capacity, T), dim=-1)  # [E, C]
-        expert_out = _experts(cfg, tokens[idx], w_gate, w_up, w_down)
-        weighted = (g[..., None].to(dt) * expert_out).reshape(-1, D)
-        out = tokens.new_zeros((T, D)).index_add(0, idx.reshape(-1),
-                                                 weighted)
-        return out.reshape(B, S, D), torch.zeros((), dtype=torch.float32,
-                                                 device=x.device)
-    if cfg.router != "top_k":
-        raise ValueError(f"unknown MoE router `{cfg.router}`")
-
+    E_loc = experts[0].shape[0]
     top_probs, top_idx = _top_k(probs, K)  # [T, K]
-
-    # Each (choice, token) pair's slot in its expert's buffer: how many
-    # pairs picked that expert before it, choice-major over the global
-    # batch, as GSPMD counts them: every block's pairs of the earlier
-    # choices, then the pairs of its choice in the row blocks ahead of
-    # this rank's (``_Blocks``), then this rank's own earlier tokens'.
-    # The capacity counts the global tokens too.
-    blocks = _Blocks(current_mesh(), 1)
-    capacity = max(int(math.ceil(T * blocks.n * cfg.capacity_factor * K
-                                 / E)), K, min_capacity)
-    onehot = (top_idx[..., None] == torch.arange(E, device=x.device)).to(
-        torch.float32)  # [T, K, E]
+    onehot = (top_idx[..., None] == torch.arange(E, device=tokens.device)
+              ).to(torch.float32)  # [T, K, E]
     oh_km = onehot.transpose(0, 1)  # [K, T, E]
     counts = oh_km.sum(1)  # [K, E]
     ahead = torch.zeros_like(counts)
@@ -579,18 +613,108 @@ def moe_block(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate, w_up,
     keep = pos_in_expert < capacity
     # A slot past capacity one-hots to zeros (jax.nn.one_hot's rule).
     slot_onehot = (pos_in_expert.to(torch.long)[..., None]
-                   == torch.arange(capacity, device=x.device)).to(
+                   == torch.arange(capacity, device=tokens.device)).to(
                        torch.float32)  # [K, T, C]
     keep_f = keep.to(torch.float32)
-    dispatch = torch.einsum("kte,ktc->tec", oh_km,
+    mine = oh_km[..., lo:lo + E_loc]
+    dispatch = torch.einsum("kte,ktc->tec", mine,
                             slot_onehot * keep_f[..., None])
-    combine = torch.einsum("kte,ktc,kt->tec", oh_km, slot_onehot,
+    combine = torch.einsum("kte,ktc,kt->tec", mine, slot_onehot,
                            top_probs.T * keep_f)
     expert_in = torch.einsum("tec,td->ecd", dispatch.to(dt), tokens)
-    expert_out = _experts(cfg, expert_in, w_gate, w_up, w_down)
+    expert_out = _experts(cfg, expert_in, *experts)
     out = torch.einsum("tec,ecd->td", combine.to(dt), expert_out)
-    aux = _router_aux_loss(cfg, block_mean(onehot[:, 0, :].mean(0)),
-                           block_mean(probs.mean(0)))
+    return out, onehot[:, 0, :].mean(0)
+
+
+def _expert_choice(cfg: MoEConfig, tokens: torch.Tensor,
+                   probs: torch.Tensor, experts: tuple, lo: int,
+                   capacity: int) -> torch.Tensor:
+    """Experts ``lo …`` pick their top-capacity tokens of tokens [T, D]
+    by probs [T, E]: their part of the output [T, D]; tokens outside
+    every expert's choice pass through the residual unchanged."""
+    T, D = tokens.shape
+    E_loc = experts[0].shape[0]
+    g, idx = torch.topk(probs.T[lo:lo + E_loc], min(capacity, T),
+                        dim=-1)  # [E_loc, C]
+    expert_out = _experts(cfg, tokens[idx], *experts)
+    weighted = (g[..., None].to(cfg.dtype) * expert_out).reshape(-1, D)
+    return tokens.new_zeros((T, D)).index_add(0, idx.reshape(-1), weighted)
+
+
+def moe_block(cfg: MoEConfig, x: torch.Tensor, router_w, w_gate, w_up,
+              w_down, min_capacity: int = 0
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] → (output [B, S, D], router aux loss f32 scalar).
+
+    ``min_capacity`` floors the per-expert buffer; decode passes its
+    group size so serving never drops tokens.
+
+    Over an ep axis the dense dispatch and the expert-choice router run
+    on the tokens of every row block (``_rows_of_blocks``; a served
+    batch is one block, the same on every rank), so that the slots and
+    the experts' choices are the global batch's, as GSPMD computes them:
+    each rank runs its ``E/ep`` experts, and the ep group sums their
+    parts, each rank keeping its own rows (``_SumOwnRows``)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    if cfg.dispatch not in ("dense", "ragged"):
+        raise ValueError(f"unknown MoE dispatch `{cfg.dispatch}`")
+    if cfg.router not in ("top_k", "expert_choice"):
+        raise ValueError(f"unknown MoE router `{cfg.router}`")
+    tokens = x.reshape(B * S, D)
+    if (cfg.dispatch == "ragged" and cfg.router == "top_k"
+            and min_capacity == 0):
+        out, aux = _moe_ragged_sharded(cfg, tokens, router_w, w_gate, w_up,
+                                       w_down)
+        return out.reshape(B, S, D), aux
+
+    mesh = current_mesh()
+    ep, group = _ep_axis()
+    router = _w(router_w, cfg.dtype)
+    experts = (w_gate, w_up, w_down)
+    lo, T_own = 0, tokens.shape[0]
+    blocks = _Blocks(mesh, 1)
+    # The expert-choice router picks among the global batch's tokens, and
+    # over ep each owner's experts read every row block's.
+    gather = blocks.n > 1 and (ep > 1 or cfg.router == "expert_choice")
+    if ep > 1:
+        from polyaxon_tpu_torch.parallel.fsdp import all_gather
+        from polyaxon_tpu_torch.parallel.mesh import axis_rank
+
+        router = all_gather(router, -1, group)
+        lo = axis_rank(mesh, "ep") * (E // ep)
+    if gather:
+        tokens = _rows_of_blocks(tokens, mesh)
+        index = blocks.index
+        blocks = _Blocks(None, 1)  # every block is here, in order
+    T = tokens.shape[0]
+    # The capacity counts the global tokens.
+    capacity = max(int(math.ceil(T * blocks.n * cfg.capacity_factor * K
+                                 / E)), K, min_capacity)
+    logits = (tokens @ router).to(torch.float32)  # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    if cfg.router == "expert_choice":
+        out = _expert_choice(cfg, tokens, probs, experts, lo, capacity)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        out, frac_tokens = _gshard(cfg, tokens, probs, experts, lo,
+                                   capacity, blocks)
+        # Gathered, the means are the global batch's already.
+        aux = _router_aux_loss(
+            cfg, *(t if gather else block_mean(t)
+                   for t in (frac_tokens, probs.mean(0))))
+    if gather:
+        # This rank's ep group's blocks (ep is the innermost batch axis),
+        # their experts' parts summed over the group.
+        first = index - index % ep
+        out = out[first * T_own:(first + ep) * T_own]
+        out = (_SumOwnRows.apply(out, group, ep, index - first) if ep > 1
+               else out)
+    elif ep > 1:  # a served batch: every rank holds the same rows
+        from polyaxon_tpu_torch.parallel.tensor import _Reduce
+
+        out = _Reduce.apply(out, group)
     return out.reshape(B, S, D), aux
 
 

@@ -29,6 +29,8 @@ its blocks (the JAX package issues the next rotation first).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import warnings
 from typing import Optional
@@ -84,6 +86,25 @@ class _Axis:
         """``fn(x)`` with ``inverse`` (its adjoint) as the backward."""
         out, self.token = _Transfer.apply(x, self.token, fn, inverse)
         return out
+
+
+# The transfers of an enclosing schedule (a pipeline's stage sends,
+# ``parallel/pipeline.py``) whose ordering token a ring call inside it
+# threads too: every point-to-point transfer of a step then lies on one
+# chain, and every rank runs their backwards in one order.
+_ENCLOSING: contextvars.ContextVar[Optional[_Axis]] = contextvars.ContextVar(
+    "polyaxon_tpu_torch_ring_enclosing", default=None)
+
+
+@contextlib.contextmanager
+def shared_order(axis: _Axis):
+    """Ring calls inside thread ``axis``'s ordering token (and hand it
+    back to ``axis`` when they end)."""
+    token = _ENCLOSING.set(axis)
+    try:
+        yield axis
+    finally:
+        _ENCLOSING.reset(token)
 
 
 class _Transfer(torch.autograd.Function):
@@ -358,6 +379,9 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "enter `parallel.mesh.use_mesh(mesh)` (the runtime loop does) "
             f"with a {axis_name} axis in the mesh")
     axis = _Axis(mesh, axis_name)
+    outer = _ENCLOSING.get()
+    if outer is not None:
+        axis.token = outer.token
     try:
         # An odd local length cannot split into zigzag halves: re-cut the
         # shards to S_loc + 1 rows with cp pad rows at the sequence tail
@@ -375,5 +399,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     finally:
         # The last token's graph node holds the transfers' contexts, which
         # hold the axis: drop it, or the cycle keeps the call's graph (a
-        # recomputed layer's activations, under remat) alive.
+        # recomputed layer's activations, under remat) alive. An
+        # enclosing schedule's transfers go on from it.
+        if outer is not None:
+            outer.token = axis.token
         axis.token = None

@@ -1,8 +1,7 @@
 """The parallel layer (port of ``polyaxon_tpu/parallel``): meshes, the
 process bootstrap, the sharding rules, gather at use, tensor
-parallelism and the pipeline schedule. Every axis is placed; a few
-combinations of the model-parallel axes are ROADMAP.md, Queue 1 item
-7d, its second half."""
+parallelism and the pipeline schedule. Every axis and every combination
+of them is placed, each axis's mechanism running inside the others'."""
 
 from polyaxon_tpu_torch.parallel.bootstrap import (ProcessGroup, initialize,
                                                    read_env_contract)

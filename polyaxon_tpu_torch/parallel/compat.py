@@ -14,13 +14,15 @@ _BATCH_AXES = ("dp", "fsdp")
 
 # The port's own split of the mesh axes by what their ranks compute:
 # - batch axes hold different rows (``EP_RULES`` puts ep among them);
-# - cp holds different sequence pieces of the same rows;
+# - cp holds different sequence pieces of the same rows, for a family
+#   that shards sequences (``ModelDef.context_parallel``); another
+#   family's rows are copies over cp, as GSPMD replicates them there;
 # - replica axes hold the same rows and compute the same gradient: tp
-#   and sp, and pp for a model that does not pipeline (a pipeline's
-#   stages hold the same rows but different layers, so their gradients
-#   still sum: ``parallel/fsdp.py replica_axes``).
+#   and sp, cp for a family that does not shard sequences, and pp for a
+#   model that does not pipeline (a pipeline's stages hold the same rows
+#   but different layers, so their gradients still sum:
+#   ``parallel/fsdp.py replica_axes``).
 BATCH_AXES = ("dp", "fsdp", "ep")
-PIECE_AXES = BATCH_AXES + ("cp",)
 REPLICA_AXES = ("tp", "sp")
 
 
@@ -44,10 +46,15 @@ def axes_product(mesh, names) -> int:
     return n
 
 
-def batch_pieces(mesh) -> int:
-    """How many different pieces of the global batch the ranks hold: the
-    product of the batch axes and cp."""
-    return axes_product(mesh, PIECE_AXES)
+def piece_axes(model_def) -> tuple:
+    """The axes whose ranks hold different pieces of the global batch for
+    ``model_def``: the batch axes, and cp where it shards sequences."""
+    return BATCH_AXES + (("cp",) if model_def.context_parallel else ())
+
+
+def batch_pieces(mesh, model_def) -> int:
+    """How many different pieces of the global batch the ranks hold."""
+    return axes_product(mesh, piece_axes(model_def))
 
 
 def batch_axes_in(mesh):

@@ -33,9 +33,15 @@ body's backward, in the same order.
 The local tensors come from ``to_local`` with gradient placements per
 mesh axis: ``Shard`` where the leaf is sharded, ``Replicate`` on a
 replica axis (its ranks hold the same gradient: summing would count it
-once per rank) and ``Partial`` elsewhere: the batch axes, cp, and pp
-when the model is pipelined (a stage's layers, the embedding and the
-head have a gradient on one stage only, and the sum assembles them).
+once per rank) and ``Partial`` elsewhere: the batch axes, cp for a
+family that shards sequences, and pp when the model is pipelined (a
+stage's layers, the embedding and the head have a gradient on one stage
+only, and the sum assembles them; under pp every stage holds the whole
+layer stack, as the reference stores it, and gathers and
+reduce-scatters only its own stage's layers' fsdp shards). A leaf that
+tp would shard but the composed rules leave whole over tp is computed
+on each rank's tp share (``_tp_share``), so its gradient is Partial
+over tp.
 ``reduce_grads`` brings each gradient to the parameter's own
 placements: one all-reduce per Partial axis, on the mesh's own groups
 (on a one-rank mesh, no collective).
@@ -102,10 +108,30 @@ class ShardedSlice:
 
 
 class ShardedStack:
-    """A stacked ``[L, ...]`` parameter sharded on dims > 0."""
+    """A stacked ``[L, ...]`` parameter sharded on dims > 0. Its leading
+    dimensions are whole, so it reshapes them and indexes them as a
+    tensor does (a pipeline's ``[stages, L/stages, ...]``)."""
 
     def __init__(self, local: torch.Tensor, gathers):
         self.local, self.gathers = local, gathers
+
+    @property
+    def shape(self) -> torch.Size:
+        """The local shape (its leading dimensions are the whole's)."""
+        return self.local.shape
+
+    def _moved(self, local: torch.Tensor) -> "ShardedStack":
+        lead = local.dim() - self.local.dim()
+        return ShardedStack(local, [(d + lead, g, a)
+                                    for d, g, a in self.gathers])
+
+    def reshape(self, shape) -> "ShardedStack":
+        """Split the leading dimension (``shape`` ends in the sharded
+        dimensions as they are)."""
+        return self._moved(self.local.reshape(shape))
+
+    def __getitem__(self, i: int) -> "ShardedStack":
+        return self._moved(self.local[i])
 
     def unbind(self, dim: int = 0) -> tuple[ShardedSlice, ...]:
         assert dim == 0
@@ -150,8 +176,10 @@ def _sharded_axes(t, mesh) -> list[tuple[str, int]]:
 
 def replica_axes(model_def) -> tuple:
     """The axes whose ranks compute the same gradient for ``model_def``:
-    tp and sp, and pp unless the model pipelines its layers over it."""
-    return REPLICA_AXES + (() if model_def.pipeline_parallel else ("pp",))
+    tp and sp, cp unless the model shards sequences over it, and pp
+    unless it pipelines its layers over it."""
+    return (REPLICA_AXES + (() if model_def.context_parallel else ("cp",))
+            + (() if model_def.pipeline_parallel else ("pp",)))
 
 
 def local_axes(model_def) -> tuple:
@@ -159,36 +187,86 @@ def local_axes(model_def) -> tuple:
     return ("ep",) + (("tp",) if model_def.tensor_parallel else ())
 
 
-def grad_placements(t, mesh, replicas: tuple) -> list:
+def grad_placements(t, mesh, replicas: tuple, partial: tuple = ()) -> list:
     """Per mesh axis, where a leaf's gradient lives before reduction:
-    its own shard, Replicate on a replica axis, Partial (a sum over the
-    ranks) elsewhere."""
+    its own shard, Replicate on a replica axis (unless in ``partial``),
+    Partial (a sum over the ranks) elsewhere."""
     from torch.distributed.tensor import Partial, Replicate
 
     return [pl if pl.is_shard() else
-            (Replicate() if name in replicas else Partial())
+            (Replicate() if name in replicas and name not in partial
+             else Partial())
             for name, pl in zip(mesh.axis_names, t.placements)]
 
 
-def _local_for_grad(t, mesh, replicas: tuple):
+def _local_for_grad(t, mesh, replicas: tuple, partial: tuple = ()):
     if not t.requires_grad:
         return t.detach().to_local()
-    return t.to_local(grad_placements=grad_placements(t, mesh, replicas))
+    return t.to_local(grad_placements=grad_placements(t, mesh, replicas,
+                                                      partial))
+
+
+def _tp_logical(model_def, mesh):
+    """The logical axes of ``model_def``'s parameters where it computes
+    on tp shards over a tp axis above 1 (``_tp_share`` reads them), else
+    None."""
+    if (not model_def.tensor_parallel or mesh.shape.get("tp", 1) <= 1
+            or model_def.logical_axes is None):
+        return None
+    return model_def.logical_axes()["params"]
+
+
+def _tp_share(logical, placements, mesh):
+    """(dim, start, length) of this tp rank's share of a leaf that
+    ``TP_RULES`` shards over tp but the mesh's composed rules leave whole
+    there (``CP_RULES`` puts ``heads`` back to None, ``EP_RULES`` each
+    expert's ``mlp``), else None. A family that computes on tp shards
+    takes that share at use, as if the leaf were sharded, so that the
+    rank's heads and ``mlp`` columns meet their partners' shards; the
+    leaf's gradient is then a sum over tp of the ranks' shares."""
+    from polyaxon_tpu_torch.parallel.mesh import axis_rank
+    from polyaxon_tpu_torch.parallel.sharding import TP_RULES
+
+    if logical is None:
+        return None
+    tp_at = mesh.axis_names.index("tp")
+    if placements[tp_at].is_shard():
+        return None
+    names = {name for name, target in TP_RULES if target == "tp"}
+    for dim, name in enumerate(logical):
+        if name in names:
+            return dim, axis_rank(mesh, "tp"), mesh.shape["tp"]
+    return None
+
+
+def _take_share(t, share):
+    if share is None:
+        return t
+    dim, idx, n = share
+    size = t.shape[dim]
+    if size % n:
+        raise ValueError(f"dimension {dim} of a {tuple(t.shape)} leaf does "
+                         f"not divide over tp={n}")
+    return t.narrow(dim, idx * (size // n), size // n)
 
 
 def model_view(model_def, params: Any, mesh) -> Any:
     """The plain-tensor tree ``model_def`` computes with (module
     docstring): its stacks gathered per layer, its local axes kept and
-    its replica axes' gradients Replicate."""
+    its replica axes' gradients Replicate; a tp share taken at use where
+    the rules leave a tp-sharded axis whole (``_tp_share``)."""
     from torch.distributed.tensor import DTensor
 
     stacks, kept = model_def.layer_stacks, local_axes(model_def)
     replicas = replica_axes(model_def)
+    tp_logical = _tp_logical(model_def, mesh)
 
-    def view(t, top):
+    def view(t, top, logical):
         if not isinstance(t, DTensor):
             return t
-        out = _local_for_grad(t, mesh, replicas)
+        share = _tp_share(logical, t.placements, mesh)
+        out = _take_share(_local_for_grad(
+            t, mesh, replicas, ("tp",) if share is not None else ()), share)
         gathers = [(dim, mesh.group(name), name in replicas)
                    for name, dim in _sharded_axes(t, mesh)
                    if name not in kept]
@@ -198,13 +276,14 @@ def model_view(model_def, params: Any, mesh) -> Any:
             return ShardedStack(out, gathers)
         return _gather_all(out, gathers)
 
-    def walk(tree, top):
+    def walk(tree, top, logical):
         if isinstance(tree, dict):
-            return {k: walk(v, top if top is not None else k)
+            return {k: walk(v, top if top is not None else k,
+                            None if logical is None else logical[k])
                     for k, v in tree.items()}
-        return view(tree, top)
+        return view(tree, top, logical)
 
-    return walk(params, None)
+    return walk(params, None, tp_logical)
 
 
 def serving_view(model_def, pieces: Any, placements: Any, mesh) -> Any:
@@ -215,8 +294,10 @@ def serving_view(model_def, pieces: Any, placements: Any, mesh) -> Any:
     scales of its columns are its own; along the contraction axis they
     are one all-reduced maximum)."""
     stacks, kept = model_def.layer_stacks, local_axes(model_def)
+    tp_logical = _tp_logical(model_def, mesh)
 
-    def view(t, pl, top):
+    def view(t, pl, top, logical):
+        t = _take_share(t, _tp_share(logical, pl, mesh))
         gathers = [(p.dim, mesh.group(name), False)
                    for name, p in zip(mesh.axis_names, pl)
                    if p.is_shard() and name not in kept]
@@ -226,13 +307,14 @@ def serving_view(model_def, pieces: Any, placements: Any, mesh) -> Any:
             return ShardedStack(t, gathers)
         return _gather_all(t, gathers)
 
-    def walk(tree, pls, top):
+    def walk(tree, pls, top, logical):
         if isinstance(tree, dict):
-            return {k: walk(v, pls[k], top if top is not None else k)
+            return {k: walk(v, pls[k], top if top is not None else k,
+                            None if logical is None else logical[k])
                     for k, v in tree.items()}
-        return view(tree, pls, top)
+        return view(tree, pls, top, logical)
 
-    return walk(pieces, placements, None)
+    return walk(pieces, placements, None, tp_logical)
 
 
 def local(t):

@@ -25,6 +25,14 @@ different graphs, run their transfers' backwards in the same order; the
 token comes back as the call's ``tail``, which ``from_last_stage`` takes
 in, so that a stage whose graph ends in a send still runs its backward.
 
+The other axes run inside a stage, as the JAX package leaves them to
+GSPMD around its ``shard_map`` over pp: each rank's stage computes on
+its own shards (fsdp gathers at use, tp and sp shards, the cp ring over
+its own cp group, whose transfers thread the same token:
+``ops/ring.py shared_order``), and a send carries each rank's shard to
+the rank of the next stage with the same coordinates on every other
+axis (the pp group of this rank's coordinates).
+
 The last stage's output is the layers' output. The head and the loss
 run there, and ``from_last_stage`` broadcasts the result to the pp group
 (every rank reports it); its backward hands the last stage its own
@@ -113,7 +121,7 @@ def pipeline_forward(mesh, stage_fn: Callable, stacked_params: dict,
     (``stack_stages``) and ``x`` [B, ...] is stage 0's input. Returns
     (the last stage's output [B, ...] on the last stage, None on the
     others; the ordering token's tail, for ``from_last_stage``)."""
-    from polyaxon_tpu_torch.ops.ring import _Axis, ppermute
+    from polyaxon_tpu_torch.ops.ring import _Axis, ppermute, shared_order
 
     micro = _microbatches(x, n_microbatches)
     n_stages = mesh.shape.get(axis_name, 1)
@@ -126,10 +134,11 @@ def pipeline_forward(mesh, stage_fn: Callable, stacked_params: dict,
     axis = _Axis(mesh, axis_name)
     rotate = [(i, (i + 1) % n_stages) for i in range(n_stages)]
     try:
-        out = _schedule(stage_fn,
-                        {axis.index: _select(stacked_params, axis.index)},
-                        micro, n_stages, double_buffer,
-                        lambda sent: [ppermute(sent[0], axis, rotate)])
+        with shared_order(axis):
+            out = _schedule(stage_fn,
+                            {axis.index: _select(stacked_params, axis.index)},
+                            micro, n_stages, double_buffer,
+                            lambda sent: [ppermute(sent[0], axis, rotate)])
         tail = axis.token
     finally:
         # The token's node holds the transfers' contexts, which hold the

@@ -9,10 +9,10 @@ and ``logical_to_spec`` are the JAX package's, as data: a spec here is a
 turns specs into DTensor placements (``Shard(dim)`` or ``Replicate()``
 per mesh dimension) and ``distribute`` places a parameter tree by them.
 
-The port places every axis. A few combinations of the model-parallel
-axes raise (``require_ported``): ``pp`` beside any axis but ``dp``,
-``tp`` beside ``cp``, ``ep`` or ``pp``, and ``ep`` beside ``fsdp``,
-``cp`` or ``tp`` (ROADMAP.md, Queue 1 item 7d, second half).
+The port places every axis and every combination of them, as GSPMD
+places any family over any mesh by the same tables: each axis's
+mechanism runs inside the others' (``parallel/fsdp.py``,
+``parallel/pipeline.py``, ``parallel/tensor.py``, ``ops/ring.py``).
 """
 
 from __future__ import annotations
@@ -67,15 +67,6 @@ STRATEGY_RULES: dict[str, Rules] = {
     "ep": EP_RULES,
 }
 
-# Axes that the port places beside a model-parallel axis only as these
-# pairs allow: the others are ROADMAP.md, Queue 1 item 7d, second half.
-REFUSED_BESIDE = {
-    "pp": ("fsdp", "cp", "sp", "ep", "tp"),
-    "tp": ("cp", "ep", "pp"),
-    "ep": ("fsdp", "cp", "tp"),
-}
-
-
 class PartitionSpec(tuple):
     """Per tensor dimension: None, a mesh axis, or a tuple of them (JAX's
     ``PartitionSpec`` entries)."""
@@ -88,18 +79,6 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
-
-
-def require_ported(shape: dict) -> None:
-    """Raise for a combination of mesh axes above 1 (a mesh's shape, or
-    a spec's axes) that the port does not place yet."""
-    big = {a for a, n in shape.items() if n > 1}
-    for axis, refused in REFUSED_BESIDE.items():
-        clash = sorted(big & set(refused)) if axis in big else []
-        if clash:
-            raise NotImplementedError(
-                f"mesh axes {dict(shape)}: `{axis}` beside {clash} is not "
-                "ported yet (ROADMAP.md, Queue 1 item 7d, second half)")
 
 
 def merge_rules(*rule_sets: Rules) -> Rules:
@@ -131,30 +110,10 @@ def rules_for_mesh(mesh, base: Optional[Rules] = None) -> Rules:
     return merge_rules(*sets)
 
 
-# Axes a serving mesh may hold above 1: the JAX server shards over any
-# mesh; the port's gang serves dp, fsdp and tp and their products.
-SERVED_AXES = ("dp", "fsdp", "tp")
-
-
-def require_servable(shape: dict) -> None:
-    """Raise for a serving mesh (its axes' sizes) with an axis above 1
-    that the gang does not serve yet (ROADMAP.md, Queue 1 item 7d, second
-    half)."""
-    other = sorted(a for a, n in shape.items()
-                   if n != 1 and a not in SERVED_AXES)
-    if other:
-        raise NotImplementedError(
-            f"serving over mesh axes {dict(shape)}: {other} above 1 is not "
-            "ported yet (ROADMAP.md, Queue 1 item 7d, second half); a "
-            f"serving mesh holds {list(SERVED_AXES)}")
-
-
 def serving_rules(mesh) -> Rules:
     """The rules sharded serving places a model's weights by: the mesh's
     (``rules_for_mesh`` over the family's logical axes, as the JAX
-    server's ``load_params`` places them), for a mesh that
-    ``require_servable`` takes."""
-    require_servable(mesh.shape)
+    server's ``load_params`` places them), over any mesh."""
     return rules_for_mesh(mesh)
 
 
@@ -224,7 +183,6 @@ def spec_placements(spec: PartitionSpec, mesh) -> list:
 def tree_placements(logical_tree: Any, mesh, rules: Rules) -> Any:
     """A logical-axes tree → a tree of DTensor placement lists (the JAX
     package's ``tree_shardings``)."""
-    require_ported(mesh.shape)
     return tree_map_axes(
         lambda axes: spec_placements(logical_to_spec(axes, rules, mesh=mesh),
                                      mesh), logical_tree)

@@ -21,9 +21,14 @@ each rank's shards (``models/llama.py``, ``models/moe.py``):
 
 Every function reads the tp group of the current mesh
 (``parallel.mesh.use_mesh``; a layer recomputed under remat re-enters
-the mesh its forward saw, ``parallel/fsdp.py``'s ``gather_args``). At a
-tp group of one, or without a mesh, each is the identity and runs no
-collective.
+the mesh its forward saw, ``parallel/fsdp.py``'s ``gather_args``): the
+group of the ranks that share this rank's coordinates on every other
+axis, so tp runs unchanged inside a cp ring, an ep owner's experts or a
+pipeline stage. Where the composed rules leave a leaf that tp would
+shard whole (``CP_RULES``' heads, ``EP_RULES``' expert ``mlp``), the
+model view hands each rank its tp share of it (``parallel/fsdp.py
+_tp_share``). At a tp group of one, or without a mesh, each is the
+identity and runs no collective.
 """
 
 from __future__ import annotations

@@ -314,7 +314,6 @@ def _prewarm_inline(job: dict, n: int, axes: dict[str, int], *,
     data-parallel degree."""
     from polyaxon_tpu_torch.parallel.mesh import build_mesh
     from polyaxon_tpu_torch.parallel.sharding import (batch_spec,
-                                                      require_ported,
                                                       rules_for_mesh)
     from polyaxon_tpu_torch.polyflow.environment import V1TpuTopology
     from polyaxon_tpu_torch.runtime.config import RuntimeConfig
@@ -327,9 +326,8 @@ def _prewarm_inline(job: dict, n: int, axes: dict[str, int], *,
     try:
         mesh = build_mesh(_mesh_spec(job), topology, devices=range(n),
                           axes=axes)
-        require_ported(mesh.shape)
         rules = rules_for_mesh(mesh)
-    except (ValueError, NotImplementedError) as exc:
+    except ValueError as exc:
         raise PrewarmError(f"mesh build failed for {n} devices: {exc}") from exc
     cfg = RuntimeConfig.from_dict(job.get("runtime") or {})
     global_batch = cfg.global_batch_size or (cfg.batch_size or 8) * n

@@ -54,12 +54,8 @@ from polyaxon_tpu_torch.obs import flight as obs_flight
 from polyaxon_tpu_torch.obs import metrics as obs_metrics
 from polyaxon_tpu_torch.obs import trace as obs_trace
 from polyaxon_tpu_torch.parallel import bootstrap
-from polyaxon_tpu_torch.parallel.compat import axis_size
-from polyaxon_tpu_torch.parallel.mesh import (build_mesh, canonical_axes,
-                                              row_block, use_mesh)
-from polyaxon_tpu_torch.parallel.sharding import (param_bytes,
-                                                  require_ported,
-                                                  rules_for_mesh)
+from polyaxon_tpu_torch.parallel.mesh import build_mesh, row_block, use_mesh
+from polyaxon_tpu_torch.parallel.sharding import param_bytes, rules_for_mesh
 from polyaxon_tpu_torch.polyflow.environment import V1TpuTopology
 from polyaxon_tpu_torch.polyflow.runs import V1MeshSpec
 from polyaxon_tpu_torch.runtime import data as data_lib
@@ -108,20 +104,13 @@ def _job_mesh(job: dict, device: torch.device,
               mesh_axes: Optional[dict[str, int]] = None):
     """The job's mesh over the process group's ranks (every rank when the
     job names none, as the JAX loop's ``{"dp": n}``); ``mesh_axes``
-    overrides the resolved axes. A combination of axes the port does not
-    place raises first, before anything is built."""
+    overrides the resolved axes."""
     mesh_spec = (V1MeshSpec.from_dict(job["mesh"]) if job.get("mesh")
                  else None)
-    if mesh_axes is not None:
-        require_ported(canonical_axes(mesh_axes))
-    elif mesh_spec is not None:
-        require_ported(canonical_axes(mesh_spec.axes))
     topology = (V1TpuTopology.from_dict(job["topology"])
                 if job.get("topology") else None)
-    mesh = build_mesh(mesh_spec, topology, axes=mesh_axes,
+    return build_mesh(mesh_spec, topology, axes=mesh_axes,
                       device_type=device.type)
-    require_ported(mesh.shape)
-    return mesh
 
 
 def _dataset_kwargs(cfg: RuntimeConfig, model_cfg, batch: int) -> dict:
@@ -343,10 +332,6 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
 
     rules = rules_for_mesh(mesh)
     logger.info("mesh axes=%s devices=%d", mesh.shape, mesh.size)
-    if axis_size(mesh, "cp") > 1 and not model_def.context_parallel:
-        raise NotImplementedError(
-            f"model `{cfg.model}` does not shard sequences over a cp axis "
-            "(the port's context parallelism is the llama family's)")
 
     n_ranks = bootstrap.world_size()
     per_process = bootstrap.ranks_per_process()

@@ -14,10 +14,12 @@ The model computes on ``parallel.fsdp.model_view`` (plain tensors,
 fsdp leaves gathered at use, tp and ep shards local where the family
 computes on them). A rank's batch piece — its rows along the batch axes
 (dp, fsdp, ep), and under ``cp`` its sequence shard — is one more
-microbatch of the global batch; the ranks of a replica axis (tp, sp, pp)
-hold the same piece. Its masked loss is scaled by its share of the
-global valid tokens (an all-reduce over the piece axes), its
-``loss_unweighted`` part by one over the number of pieces, and the
+microbatch of the global batch; the ranks of a replica axis (tp, sp, pp,
+and cp for a family that does not shard sequences, whose rows are copies
+there as GSPMD replicates them) hold the same piece. Its masked loss is
+scaled by its share of the global valid tokens (an all-reduce over the
+piece axes), its ``loss_unweighted`` part by one over the number of
+pieces, and the
 gradients, summed by ``reduce_grads`` over the piece axes (and over pp,
 whose stages hold disjoint gradients) and not over the replica axes, are
 exactly the global batch's. The global norm and clipping use the full
@@ -38,7 +40,7 @@ import torch
 
 from polyaxon_tpu_torch.models.common import ModelDef
 from polyaxon_tpu_torch.parallel import fsdp
-from polyaxon_tpu_torch.parallel.compat import PIECE_AXES, batch_pieces
+from polyaxon_tpu_torch.parallel.compat import batch_pieces, piece_axes
 from polyaxon_tpu_torch.parallel.mesh import all_reduce_over, row_block
 from polyaxon_tpu_torch.parallel.sharding import (Rules, ShardTaker,
                                                   distribute,
@@ -160,10 +162,12 @@ def _piece_weights(model_def: ModelDef, batch: dict, k: int, mesh
     return mask.reshape(k, -1).to(torch.float32).sum(1)
 
 
-def _sum_pieces(t: torch.Tensor, mesh) -> torch.Tensor:
-    """``t`` summed over the ranks that hold different batch pieces (in
-    place; as it is without a mesh)."""
-    return t if mesh is None else all_reduce_over(t, mesh, PIECE_AXES)
+def _sum_pieces(t: torch.Tensor, mesh, model_def: ModelDef
+                ) -> torch.Tensor:
+    """``t`` summed over the ranks that hold different batch pieces of
+    ``model_def`` (in place; as it is without a mesh)."""
+    return (t if mesh is None else
+            all_reduce_over(t, mesh, piece_axes(model_def)))
 
 
 def rank_rows(batch: dict, mesh, accum_steps: int,
@@ -210,7 +214,7 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
     rng=None) -> (state, metrics)``, the state updated in place; metrics
     stay on the device."""
     uniform_keys = set(model_def.uniform_metrics) | {"loss_unweighted"}
-    pieces = batch_pieces(mesh)
+    pieces = batch_pieces(mesh, model_def)
     replicas = fsdp.replica_axes(model_def)
 
     def params_view(state):
@@ -257,7 +261,7 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
     def metrics_of(state, batch) -> dict:
         micro = microbatches(batch)
         w_micro = _piece_weights(model_def, batch, accum_steps, mesh)
-        w_total = _sum_pieces(w_micro.sum(), mesh).clamp(min=1.0)
+        w_total = _sum_pieces(w_micro.sum(), mesh, model_def).clamp(min=1.0)
         n_pieces = accum_steps * pieces
         seq = [backward(state, mb, (w_micro[i] / w_total, 1.0 / n_pieces))
                for i, mb in enumerate(micro)]
@@ -276,7 +280,8 @@ def build_train_step(model_def: ModelDef, optimizer: Optimizer,
                              * stacked["loss_unweighted"]).sum()
             return out
 
-        parts = _sum_pieces(torch.stack([part(k) for k in keys]), mesh)
+        parts = _sum_pieces(torch.stack([part(k) for k in keys]), mesh,
+                            model_def)
         return dict(zip(keys, parts.unbind(0)))
 
     def train_step(state: TrainState, batch: dict, rng=None):
@@ -319,10 +324,11 @@ def build_eval_step(model_def: ModelDef, *, mesh=None
         _, metrics, _ = model_def.apply(
             {"params": params, "state": state["state"]}, batch, False, None)
         w = _piece_weights(model_def, batch, 1, mesh)[0]
-        share = w / _sum_pieces(w.clone(), mesh).clamp(min=1.0)
+        share = w / _sum_pieces(w.clone(), mesh, model_def).clamp(min=1.0)
         keys = list(metrics)
         parts = _sum_pieces(torch.stack(
-            [metrics[k].to(torch.float32) * share for k in keys]), mesh)
+            [metrics[k].to(torch.float32) * share for k in keys]), mesh,
+            model_def)
         return dict(zip(keys, parts.unbind(0)))
 
     return eval_step

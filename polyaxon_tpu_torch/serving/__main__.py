@@ -7,14 +7,13 @@ It serves the llama, MoE and t5 families, and a LoRA checkpoint (the
 adapters merged at load, ``--lora-alpha`` the fallback for a checkpoint
 without metadata). SIGINT and SIGTERM stop the server and exit with 0.
 
-``--mesh tp=2`` (dp, fsdp, tp and their products; -1 absorbs the rest)
+``--mesh tp=2`` (any axes and their products; -1 absorbs the rest)
 serves sharded over a gang of processes, one card each, started alike
 with the bootstrap's env contract (``POLYAXON_TPU_COORDINATOR``
 ``host:port``, ``POLYAXON_TPU_NUM_PROCESSES``,
 ``POLYAXON_TPU_PROCESS_ID``, ``POLYAXON_TPU_LOCAL_DEVICE_IDS``; NCCL on
 the cards): rank 0 binds the port, the others follow it
-(``serving/gang.py``). Another axis above 1 is refused (ROADMAP.md,
-Queue 1 item 7d, second half).
+(``serving/gang.py``).
 """
 
 from __future__ import annotations

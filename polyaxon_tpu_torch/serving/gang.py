@@ -24,14 +24,15 @@ that passes one back passes its handle, and each rank substitutes its
 own object. Rank 0 notices when its engine drops one (a weak reference)
 and the next call tells the other ranks to drop theirs. The model's
 parameters pass as a marker: each rank substitutes its view of its own
-shards (``parallel/fsdp.py serving_view``: tp shards computed where
-they are, fsdp shards gathered at use).
+shards (``parallel/fsdp.py serving_view``: tp and ep shards computed
+where they are, fsdp shards gathered at use).
 
-Every rank computes the same rows: the batch is replicated over dp and
-fsdp (``parallel/mesh.py replicated_rows``), the logits come out whole
-on every rank (a vocab-parallel head is gathered over tp), and rank 0
-samples. On a mesh of one rank no gang is built and the engine calls
-the family directly.
+Every rank computes the same rows: the batch is replicated over every
+axis (``parallel/mesh.py replicated_rows``: a MoE over ep runs each
+rank's experts on all of them and sums their parts), the logits come
+out whole on every rank (a vocab-parallel head is gathered over tp),
+and rank 0 samples. On a mesh of one rank no gang is built and the
+engine calls the family directly.
 """
 
 from __future__ import annotations

@@ -63,6 +63,15 @@ class QuantizedTensor:
         return tuple(QuantizedTensor(q, s, self.dtype)
                      for q, s in zip(self.q.unbind(0), self.scale.unbind(0)))
 
+    def narrow(self, dim: int, start: int, length: int) -> "QuantizedTensor":
+        """A slice along ``dim`` (a tp rank's share of a weight the rules
+        leave whole over tp, ``parallel/fsdp.py _tp_share``), its scales
+        sliced with it where they vary along ``dim``."""
+        scale = (self.scale if self.scale.shape[dim] == 1
+                 else self.scale.narrow(dim, start, length))
+        return QuantizedTensor(self.q.narrow(dim, start, length), scale,
+                               self.dtype)
+
     def __repr__(self):
         return (f"QuantizedTensor(shape={tuple(self.q.shape)}, "
                 f"dtype={self.dtype})")

@@ -67,7 +67,6 @@ from polyaxon_tpu_torch.serving.batching import (
     validate_sampling,
 )
 from polyaxon_tpu_torch.parallel.sharding import (WHOLE, ShardTaker,
-                                                  require_servable,
                                                   serving_rules,
                                                   tree_placements)
 from polyaxon_tpu_torch.serving.gang import ParamsRef, Worker, build_gang
@@ -748,10 +747,9 @@ def serving_mesh(mesh_axes: dict, device):
     axes in the JAX package's order, -1 absorbing the ranks the others
     leave; the product must be the group's size."""
     from polyaxon_tpu_torch.parallel import bootstrap
-    from polyaxon_tpu_torch.parallel.mesh import build_mesh, canonical_axes
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh
     from polyaxon_tpu_torch.polyflow.runs import V1MeshSpec
 
-    require_servable(canonical_axes(dict(mesh_axes)))
     started = not torch.distributed.is_initialized()
     bootstrap.initialize(device=device)
     try:
@@ -796,10 +794,11 @@ class ServingServer:
     over a mesh of every rank of the process group, one card each
     (``serving/gang.py``): every rank constructs the server alike; rank
     0 (``is_leader``) binds the port and runs the engine, the others
-    call ``follow()``, which returns when rank 0 stops. dp, fsdp and tp
-    are served; another axis above 1 raises (ROADMAP.md, Queue 1 item
-    7d, second half). Without a process group one is started from the
-    bootstrap's env contract."""
+    call ``follow()``, which returns when rank 0 stops. Any mesh is
+    served: over ep each rank holds its experts, over cp, sp and pp
+    (``pipeline_stages=1``) the weights as the rules place them. Without
+    a process group one is started from the bootstrap's env
+    contract."""
 
     def __init__(self, model: str, checkpoint: Optional[str] = None,
                  host: str = "127.0.0.1", port: int = 0, seed: int = 0,

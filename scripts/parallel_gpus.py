@@ -45,7 +45,20 @@ over all of them:
    well-formed tokens; tokens/s, the median decode step and each card's
    peak memory.
 
-12. ``elastic``, from this process through the port's plane, NCCL on
+12. the axis pairs (``n`` = 4): ``pp_fsdp`` and ``pp_tp``, llama3_8b at
+   full width and depth as a 2-stage pipeline of 4 microbatches (four
+   4,096-token rows per process, remat full, adafactor: with AdamW the
+   f32 state of the whole layer stack, which pp keeps on every stage as
+   the reference stores it, is 64 GB a card at pp2 x fsdp2) at pp2 x
+   fsdp2 and pp2 x tp2, each first step held against the same job at
+   tp4 (``tp4_8b``, run first in the gang); ``tp_cp``, the runtime of 2.
+   at tp2 x cp2, and ``tp_ep`` and ``ep_fsdp``, the runtime of 7. at
+   tp2 x ep2 and fsdp2 x ep2, each held against one card; and
+   ``serve_mixtral_ep``, mixtral_8x7b at its 32 layers served at ep<n>
+   (each card its 8/n experts, about 23 GB, beside the replicated
+   attention; decode through the dense dispatch), held to well-formed
+   tokens.
+13. ``elastic``, from this process through the port's plane, NCCL on
    every card and no command rewritten: (i) ``examples/packed_pretrain
    .yaml`` as a one-process plan (the gpu preset, checkpointing off),
    which the agent starts as one launcher that spans the host's cards
@@ -61,7 +74,8 @@ over all of them:
    seconds printed (forced save, prewarm, relaunch, restore).
 
 ``--gangs NAME,...`` runs only those (``attention``, the training
-gangs' names, ``serve_8b``, ``serve_mixtral``, ``elastic``).
+gangs' names, ``serve_8b``, ``serve_mixtral``, ``serve_mixtral_ep``,
+``elastic``).
 
 Throughput and MFU count the tokens a step trains: the ranks of a
 replica axis (tp, sp, pp) train the same rows, and under cp the ranks
@@ -121,7 +135,14 @@ ADAFACTOR = dict(FSDP, optimizer="adafactor")
 RESNET = {"model": "resnet50", "dataset": "imagenet_synthetic",
           "steps": STEPS, "log_every": 1, "prefetch": 0}
 RESNET_ROWS = 32  # per process
-SERVE = {"serve_8b": "llama3_8b", "serve_mixtral": "mixtral_8x7b"}
+# The pipelined llama3_8b gangs: 4 microbatches of one row each per
+# process, adafactor (the f32 layer stack stays whole on every stage).
+PIPE_8B = dict(LLAMA8B, optimizer="adafactor", pipeline_stages=2,
+               pipeline_microbatches=4, pipeline_double_buffer=True)
+# name: (model, mesh axes over n cards)
+SERVE = {"serve_8b": ("llama3_8b", "tp"),
+         "serve_mixtral": ("mixtral_8x7b", "tp"),
+         "serve_mixtral_ep": ("mixtral_8x7b", "ep")}
 SERVE_PROMPTS, SERVE_NEW, SERVE_HELD = 8, 32, 9
 
 
@@ -243,11 +264,28 @@ def _jobs(n: int) -> dict:
                              "timed": ADAFACTOR}
     out["resnet_dp"] = {"axes": {"dp": n}, "rows": RESNET_ROWS,
                         "held": RESNET, "one": RESNET, "timed": RESNET}
+    # The axis pairs: the pipelined llama3_8b gangs held against the same
+    # job at tp<n> (``against``), the rest against one card.
+    tp_8b = {k: v for k, v in PIPE_8B.items() if not k.startswith("pipe")}
+    out["tp4_8b"] = {"axes": {"tp": n}, "rows": PIPE_ROWS, "held": tp_8b,
+                     "one": None, "timed": None}
+    for name, axes in (("pp_fsdp", {"pp": 2, "fsdp": n // 2}),
+                       ("pp_tp", {"pp": 2, "tp": n // 2})):
+        out[name] = {"axes": axes, "rows": PIPE_ROWS, "held": PIPE_8B,
+                     "one": None, "against": "tp4_8b", "timed": PIPE_8B}
+    out["tp_cp"] = {"axes": {"cp": 2, "tp": n // 2}, "rows": 1,
+                    "held": LONGCTX, "one": LONGCTX, "timed": LONGCTX}
+    for name, axes in (("tp_ep", {"ep": 2, "tp": n // 2}),
+                       ("ep_fsdp", {"fsdp": n // 2, "ep": 2})):
+        out[name] = {"axes": axes, "rows": MOE_HELD_ROWS, "held": moe_held,
+                     "one": moe_held,
+                     "timed": dict(MOE, grad_accum_steps=MOE_ACCUM),
+                     "timed_rows": MOE_ROWS}
     return out
 
 
-def _serve(rank: int, n: int, model: str, prompts: list) -> dict:
-    """``model`` served at tp<n> over every rank: rank 0's engine on
+def _serve(rank: int, n: int, model: str, axis: str, prompts: list) -> dict:
+    """``model`` served over ``axis`` of n ranks: rank 0's engine on
     ``prompts``, the tokens, tokens/s, the median decode step, every
     rank's load time and peak memory (on rank 0)."""
     import torch
@@ -257,7 +295,7 @@ def _serve(rank: int, n: int, model: str, prompts: list) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    server = ServingServer(model, seed=SEED, mesh_axes={"tp": n},
+    server = ServingServer(model, seed=SEED, mesh_axes={axis: n},
                            batching="continuous", kv="paged", slots=8,
                            device="cuda")
     load_s = time.perf_counter() - t0
@@ -269,7 +307,7 @@ def _serve(rank: int, n: int, model: str, prompts: list) -> dict:
             outs = [r.wait(timeout=1200) for r in reqs]
             wall = time.perf_counter() - t1
             stats = server.engine.stats()
-        out = {"serve": model, "tp": n, "outs": outs,
+        out = {"serve": model, "axes": {axis: n}, "outs": outs,
                "tokens_per_s": sum(map(len, outs)) / wall,
                "decode_step_ms_median": stats["decode_step_ms_median"],
                "decode_steps": stats["decode_steps"],
@@ -297,11 +335,12 @@ def _worker(rank: int, n: int, coordinator: str, out_path: str,
     try:
         lines = ([_attention(rank, n, impl) for impl in ("ring", "ulysses")]
                  if "attention" in gangs else [])
-        for name, model in SERVE.items():
+        for name, (model, axis) in SERVE.items():
             if name in gangs:
                 gc.collect()
                 torch.cuda.empty_cache()
-                lines.append(_serve(rank, n, model, prompts[model]))
+                lines.append(dict(_serve(rank, n, model, axis,
+                                         prompts[model]), gang=name))
         for name, job in _jobs(n).items():
             if name not in gangs:
                 continue
@@ -518,13 +557,14 @@ def _elastic(n: int) -> list:
     return checks
 
 
-def _held(label: str, gang: dict, one: dict) -> dict:
+def _held(label: str, gang: dict, one: dict,
+          against: str = "one card") -> dict:
     import chip_smoke
 
     g, o = gang["final"], one["final"]
     loss_rel = abs(g["loss"] - o["loss"]) / abs(o["loss"])
     norm_rel = abs(g["grad_norm"] - o["grad_norm"]) / abs(o["grad_norm"])
-    return {"check": f"{label} first step against one card",
+    return {"check": f"{label} first step against {against}",
             "loss": [g["loss"], o["loss"]], "loss_rel": loss_rel,
             "grad_norm": [g["grad_norm"], o["grad_norm"]],
             "grad_norm_rel": norm_rel,
@@ -576,7 +616,8 @@ def _served(line: dict, reference: dict, vocab: int) -> dict:
             if j is not None:
                 parted[i] = j
                 ok = ok and not reference["clear"][i][j]
-    return {"check": f"{line['tp']}-card serving {line['serve']}",
+    axes = "x".join(f"{a}{k}" for a, k in line["axes"].items())
+    return {"check": f"{axes} serving {line['serve']}",
             "tokens_per_s": line["tokens_per_s"],
             "decode_step_ms_median": line["decode_step_ms_median"],
             "peak_GB": line["peak_GB"], "load_s": line["load_s"],
@@ -614,7 +655,8 @@ def main() -> int:
 
     from polyaxon_tpu_torch.models import family_of
 
-    vocab = {m: family_of(m).CONFIGS[m].vocab_size for m in SERVE.values()}
+    vocab = {m: family_of(m).CONFIGS[m].vocab_size
+             for m, _ in SERVE.values()}
     prompts = {m: chip_smoke.make_prompts(v)[:SERVE_PROMPTS]
                for m, v in vocab.items()}
     reference = {}
@@ -623,7 +665,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     one = {}
-    for name, job in _jobs(n).items():
+    jobs = _jobs(n)
+    if {"pp_fsdp", "pp_tp"} & set(gangs) and "tp4_8b" not in gangs:
+        gangs = ("tp4_8b", *gangs)  # what the pipelined gangs are held to
+    for name, job in jobs.items():
         if job["one"] is None or name not in gangs:
             continue
         one[name] = _train({"mesh": {"axes": {a: 1 for a in job["axes"]}},
@@ -648,12 +693,19 @@ def main() -> int:
         if "check" in line:
             checks.append(line)
         elif "serve" in line:
-            checks.append(_served(line, reference.get(line["serve"]),
+            checks.append(_served(line, reference.get(line["serve"])
+                                  if line["gang"] == "serve_8b" else None,
                                   vocab[line["serve"]]))
             print(json.dumps(checks[-1]), flush=True)
-        elif line["steps"] == 1:
+        elif line["steps"] == 1 and line["gang"] in one:
             checks.append(_held(f"{n}-card {line['gang']}", line,
                                 one[line["gang"]]))
+            print(json.dumps(checks[-1]), flush=True)
+        elif line["steps"] == 1 and "against" in jobs[line["gang"]]:
+            against = jobs[line["gang"]]["against"]
+            first = next(x for x in lines if x.get("gang") == against)
+            checks.append(_held(f"{n}-card {line['gang']}", line, first,
+                                f"the same job at {against}"))
             print(json.dumps(checks[-1]), flush=True)
         elif line["gang"] == "tp_8b":
             losses = [e["loss"] for e in line["emitted"]]
@@ -665,8 +717,9 @@ def main() -> int:
     # The two attention checks, each held gang's first step, the
     # llama3_8b run, each served model and the two elastic checks.
     want = (2 * ("attention" in gangs) + 2 * ("elastic" in gangs)
-            + sum(1 for name, job in _jobs(n).items()
-                  if name in gangs and job["held"] is not None)
+            + sum(1 for name, job in jobs.items()
+                  if name in gangs and (job["one"] is not None
+                                        or "against" in job))
             + ("tp_8b" in gangs) + sum(1 for s in SERVE if s in gangs))
     ok = len(checks) == want and all(c["held"] for c in checks)
     print(json.dumps({"ok": ok}), flush=True)

@@ -386,3 +386,52 @@ class TestRefusals:
                                     poll_seconds=0.05) == V1Statuses.FAILED
         assert "CUDA" in (plane.get_statuses(record.uuid)[-1].get("message")
                           or "")
+
+
+ENV_PRINTER = ("import os; print(os.environ.get("
+               "'POLYAXON_TPU_LOCAL_DEVICE_IDS', '-'))")
+TWO_PROCESS_JOB = {"kind": "operation", "name": "pair", "component": {
+    "run": {"kind": "jaxjob", "numProcesses": 2,
+            "mesh": {"axes": {"dp": 2}},
+            "runtime": {"model": "llama_tiny", "steps": 1}}}}
+
+
+@pytest.mark.parametrize("pool,want", [
+    ([0, 1, 2, 3], ["0,1", "2,3"]),
+    ([4, 5], ["4", "5"]),
+    ([0, 1, 2], None),
+], ids=["four_cards", "two_cards", "three_cards"])
+def test_plan_processes_hold_disjoint_cards(pool, want, tmp_path):
+    """Each process of a two-process plan on one host is given its own
+    share of the host's cards through POLYAXON_TPU_LOCAL_DEVICE_IDS
+    (process p of P: cards [p·D/P, (p+1)·D/P)); a host whose D cards do
+    not split over the P processes fails the plan at start."""
+    from polyaxon_tpu_torch.agent import Agent
+    from polyaxon_tpu_torch.agent.executor import device_shares
+    from polyaxon_tpu_torch.controlplane import ControlPlane
+    from polyaxon_tpu_torch.lifecycle import V1Statuses
+
+    plane = ControlPlane(str(tmp_path / "home"))
+    record = plane.submit(TWO_PROCESS_JOB)
+    plane.compile_run(record.uuid)
+    plan = plane.get_run(record.uuid).launch_plan
+    assert len(plan["processes"]) == 2
+    for proc in plan["processes"]:
+        proc["command"] = [sys.executable, "-c", ENV_PRINTER]
+    plane.store.update_run(record.uuid, launch_plan=plan)
+    status = Agent(plane, local_devices=pool).run_until_done(
+        record.uuid, timeout=60, poll_seconds=0.05)
+    if want is None:
+        assert status == V1Statuses.FAILED
+        assert "do not split evenly" in plane.get_statuses(
+            record.uuid)[-1]["message"]
+        with pytest.raises(ValueError, match="split evenly"):
+            device_shares(2, pool)
+        return
+    assert status == V1Statuses.SUCCEEDED
+    got = [plane.streams.read_logs(record.uuid, f"main-{i}.log")[0].strip()
+           for i in range(2)]
+    assert got == want == device_shares(2, pool)
+    # One process, or the CPU (no pool of cards), is given nothing.
+    assert device_shares(1, pool) == [None]
+    assert device_shares(2, None) == [None, None]

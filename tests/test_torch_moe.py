@@ -312,17 +312,22 @@ def test_generate_tokens_equal(weights):
 
 
 def test_ep_axis_and_undecodable_routers_refuse(tmp_path):
-    """An ``ep`` mesh axis beside ``fsdp`` is not placed yet (item 7d):
-    the loop refuses the job before it builds anything. Expert-choice
-    routing cannot be decoded (both packages refuse it)."""
-    from polyaxon_tpu_torch.runtime.loop import run_torchjob
+    """An ``ep`` mesh axis beside ``fsdp`` is placed now (trained against
+    the reference in ``tests/test_torch_axis_pairs.py``): each expert
+    shards over ep and its ``embed`` over fsdp, as the rules place it.
+    Expert-choice routing cannot be decoded (both packages refuse it)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh
+    from polyaxon_tpu_torch.parallel.sharding import (rules_for_mesh,
+                                                      tree_placements)
 
     _, tcfg = _cfgs()
-    job = {"kind": "jaxjob", "mesh": {"axes": {"fsdp": 2, "ep": 2}},
-           "runtime": {"model": "moe_tiny", "dataset": "lm_synthetic",
-                       "seq_len": 8, "global_batch_size": 2, "steps": 1}}
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        run_torchjob(job, artifacts_dir=str(tmp_path), device="cpu")
+    mesh = build_mesh(axes={"fsdp": 2, "ep": 2}, devices=range(4))
+    pl = tree_placements(tmoe.logical_axes(tcfg)["params"], mesh,
+                         rules_for_mesh(mesh))
+    assert pl["layers"]["w_gate"] == [Shard(2), Shard(1)]
+    assert pl["layers"]["wq"] == [Shard(1), Replicate()]
     ec = dataclasses.replace(tcfg, router="expert_choice")
     with pytest.raises(ValueError, match="top_k"):
         tmoe.prefill(ec, {}, torch.zeros((1, 2), dtype=torch.long), 8)

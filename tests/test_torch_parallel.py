@@ -158,15 +158,24 @@ class TestRules:
         assert pl["b"] == [Replicate(), Replicate()]
 
     def test_model_parallel_axes_raise(self):
+        """Every pair of model-parallel axes places now (pp beside tp
+        here; ``tests/test_torch_axis_pairs.py`` trains each pair): the
+        layers stay whole over pp, as the reference's stored weights do,
+        and tp shards ``mlp``."""
+        from torch.distributed.tensor import Replicate, Shard
+
         mesh = tmesh.build_mesh(axes={"dp": 2, "pp": 2, "tp": 2},
                                 devices=RANKS)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
-            tree_placements({"w": ("embed",)}, mesh, rules_for_mesh(mesh))
+        pl = tree_placements({"w": ("layers", "embed", "mlp")}, mesh,
+                             rules_for_mesh(mesh))
+        assert pl["w"] == [Replicate(), Replicate(), Shard(2)]
 
     @pytest.mark.parametrize("axes", [
         {"dp": 8}, {"fsdp": 8}, {"dp": 2, "fsdp": 4}, {"dp": 2, "cp": 4},
         {"fsdp": 2, "cp": 4}, {"dp": 2, "fsdp": 2, "tp": 2},
-        {"dp": 2, "ep": 4},
+        {"dp": 2, "ep": 4}, {"dp": 2, "pp": 2, "fsdp": 2},
+        {"dp": 2, "pp": 2, "tp": 2}, {"dp": 2, "cp": 2, "tp": 2},
+        {"dp": 2, "ep": 2, "tp": 2}, {"dp": 2, "fsdp": 2, "ep": 2},
     ], ids=str)
     @pytest.mark.parametrize("family", [
         "llama_tiny", "gemma_tiny", "moe_tiny", "t5_tiny", "bert_tiny",

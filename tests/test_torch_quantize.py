@@ -84,6 +84,23 @@ def test_leaf_scales_bit_equal_on_awkward_values():
     assert bool((err <= b.scale / 2 + 1e-7).all())
 
 
+@pytest.mark.parametrize("dim", [1, 2], ids=["rows", "columns"])
+def test_a_tp_share_of_an_int8_weight_dequantizes_as_its_slice(dim):
+    """A served int8 weight that the rules leave whole over tp is cut to a
+    rank's share at use (``QuantizedTensor.narrow``): its values and
+    per-column scales are the whole weight's, sliced alike."""
+    w = np.random.default_rng(1).standard_normal((3, 64, 32)).astype(
+        np.float32)
+    whole = tq.quantize_leaf(torch.tensor(w))
+    for j in range(2):
+        size = w.shape[dim] // 2
+        share = whole.narrow(dim, j * size, size)
+        assert share.shape == whole.dequantize().narrow(
+            dim, j * size, size).shape
+        assert torch.equal(share.dequantize(),
+                           whole.dequantize().narrow(dim, j * size, size))
+
+
 @pytest.mark.parametrize("name", ["llama_tiny", "llama_tiny_tied"])
 def test_quantized_logits_match_the_reference_quantized_path(name):
     jcfg, jp, tcfg, tp = _pair(name)

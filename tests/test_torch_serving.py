@@ -99,11 +99,10 @@ def test_eos_sampling_and_validation():
 
 
 def test_deferred_features_refuse():
-    """What still waits for another item raises naming it: serving over
-    a mesh axis the gang does not serve yet (item 7; dp, fsdp and tp are
-    served, ``tests/test_torch_sharded_serving.py``). The MoE and t5
-    families load and serve now; t5 has no paged surface, which the
-    engine refuses as the reference's does."""
+    """The MoE and t5 families load and serve; t5 has no paged surface,
+    which the engine refuses as the reference's does. A serving mesh
+    over sp places the model whole on every rank (served over gangs in
+    ``tests/test_torch_serving_meshes.py``)."""
     for model in ("moe_tiny", "t5_tiny"):
         cfg, params = load_params(model, device="cpu")
         assert cfg.dtype == torch.bfloat16 and "embed" in params
@@ -111,8 +110,15 @@ def test_deferred_features_refuse():
     with pytest.raises(ValueError, match="ragged-decode surface"):
         ContinuousBatchingEngine("t5_tiny", cfg, params, kv="paged",
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ServingServer("llama_tiny", mesh_axes={"sp": 2}, device="cpu")
+    from polyaxon_tpu_torch.models import llama
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh
+    from polyaxon_tpu_torch.parallel.sharding import (serving_rules,
+                                                      tree_placements)
+
+    mesh = build_mesh(axes={"sp": 2}, devices=range(2))
+    pl = tree_placements(llama.logical_axes(llama.CONFIGS["llama_tiny"])[
+        "params"], mesh, serving_rules(mesh))
+    assert all(not p.is_shard() for p in pl["layers"]["wq"] + pl["embed"])
 
 
 @pytest.mark.parametrize("model", sorted(tllama.CONFIGS))

@@ -750,12 +750,12 @@ def test_cli_main_builds_the_server_with_the_reference_defaults(
 
 
 def test_waiting_features_raise_naming_their_item(tmp_path, monkeypatch):
-    """A serving mesh with an axis the gang does not serve yet (cp, sp,
-    ep, pp) raises naming item 7 (sharded serving over dp, fsdp and tp
-    is ``tests/test_torch_sharded_serving.py``'s). The MoE and t5 models
+    """A serving mesh over cp is no longer refused: on one process it
+    fails only for want of a second rank (cp gangs serve in
+    ``tests/test_torch_serving_meshes.py``). The MoE and t5 models
     serve, and a LoRA checkpoint (item 3b) is merged at load with the
     alpha and rank of its ``_meta``."""
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="require 2 chips"):
         ServingServer("llama_tiny", mesh_axes={"cp": 2}, device="cpu")
     for model in ("moe_tiny", "t5_tiny"):
         server = ServingServer(model, device="cpu")

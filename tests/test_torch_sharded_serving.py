@@ -15,8 +15,9 @@ engine's speculation); a streamed request at tp2 equal to the
 non-streamed one. At tp2 the sharded prefill's logits and its first
 decode step's agree with JAX's prefill and decode step to 2e-4. Every
 rank holds its shards only, and runs the model calls rank 0 sends.
-A serving mesh with cp, sp, ep or pp above 1 raises naming ROADMAP
-Queue 1 item 7d, and ``--mesh`` parses as the JAX CLI parses it.
+A serving mesh with cp, sp, ep or pp above 1 is placed by the same
+rules (those gangs serve in ``tests/test_torch_serving_meshes.py``), and
+``--mesh`` parses as the JAX CLI parses it.
 """
 
 import dataclasses
@@ -56,6 +57,7 @@ CASES = {
     "draft_tp2": (2, "llama_tiny", {"tp": 2},
                   {"draft_model": "llama_tiny", "spec_k": 3}, ROWS),
 }
+# Meshes the gang once refused; every one is served now.
 REFUSED = ({"cp": 2}, {"sp": 2}, {"ep": 2}, {"pp": 2}, {"tp": 2, "ep": 2})
 
 
@@ -205,9 +207,36 @@ def test_each_rank_holds_its_shards(name, gangs, weights):
 
 @pytest.mark.parametrize("axes", REFUSED, ids=str)
 def test_unserved_axes_raise_naming_7d(axes):
+    """These meshes place moe_tiny for serving as the reference's rules
+    do: its experts split over ep, and each rank's other leaves are its
+    tp shards or whole; on one process the server fails only for want of
+    the mesh's ranks."""
+    from polyaxon_tpu.models import moe as jmoe
+    from polyaxon_tpu.parallel import rules_for_mesh as jrules
+    from polyaxon_tpu.parallel.sharding import tree_shardings
+    from polyaxon_tpu_torch.models import moe
+    from polyaxon_tpu_torch.parallel.mesh import build_mesh
+    from polyaxon_tpu_torch.parallel.sharding import (serving_rules,
+                                                      tree_placements)
     from polyaxon_tpu_torch.serving.server import ServingServer
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
+    world = int(np.prod(list(axes.values())))
+    mesh = build_mesh(axes=axes, devices=range(world))
+    cfg = moe.CONFIGS["moe_tiny"]
+    pl = tree_placements(moe.logical_axes(cfg)["params"], mesh,
+                         serving_rules(mesh))
+    jmesh = ref.jax_mesh(axes)
+    jsh = tree_shardings(jmoe.logical_axes(jmoe.CONFIGS["moe_tiny"])[
+        "params"], jmesh, jrules(jmesh))
+
+    def sharded_dims(placements):
+        return sorted({p.dim for p in placements if p.is_shard()})
+
+    for key in ("w_gate", "wq", "router"):
+        spec = jsh["layers"][key].spec
+        want = [d for d, e in enumerate(spec) if e is not None]
+        assert sharded_dims(pl["layers"][key]) == want, key
+    with pytest.raises(ValueError, match=f"require {world} chips"):
         ServingServer("llama_tiny", mesh_axes=axes, device="cpu")
 
 

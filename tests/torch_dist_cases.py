@@ -377,6 +377,58 @@ def _tensor_tree(tree):
     return torch.tensor(tree)
 
 
+class _CountingReduces:
+    """Around ``fsdp.reduce_grads``: for each leaf, the mesh axes that
+    shard it and the axes its gradient was all-reduced over, in order (a
+    guard that no axis sums a gradient twice)."""
+
+    def __init__(self, mesh):
+        self.mesh, self.per_leaf = mesh, None
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from polyaxon_tpu_torch.parallel import fsdp
+
+        groups = {self.mesh.group(n).group_name: n
+                  for n in self.mesh.axis_names if self.mesh.shape[n] > 1}
+        inner, reduce_grads = dist.all_reduce, fsdp.reduce_grads
+        counting = self
+
+        def reduce_once(params, mesh, replicas):
+            per_leaf, seen = [], []
+
+            def all_reduce(t, *args, group=None, **kwargs):
+                seen.append("world" if group is None
+                            else groups.get(group.group_name, "other"))
+                return inner(t, *args, group=group, **kwargs)
+
+            dist.all_reduce = all_reduce
+            try:
+                out = []
+                for p in params:
+                    seen.clear()
+                    out.extend(reduce_grads([p], mesh, replicas))
+                    sharded = [n for n, pl in zip(mesh.axis_names,
+                                                  getattr(p, "placements",
+                                                          ()))
+                               if pl.is_shard()]
+                    per_leaf.append((sharded, list(seen)))
+            finally:
+                dist.all_reduce = inner
+            if counting.per_leaf is None:
+                counting.per_leaf = per_leaf
+            return out
+
+        self._restore = (fsdp, reduce_grads)
+        fsdp.reduce_grads = reduce_once
+        return self
+
+    def __exit__(self, *exc):
+        fsdp, reduce_grads = self._restore
+        fsdp.reduce_grads = reduce_grads
+
+
 def _overrides(case: dict) -> dict:
     import torch
 
@@ -432,7 +484,8 @@ def parallel_steps(rank: int, world: int, cases: list) -> dict:
         accum = case.get("accum", 1)
         state0 = (_tensor_tree(case["state0"]) if "state0" in case
                   else None)
-        with use_mesh(mesh):
+        counting = _CountingReduces(mesh)
+        with use_mesh(mesh), counting:
             opt = _Recording(opt)
             state = build_init(model_def, opt, device="cpu", params=params,
                                state=state0, mesh=mesh,
@@ -464,6 +517,7 @@ def parallel_steps(rank: int, world: int, cases: list) -> dict:
                              in _named_leaves(state["params"])}
             res["state"] = {name: t.numpy() for name, t
                             in _named_leaves(state["state"])}
+        res["reduced"] = counting.per_leaf
         out[case["name"]] = res
     return out
 
@@ -570,13 +624,17 @@ def moe_forward_case(rank: int, world: int, case: dict) -> dict:
 # ------------------------------------------------------- sharded serving
 def _post(url: str, payload: dict) -> dict:
     import json
+    import urllib.error
     import urllib.request
 
     req = urllib.request.Request(url + "/v1/generate", method="POST",
                                  data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=300) as resp:
-        return json.load(resp)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.load(resp)
+    except urllib.error.HTTPError as exc:
+        raise AssertionError(exc.read().decode()) from exc
 
 
 def _stream(url: str, payload: dict) -> list:
