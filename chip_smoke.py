@@ -143,9 +143,9 @@ Phases, each of which must pass:
    twice as often. Prints submit to compiled, the compile span, queued to
    the process's start, the process's wall, submit to SUCCEEDED and the
    plane's overhead (the last less the process), and tokens/s and MFU
-   beside phase 4's. The depth is cut to PLAN_LAYERS (8 of 16) for phase
-   20's time, and further only if one checkpoint does not fit, by the
-   drill's rule.
+   beside phase 4's. The depth is cut to PLAN_LAYERS (4 of 16) for
+   phases 20 and 22's time, and further only if one checkpoint does not
+   fit, by the drill's rule.
 10. The acceptance sweep on the card: SWEEP, a copy of
    ``tests/test_acceptance.py``'s HYPERBAND_SWEEP whose trials are
    llama_200m at full width and depth (flash attention, seq 2048, global
@@ -280,7 +280,8 @@ Phases, each of which must pass:
    over a gloo group (``scripts/probe_gloo_cuda.py``: gloo carries the
    gang's collectives of CUDA tensors; NCCL refuses two ranks on one
    device), the paged continuous engine on the mix's first eight
-   prompts: the prefill's and 8 decode steps' logits against the
+   prompts, GANG_NEW (16; 32 until cut for phase 22's time, and 21b's
+   too) new tokens each: the prefill's and 8 decode steps' logits against the
    unsharded model's, the tokens against the unsharded paged engine's
    on every row clear of near-ties, tokens/s, the median decode step
    and each rank's peak memory. Phase 1 also holds the kernels at the
@@ -326,6 +327,35 @@ Phases, each of which must pass:
    heads at D=128 over a 4,096-token row, and a tp rank's zigzag blocks,
    16:4 at 2,048 rows, causal and not).
 
+22. The user's entry points (``22a.``, ``22b.`` and ``22.`` lines),
+   every command ``python -m polyaxon_tpu_torch.cli`` (plx-torch) as a
+   subprocess, with HOME and POLYAXON_TPU_HOME in a fresh temporary
+   directory. (a) ``server --with-agent --slice gpu0:1 --auth-token``
+   (the card as a one-card slice); ``config set --host --token``;
+   ``run -f`` of phase 9's plan (the example,
+   the gpu preset, H100_PRESET) at llama3_1b's full width, cut to
+   CLI_LAYERS (2 of 16) layers and CLI_STEPS (3) steps with
+   checkpointing off for the phase's time, with ``topology: "1"``,
+   and beside it one asking for ``"2"``, which must end FAILED
+   ``Unschedulable``. The first must succeed, waited for through
+   ``PolyaxonClient`` (its host and token from the config file), and
+   read back
+   with ``ops get``, ``statuses``, ``metrics``, ``logs`` and
+   ``artifacts``; its ``placement`` span must say ``slice_pool``, its
+   ``execute`` span hold card 0 and its launcher log that card; its
+   launcher's launches counted as phase 9's; ``GET /`` the dashboard,
+   and the runs route 401 without the token, 200 with it. (b)
+   llama3_1b at full width and depth, random bf16 weights from SEED
+   written as an HF safetensors file; ``convert --from-hf`` (run beside
+   22a: host work), then ``serve --batching continuous --kv paged`` of
+   the checkpoint: three requests one at a time and the first again
+   streamed, streamed equal to plain, the tokens equal to an
+   in-process ``ServingServer`` over the same checkpoint, the forward
+   and decode launches (the server's last line as it stops) moved;
+   ``convert --from-orbax`` of the checkpoint gives back every input
+   tensor exactly. Prints submit to running, the run's wall, each
+   conversion, the server's start and tokens/s.
+
 Prints the card, the toolchain, per-phase lines, then a ``kernels`` JSON
 line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -344,6 +374,7 @@ import sys
 import threading
 import time
 import urllib.request
+from typing import Optional
 
 SEED = 0
 # Tolerances, stated once. bf16 outputs carry 2^-8 relative rounding
@@ -2325,9 +2356,10 @@ DRILL_CKPT = {"enabled": True, "intervalSteps": 2, "maxToKeep": 1,
 DRILL_FILE_STATES = 3
 # The depth of the drill (phase 7) and of the compiled plan (phase 9),
 # cut for phase 20's share of the script's time (llama3_1b's 16 layers
-# took 170-180 s and 99 s of it); the width stays.
+# took 170-180 s and 99 s of it), and the plan's again, from 8 layers,
+# for phase 22's; the width stays.
 DRILL_LAYERS = 4
-PLAN_LAYERS = 8
+PLAN_LAYERS = 4
 # The most disk the drill's files may take at once, whatever is free:
 # machines that run this script may cap how far a job's disk use grows
 # (at 45 GiB on some), and the builds and logs need a little of that.
@@ -5323,7 +5355,7 @@ def model_parallel(torch, llama, flash, paged):
 GANG_MODEL = "llama3_8b"
 GANG_TP = 2
 GANG_PROMPTS = 8          # the 16-request mix's first eight
-GANG_NEW = 32
+GANG_NEW = 16             # 32 until cut for phase 22's time
 GANG_HELD = 9             # the prefill's token and 8 decode steps'
 GANG_TIMEOUT = 600
 
@@ -6142,6 +6174,562 @@ def axis_pairs(torch, llama, flash, paged):
     return runs
 
 
+
+# ------------------------------------------ phase 22: the user's entry points
+# `python -m polyaxon_tpu_torch.cli` (plx-torch), as a user runs it: every
+# command a subprocess of its own, in a fresh temporary directory that is
+# both its HOME (the client's config file) and its POLYAXON_TPU_HOME.
+CLI = [sys.executable, "-m", "polyaxon_tpu_torch.cli"]
+# 22a: phase 9's plan (the example, the gpu preset, H100_PRESET's one
+# process and microbatches) at llama3_1b's full width, cut to CLI_LAYERS
+# of its 16 layers and CLI_STEPS steps, checkpointing off (the phase's
+# time), placed by the slice pool on the card (topology "1").
+CLI_LAYERS = 2
+CLI_STEPS = 3
+CLI_TIMEOUT = 600
+CLI_TOKEN = "chip-smoke-token"  # 22a's server's --auth-token
+# 22b: llama3_1b at full width and depth, random bf16 weights from SEED
+# written as an HF safetensors file, converted and served.
+SERVE_MODEL = "llama3_1b"
+SERVE_NEW = 16
+SERVE_PROMPTS = ([1, 2, 3, 4, 5, 6, 7, 8] * 8, [9, 10, 11] * 30,
+                 [12, 13, 14, 15, 16] * 40)
+
+
+def _cli(env: dict, *args, timeout: int = 600) -> str:
+    """One ``plx-torch`` command as a subprocess; its stdout. A non-zero
+    exit fails the phase."""
+    out = subprocess.run([*CLI, *map(str, args)], env=env, capture_output=True,
+                         text=True, timeout=timeout,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        fail(f"plx-torch {' '.join(map(str, args))} exited "
+             f"{out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.stdout
+
+
+def _start_cli(env: dict, log: str, *args) -> subprocess.Popen:
+    """A long-lived ``plx-torch`` command (a server) in its own session,
+    its output to ``log``."""
+    with open(log, "w") as fh:
+        return subprocess.Popen(
+            [*CLI, *map(str, args)], env=env, stdout=fh,
+            stderr=subprocess.STDOUT, start_new_session=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _wait_line(proc: subprocess.Popen, log: str, prefix: str,
+               timeout: float) -> str:
+    """The first line of ``log`` that starts with ``prefix``; fails if
+    the process exits first or ``timeout`` passes."""
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        with open(log, errors="replace") as fh:
+            for line in fh:
+                if line.startswith(prefix):
+                    return line.strip()
+        if proc.poll() is not None:
+            fail(f"{' '.join(proc.args[2:4])} exited {proc.returncode} "
+                 f"before `{prefix}`:\n{_tail(log)}")
+        time.sleep(0.1)
+    fail(f"no `{prefix}` from {proc.args[2:4]} within {timeout}s:\n"
+         f"{_tail(log)}")
+
+
+def _children(pid: int) -> list[int]:
+    """The pids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(entry))
+    return out
+
+
+def _stop_server(proc: subprocess.Popen) -> int:
+    """Stop a server and every process it started (an agent's gangs run
+    in sessions of their own): the server gets SIGTERM, its children's
+    sessions SIGKILL if they outlive it. Returns the server's exit
+    code."""
+    import signal
+
+    gangs = _children(proc.pid)
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        rc = proc.wait(timeout=30)
+    for pid in gangs:
+        try:
+            os.killpg(pid, signal.SIGKILL)
+        except OSError:
+            pass  # already gone
+    return rc
+
+
+def _http(url: str, token: Optional[str] = None) -> tuple:
+    """(status, content type, body bytes) of one GET."""
+    import urllib.error
+
+    req = urllib.request.Request(
+        url, headers={"Authorization": f"Bearer {token}"} if token else {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, resp.headers["Content-Type"], resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers["Content-Type"], exc.read()
+
+
+def _spans(node_list: list) -> dict:
+    """Every span of a timeline's tree by name."""
+    out: dict = {}
+    for node in node_list:
+        out.setdefault(node["name"], []).append(node)
+        for name, nodes in _spans(node.get("children") or []).items():
+            out.setdefault(name, []).extend(nodes)
+    return out
+
+
+def entry_points(torch):
+    """Phase 22: the user's entry points on the card. Returns the
+    launches of 22a's run and of 22b's server.
+
+    Host work runs beside the card's: 22a's server starts while 22b's HF
+    file is written, and 22b's ``convert --from-hf``, then its ``serve``
+    start and ``convert --from-orbax``, run (``_Conversions``) while 22a
+    trains."""
+    import shutil
+    import tempfile
+
+    from polyaxon_tpu_torch.native import ensure_built
+    from polyaxon_tpu_torch.parallel.bootstrap import free_port
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "HOME": tmp,
+           "POLYAXON_TPU_HOME": os.path.join(tmp, "home"),
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
+    t_phase = time.perf_counter()
+    ensure_built()  # the slice pool, before the server loads it
+    servers = {"t0": time.perf_counter(), "port": free_port(),
+               "log": os.path.join(tmp, "server.log")}
+    servers["server"] = _start_cli(
+        env, servers["log"], "server", "--port", servers["port"],
+        "--with-agent", "--slice", "gpu0:1", "--max-concurrent", 2,
+        "--auth-token", CLI_TOKEN)
+    conversions = None
+    try:
+        hf = write_hf_file(torch, tmp)
+        conversions = _Conversions(env, repo, tmp, hf, free_port())
+        train = cli_training(torch, env, tmp, servers)
+        torch.cuda.empty_cache()
+        serve = cli_serving(torch, hf, conversions)
+        print(f"22. entry points: phase_s="
+              f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    finally:
+        _stop_server(servers["server"])
+        if conversions is not None:
+            conversions.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return train, serve
+
+
+class _Conversions:
+    """22b's host work in a thread: ``convert --from-hf``, then the
+    ``serve`` of its checkpoint started and ``convert --from-orbax`` of
+    it, each timed. ``stop`` ends whatever still runs."""
+
+    def __init__(self, env: dict, repo: str, tmp: str, hf: dict,
+                 port: int):
+        self.env, self.repo, self.hf, self.port = env, repo, hf, port
+        self.serve_log = os.path.join(tmp, "serve.log")
+        self.out = os.path.join(tmp, "hf-out")
+        self.procs: list[subprocess.Popen] = []
+        self.serve: Optional[subprocess.Popen] = None
+        self.result: dict = {}
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _cli(self, *args) -> subprocess.Popen:
+        proc = subprocess.Popen([*CLI, *map(str, args)], env=self.env,
+                                cwd=self.repo, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+        self.procs.append(proc)
+        return proc
+
+    def _run(self) -> None:
+        hf, res = self.hf, self.result
+        t0 = time.perf_counter()
+        proc = self._cli("convert", "--model", SERVE_MODEL, "--from-hf",
+                         hf["src"], "--out", hf["ckpt"])
+        converted = (*proc.communicate(), proc.returncode,
+                     time.perf_counter() - t0)
+        if proc.returncode == 0:
+            res["serve_t0"] = time.perf_counter()
+            self.serve = _start_cli(
+                self.env, self.serve_log, "serve", "--model", SERVE_MODEL,
+                "--checkpoint", hf["ckpt"], "--batching", "continuous",
+                "--kv", "paged", "--port", self.port)
+            threading.Thread(target=self._watch_serve, daemon=True).start()
+        res["convert"] = converted  # after the serve's start: see wait()
+        if proc.returncode != 0:
+            return
+        t0 = time.perf_counter()
+        proc = self._cli("convert", "--model", SERVE_MODEL, "--from-orbax",
+                         hf["ckpt"], "--out", self.out)
+        res["export"] = (*proc.communicate(), proc.returncode,
+                         time.perf_counter() - t0)
+
+    def _watch_serve(self) -> None:
+        """When the server printed its URL: its start's own seconds."""
+        while self.serve.poll() is None and "serve_s" not in self.result:
+            with open(self.serve_log, errors="replace") as fh:
+                if any(line.startswith("serving ") for line in fh):
+                    self.result["serve_s"] = (time.perf_counter()
+                                              - self.result["serve_t0"])
+            time.sleep(0.1)
+
+    def wait(self, key: str, timeout: float = 900) -> tuple:
+        """(stdout, stderr, exit code, seconds) of ``convert`` or
+        ``export``; fails the phase if it did not finish or exit 0."""
+        end = time.monotonic() + timeout
+        while key not in self.result and self._thread.is_alive() \
+                and time.monotonic() < end:
+            time.sleep(0.1)
+        if key not in self.result:
+            fail(f"22b. plx-torch {key} did not finish "
+                 f"({self.result.get('convert', ['', ''])[1][-2000:]})")
+        stdout, stderr, rc, secs = self.result[key]
+        if rc != 0:
+            fail(f"22b. plx-torch {key} exited {rc}:\n{stderr[-4000:]}")
+        return self.result[key]
+
+    def stop(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if self.serve is not None and self.serve.poll() is None:
+            _stop_server(self.serve)
+        self._thread.join(timeout=60)
+
+
+def cli_training(torch, env: dict, tmp: str, servers: dict) -> dict:
+    """22a: ``plx-torch server --with-agent --slice gpu0:1 --auth-token``
+    places and trains a Polyaxonfile submitted by ``plx-torch run``; a
+    run asking for two cards fails Unschedulable; the run is read back
+    through the client and ``plx-torch ops``; the dashboard, and a
+    refusal without the token. Returns the run's launches."""
+    from polyaxon_tpu_torch.client import PolyaxonClient, RunClient
+
+    label = "22a. plx-torch"
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    corpus = os.path.join(tmp, "corpus.txt")
+    write_corpus(corpus, CORPUS_ROWS * 4096, SEED)
+    preset = json.loads(json.dumps(H100_PRESET))
+    preset["runPatch"]["topology"] = {"topology": "1"}
+    preset["runPatch"]["checkpointing"] = {"enabled": False}
+    preset["runPatch"]["runtime"].update(steps=CLI_STEPS,
+                                         n_layers=CLI_LAYERS)
+    presets = []
+    for topology in ("1", "2"):
+        preset["runPatch"]["topology"]["topology"] = topology
+        path = os.path.join(tmp, f"preset-{topology}.yaml")
+        with open(path, "w") as fh:
+            json.dump(preset, fh)  # JSON is YAML
+        presets.append(path)
+
+    server, log = servers["server"], servers["log"]
+    url = f"http://127.0.0.1:{servers['port']}"
+    _wait_line(server, log, "API serving on", 120)
+    server_s = time.perf_counter() - servers["t0"]
+    _cli(env, "config", "set", "--host", url, "--token", CLI_TOKEN)
+    # The two submissions at once, each a `plx-torch run`.
+    t_submit = time.time()
+    runs = [subprocess.Popen(
+        [*CLI, "run", "-f", os.path.join(repo, PACKED_EXAMPLE),
+         "--preset", os.path.join(repo, GPU_PRESET), "--preset", preset_f,
+         "-P", f"corpus={corpus}", "-p", "chip-smoke", "--name", name],
+        env=env, cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for preset_f, name in zip(presets, ("entry", "too-wide"))]
+    created = []
+    for proc in runs:
+        stdout, stderr = proc.communicate(timeout=300)
+        if proc.returncode != 0 or "Run created: " not in stdout:
+            fail(f"{label}: plx-torch run exited {proc.returncode}: "
+                 f"{stderr[-2000:]}")
+        created.append(stdout.split("Run created: ")[1].split()[0])
+    uuid, wide_uuid = created
+
+    # The client reads the host and the token from the config file
+    # `config set` wrote (this phase's HOME).
+    import polyaxon_tpu_torch.client.client as client_mod
+
+    client_mod.CONFIG_FILE = os.path.join(tmp, ".polyaxon_tpu",
+                                          "config.json")
+    client = PolyaxonClient()
+    if client.host != url or client.token != CLI_TOKEN or \
+            not client.healthy():
+        fail(f"{label}: the client resolved {client.host} and a token "
+             f"{'equal' if client.token == CLI_TOKEN else 'unequal'} to "
+             f"the server's, for {url}")
+    status = RunClient("chip-smoke", uuid, client=client).wait(
+        timeout=CLI_TIMEOUT, poll_seconds=0.2)
+    wide_status = RunClient("chip-smoke", wide_uuid,
+                            client=client).wait(timeout=60)
+    conditions = client.get(
+        f"/api/v1/default/chip-smoke/runs/{uuid}/statuses")
+    wide_last = client.get(
+        f"/api/v1/default/chip-smoke/runs/{wide_uuid}/statuses")[-1]
+    if status.value != "succeeded":
+        fail(f"{label}: the run ended {status.value}: {conditions[-1]}"
+             f"\n{_cli(env, 'ops', 'logs', '-uid', uuid)[-4000:]}\n"
+             f"{_tail(log)}")
+    if (wide_status.value, wide_last.get("reason")) != (
+            "failed", "Unschedulable"):
+        fail(f"{label}: the run asking for 2 cards ended "
+             f"{wide_status.value} {wide_last}")
+
+    # Read back through plx-torch ops, the commands at once.
+    reads = {name: subprocess.Popen(
+        [*CLI, "ops", *args, "-uid", uuid], env=env, cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in (("get", ["get"]), ("statuses", ["statuses"]),
+                           ("metrics", ["metrics", "--name", "loss"]),
+                           ("logs", ["logs"]),
+                           ("artifacts", ["artifacts"]))}
+    out = {}
+    for name, proc in reads.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            fail(f"{label}: ops {name} exited {proc.returncode}: "
+                 f"{stderr[-2000:]}")
+        out[name] = stdout
+    got = json.loads(out["get"])
+    losses = json.loads(out["metrics"]).get("loss") or []
+    lines = [json.loads(line) for line in out["logs"].splitlines()
+             if line.startswith("{")]
+    launches = next((r["launches"] for r in lines if "launches" in r),
+                    None)
+    want_bwd = CLI_LAYERS * TRAIN_ACCUM * CLI_STEPS
+    if (got["status"] != "succeeded" or got["uuid"] != uuid
+            or "succeeded" not in out["statuses"]
+            or len(losses) != CLI_STEPS - 1
+            or not all(math.isfinite(p["value"]) for p in losses)
+            or not any("logs/main-0.log" in a
+                       for a in out["artifacts"].split())):
+        fail(f"{label}: ops read back: get {got}, statuses "
+             f"{out['statuses']!r}, loss {losses}, artifacts "
+             f"{out['artifacts']!r}")
+    if launches != {"flash_fwd": 2 * want_bwd,
+                    "flash_bwd_dkdv": want_bwd,
+                    "flash_bwd_dq": want_bwd, "paged_decode": 0}:
+        fail(f"{label}: the run launched {launches}; each backward "
+             f"kernel must run {want_bwd} times (layers x microbatches "
+             f"x steps), the forward twice as often")
+    # The placement: the pool's span, and the card it gave.
+    spans = _spans(client.get(
+        f"/api/v1/default/chip-smoke/runs/{uuid}/timeline")["spans"])
+    placed = (spans.get("placement") or [{}])[0].get("attributes", {})
+    executed = (spans.get("execute") or [{}])[0].get("attributes", {})
+    if (placed.get("provider") != "slice_pool"
+            or placed.get("topology") != "1"
+            or executed.get("devices") != [0]
+            or "local devices [0] (POLYAXON_TPU_LOCAL_DEVICE_IDS=0)"
+            not in out["logs"]):
+        fail(f"{label}: placement {placed}, execute {executed}, the "
+             f"launcher's device line "
+             f"{[l for l in out['logs'].splitlines() if 'devices' in l]}")
+
+    # The dashboard, and a server with a token refusing anonymity.
+    status_code, ctype, body = _http(url + "/")
+    if status_code != 200 or not ctype.startswith("text/html") \
+            or b"<html" not in body:
+        fail(f"{label}: GET / answered {status_code} {ctype}")
+    runs = f"{url}/api/v1/default/chip-smoke/runs"
+    anonymous = _http(runs)
+    admitted = _http(runs, token=CLI_TOKEN)
+    if anonymous[0] != 401 or admitted[0] != 200 or \
+            uuid not in admitted[2].decode():
+        fail(f"{label}: with --auth-token, anonymous {anonymous[:2]}, "
+             f"with the token {admitted[:2]}")
+
+    at = {c["type"]: _iso_s(c["created_at"]) for c in conditions}
+    outputs = next((r["outputs"] for r in lines if "outputs" in r), {})
+    print(f"{label}: server --with-agent --slice gpu0:1 up in "
+          f"{server_s:.1f}s; run {uuid} (llama3_1b, {CLI_LAYERS} of 16 "
+          f"layers, {CLI_STEPS} steps of 16 x 4096 tokens in "
+          f"{TRAIN_ACCUM} microbatches) placed by the slice pool "
+          f"({placed}) on card {executed.get('devices')}; "
+          f"submit_to_running_s={at['running'] - t_submit:.2f} "
+          f"run_wall_s={at['succeeded'] - at['running']:.2f} "
+          f"submit_to_succeeded_s={at['succeeded'] - t_submit:.2f} "
+          f"tokens_per_s={outputs.get('throughput', float('nan')):.1f}; "
+          f"topology '2' ended {wide_status.value} {wide_last['reason']}; "
+          f"ops get/statuses/metrics/logs/artifacts read back ({len(losses)}"
+          f" losses); GET / the dashboard ({len(body)} bytes); with "
+          f"--auth-token anonymous {anonymous[0]}, token {admitted[0]}; "
+          f"launches {launches}; phase_s="
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches
+
+
+def write_hf_llama(torch, cfg, path: str, seed: int) -> dict:
+    """Random bf16 weights of ``cfg`` from ``seed`` as an HF
+    LlamaForCausalLM safetensors file; returns the state dict (CPU)."""
+    from safetensors.torch import save_file
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    d, f, hd = cfg.dim, cfg.ffn_dim, cfg.dim // cfg.n_heads
+    shapes = {"model.embed_tokens.weight": (cfg.vocab_size, d),
+              "model.norm.weight": (d,)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head.weight"] = (cfg.vocab_size, d)
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        shapes.update({
+            p + "input_layernorm.weight": (d,),
+            p + "self_attn.q_proj.weight": (cfg.n_heads * hd, d),
+            p + "self_attn.k_proj.weight": (cfg.n_kv_heads * hd, d),
+            p + "self_attn.v_proj.weight": (cfg.n_kv_heads * hd, d),
+            p + "self_attn.o_proj.weight": (d, cfg.n_heads * hd),
+            p + "post_attention_layernorm.weight": (d,),
+            p + "mlp.gate_proj.weight": (f, d),
+            p + "mlp.up_proj.weight": (f, d),
+            p + "mlp.down_proj.weight": (d, f)})
+    state = {}
+    for name, shape in shapes.items():
+        w = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.float32) * 0.02
+        if len(shape) == 1:
+            w += 1.0  # norm scales
+        state[name] = w.to(torch.bfloat16).cpu()
+    save_file(state, path, metadata={"format": "pt"})
+    return state
+
+
+def write_hf_file(torch, tmp: str) -> dict:
+    """22b's input: SERVE_MODEL's seeded weights as an HF file under
+    ``tmp``; returns its path, the checkpoint's path to come, the state
+    dict and the seconds it took."""
+    from polyaxon_tpu_torch.models import llama
+
+    src = os.path.join(tmp, "hf-in", "model.safetensors")
+    os.makedirs(os.path.dirname(src))
+    t0 = time.perf_counter()
+    state = write_hf_llama(torch, llama.CONFIGS[SERVE_MODEL], src, SEED)
+    return {"src": src, "ckpt": os.path.join(tmp, "ckpt"), "state": state,
+            "write_s": time.perf_counter() - t0}
+
+
+def cli_serving(torch, hf: dict, conv: _Conversions) -> dict:
+    """22b: what ``plx-torch convert --from-hf`` of llama3_1b's seeded
+    weights printed; ``plx-torch serve`` of the result (continuous
+    batching, paged KV) over HTTP against an in-process
+    ``ServingServer`` over the same checkpoint; ``convert --from-orbax``
+    of it against the input. Returns the server's launches."""
+    from safetensors import safe_open
+
+    from polyaxon_tpu_torch.models import llama
+    from polyaxon_tpu_torch.serving.server import ServingServer
+
+    label = "22b. plx-torch"
+    t_phase = time.perf_counter()
+    cfg = llama.CONFIGS[SERVE_MODEL]
+    state, ckpt = hf["state"], hf["ckpt"]
+    n_params = sum(t.numel() for t in state.values())
+    converted, _, _, convert_s = conv.wait("convert")
+    if converted.strip() != (f"converted {SERVE_MODEL}: {n_params:,} "
+                             f"params → {ckpt}"):
+        fail(f"{label}: convert printed {converted!r}")
+
+    bodies = [{"tokens": [p], "max_new_tokens": SERVE_NEW}
+              for p in SERVE_PROMPTS]
+
+    def ask(url):
+        """The three prompts one at a time, then the first streamed: the
+        same rows reach both servers alike."""
+        t = time.perf_counter()
+        plain = [_post_json(url, b)["tokens"][0] for b in bodies]
+        events = _sse(url, bodies[0])
+        return plain, events, time.perf_counter() - t
+
+    try:
+        line = _wait_line(conv.serve, conv.serve_log, "serving ", 300)
+        end = time.monotonic() + 10  # the watcher polls as often
+        while "serve_s" not in conv.result and time.monotonic() < end:
+            time.sleep(0.05)
+        start_s = conv.result.get("serve_s", float("nan"))
+        plain, events, ask_s = ask(line.split(" at ")[1])
+    finally:
+        rc = _stop_server(conv.serve)
+    with open(conv.serve_log, errors="replace") as fh:
+        last = [json.loads(l) for l in fh if l.startswith('{"launches"')]
+    if rc != 0 or not last:
+        fail(f"{label}: serve exited {rc} without its launches:\n"
+             f"{_tail(conv.serve_log)}")
+    launches = last[-1]["launches"]
+    if not all(launches[k] > 0 for k in SERVING_KERNELS):
+        fail(f"{label}: serve launched {launches}")
+    done = [p for n, p in events if n == "done"]
+    streamed = [p["token"] for n, p in events if n == "token"]
+    if not done or done[0]["tokens"][0] != plain[0] or \
+            streamed != plain[0] or \
+            any(len(p) != SERVE_NEW for p in plain):
+        fail(f"{label}: plain {plain}, streamed {streamed}, done {done}")
+
+    t0 = time.perf_counter()
+    with ServingServer(SERVE_MODEL, ckpt, batching="continuous",
+                       kv="paged") as srv:
+        load_s = time.perf_counter() - t0
+        want, _, _ = ask(srv.url)
+    if want != plain:
+        fail(f"{label}: plx-torch serve gave {plain}, the in-process "
+             f"ServingServer over the same checkpoint {want}")
+    torch.cuda.empty_cache()
+
+    export_s = conv.wait("export")[3]
+    mismatched = []
+    with safe_open(os.path.join(conv.out, "model.safetensors"), "pt") as fh:
+        if sorted(fh.keys()) != sorted(state):
+            fail(f"{label}: the export holds {len(list(fh.keys()))} "
+                 f"tensors, the input {len(state)}")
+        for name, want_t in state.items():
+            got_t = fh.get_tensor(name)
+            if got_t.shape != want_t.shape or \
+                    not torch.equal(got_t, want_t.float()):
+                mismatched.append(name)
+    if mismatched:
+        fail(f"{label}: convert --from-orbax changed {mismatched[:5]}")
+    tokens = SERVE_NEW * (len(bodies) + 1)
+    print(f"{label}: {SERVE_MODEL} {n_params / 1e9:.2f}B params, "
+          f"{cfg.n_layers} layers: HF file written in {hf['write_s']:.1f}s; "
+          f"beside 22a: convert --from-hf {convert_s:.1f}s, then serve "
+          f"--batching continuous --kv paged up in {start_s:.1f}s and "
+          f"convert --from-orbax {export_s:.1f}s; 4 requests "
+          f"({len(bodies)} plain, 1 streamed, {SERVE_NEW} new tokens each) "
+          f"in {ask_s:.2f}s = {tokens / ask_s:.1f} tokens/s, one at a time; "
+          f"streamed == plain; tokens equal the in-process ServingServer's "
+          f"(loaded in {load_s:.1f}s); the export gave back all "
+          f"{len(state)} input tensors exactly; serve's launches "
+          f"{launches}; phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -6245,6 +6833,8 @@ def main() -> None:
     elastic_counts = elastic_gang(torch, flash, paged_attention)
     torch.cuda.empty_cache()
     pair_counts = axis_pairs(torch, llama, flash, paged_attention)
+    torch.cuda.empty_cache()
+    cli_counts = entry_points(torch)
 
     # Each kernel's launches are the sum over the main-path runs that
     # reach it (each printed above): the engine, phases a-g, the two
@@ -6254,11 +6844,13 @@ def main() -> None:
     # the sweep's trials and the engine serving its best trial, the runs
     # of phases 11-15, the longcontext run of phase 17, the entry
     # point's run of phase 18, rank 0 of phase 19's gang, phase 20's
-    # elastic run (its gangs' ranks and its one-device segment) and phase
-    # 21's split runs and rank 0 of its ep gang.
+    # elastic run (its gangs' ranks and its one-device segment), phase
+    # 21's split runs and rank 0 of its ep gang, and phase 22's run (its
+    # launcher, started by the CLI's server) and its CLI server.
     runs = (counts, *serve_counts, train_counts, gemma_counts, *drill_counts,
             plan_counts, *sweep_counts, *family_counts, ring_counts,
-            entry_counts, gang_counts, elastic_counts, *pair_counts)
+            entry_counts, gang_counts, elastic_counts, *pair_counts,
+            *cli_counts)
 
     def total(name):
         return sum(run.get(name, 0) for run in runs)

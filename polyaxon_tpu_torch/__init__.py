@@ -10,3 +10,5 @@ Entry points run on the card (``cuda``) unless the caller names
 ``device="cpu"``; with no GPU and no explicit device they raise
 (``device.resolve_device``).
 """
+
+__version__ = "0.1.0"

@@ -13,8 +13,13 @@ Port of ``polyaxon_tpu/agent/agent.py``. Its executor is the port's
 ``LocalExecutor``; ``device`` is where in-process gangs train (the card
 unless the caller names another) and ``local_devices`` the devices such
 a job holds (every card by default; a list of ids, or a count on the
-CPU). Not ported yet: the native slice pool
-(``slice_manager``, ROADMAP.md, Queue 1 item 10).
+CPU). ``slice_manager`` (``agent/slices.py``) gates every start whose
+plan asks for a topology through the native slice pool, as the JAX
+agent's does; on a host with cards the placement also pins the run to
+its cards: the placement's chips index the executor's pool of cards
+(``local_devices``, else every card), and those cards are the ones the
+run's processes share out, so two placed runs never hold the same card.
+Without cards (the CPU) the placement gates and nothing is pinned.
 """
 
 from __future__ import annotations
@@ -27,7 +32,11 @@ from polyaxon_tpu_torch.controlplane.service import ControlPlane
 from polyaxon_tpu_torch.agent.executor import LocalExecutor
 from polyaxon_tpu_torch.lifecycle import V1Statuses
 from polyaxon_tpu_torch.polyflow.runs import V1RunKind
-from polyaxon_tpu_torch.scheduling import AdmissionController
+from polyaxon_tpu_torch.scheduling import (
+    AdmissionController,
+    gang_priority,
+    sched_info,
+)
 
 _PIPELINE_KINDS = {"matrix", V1RunKind.DAG, "schedule"}
 
@@ -40,21 +49,18 @@ class Agent:
         executor: Optional[LocalExecutor] = None,
         max_concurrent: int = 4,
         in_process: bool = False,
-        slice_manager=None,
+        slice_manager=None,  # agent.slices.SliceManager (native pool)
         admission: Optional[AdmissionController] = None,
         device=None,
         local_devices=None,
     ):
-        if slice_manager is not None:
-            raise NotImplementedError(
-                "the native slice pool (Agent(slice_manager=...)) is not "
-                "ported yet: ROADMAP.md, Queue 1 item 10")
         self.plane = plane
         self.scheduler = Scheduler(plane)
         self.executor = executor or LocalExecutor(
             plane, in_process=in_process, device=device,
             local_devices=local_devices)
         self.max_concurrent = max_concurrent
+        self.slices = slice_manager
         self.admission = admission or AdmissionController(plane)
         self._notified: set[str] = set()
         self._notify_service = None  # built lazily from the home catalog
@@ -165,15 +171,57 @@ class Agent:
                 status="error" if state == "unplaceable" else "ok",
                 attributes={"state": state,
                             **({"topology": topology} if topology else {}),
-                            "provider": "local"})
+                            "provider": ("slice_pool" if self.slices
+                                         is not None else "local")})
         except OSError:
             pass  # tracing must never block a start
 
-    def _cleared_to_start(self, record) -> bool:
-        """Placement: with no slice pool in the port (ROADMAP.md, Queue 1
-        item 10) every admitted run is placed locally at once."""
-        self._record_placement_span(record, time.time(), state="running")
-        return True
+    def _cleared_to_start(self, record, info=None) -> bool:
+        """Topology-gated placement through the native slice pool.
+
+        The gang's pool priority comes from the run's queue + priority
+        class (scheduling catalog), so a high-priority request can
+        evict lower-priority gangs from preemptible slices natively.
+        """
+        t0 = time.time()
+        if self.slices is None:
+            self._record_placement_span(record, t0, state="running")
+            return True
+        plan = record.launch_plan or {}
+        resources = plan.get("resources") or {}
+        term = plan.get("termination") or {}
+        # Plans serialize by camelCase alias (schemas/base.py), so the
+        # stored key is maxRetries; accept both for robustness.
+        max_retries = term.get("maxRetries") or term.get("max_retries") or 0
+        if info is None:
+            info = sched_info(record)
+        state = self.slices.ensure_placed(
+            record.uuid,
+            resources.get("topology"),
+            priority=gang_priority(info.queue_priority, info.priority),
+            max_restarts=max_retries,
+            preemptible=bool(resources.get("preemptible")),
+        )
+        if state == "unplaceable":
+            self._record_placement_span(
+                record, t0, state=state, topology=resources.get("topology"))
+            self.plane.store.transition(
+                record.uuid, V1Statuses.FAILED, reason="Unschedulable",
+                message=f"topology {resources.get('topology')!r} fits no slice",
+            )
+            return False
+        if state == "running":
+            self._record_placement_span(
+                record, t0, state=state, topology=resources.get("topology"))
+        return state == "running"
+
+    def _placed_chips(self, run_uuid: str) -> Optional[list[int]]:
+        """The pool's chips for a placed run (None: no pool, or a run
+        without a topology, which keeps the executor's own policy)."""
+        if self.slices is None:
+            return None
+        placed = self.slices.placement(run_uuid)
+        return list(placed.chips) if placed is not None else None
 
     def _evaluate_alerts(self) -> None:
         """One alert-rule pass over the live registry (obs.rules): the
@@ -241,6 +289,49 @@ class Agent:
         self._notify_terminal_runs()
         self._sample_history()
         self._evaluate_alerts()
+        if self.slices is not None:
+            # Heartbeat live gangs, advance the native pool, surface events.
+            for uuid in self.executor.active_runs:
+                self.slices.heartbeat(uuid)
+            for uuid, kinds in self.slices.tick().items():
+                if "PREEMPTED" in kinds and uuid in self.executor.active_runs:
+                    # Elastic gangs resize in place (shrink to the
+                    # surviving topology) instead of dying; only when
+                    # the resize channel refuses (budget exhausted,
+                    # non-elastic job) does the kill path run.
+                    if self.executor.request_resize(
+                            uuid, "shrink", reason="SliceLost"):
+                        actions += 1
+                        continue
+                    self.executor.preempt(uuid)
+                    actions += 1
+            # Capacity-return notification: offer a grow to every gang
+            # training shrunk. The controller dedups (one pending resize
+            # at a time) and the prewarm path validates the target mesh,
+            # so a spurious offer is a no-op, not a hazard.
+            for uuid in self.executor.shrunk_elastic_runs():
+                record = self.plane.get_run(uuid)
+                plan = record.launch_plan or {}
+                topology = (plan.get("resources") or {}).get("topology")
+                if topology and self.slices.capacity_available(topology):
+                    if self.executor.request_resize(
+                            uuid, "grow", reason="CapacityReturned"):
+                        # Re-pin the pool placement at the full
+                        # topology (partial regrow). A pool-side
+                        # rejection is a non-event: resize_placement
+                        # rolls back and the prewarm path still gates
+                        # the actual mesh change.
+                        info = sched_info(record)
+                        self.slices.resize_placement(
+                            uuid, topology,
+                            priority=gang_priority(info.queue_priority,
+                                                   info.priority))
+                        actions += 1
+            # Release pool chips for runs the executor no longer owns.
+            active = set(self.executor.active_runs)
+            for uuid in self.slices.tracked_runs():
+                if uuid not in active and self.plane.get_run(uuid).is_done:
+                    self.slices.release(uuid)
         # Kind filter pushed into SQL (ISSUE 8): at 10k queued trials a
         # Python-side filter would deserialize every record per tick.
         queued = self.plane.list_runs(
@@ -255,9 +346,12 @@ class Agent:
         t_admission_end = time.time()
         for victim in decision.victims:
             # Control-plane-driven priority preemption: kill the gang
-            # (reaps PREEMPTED next poll → backoff requeue).
+            # (reaps PREEMPTED next poll → backoff requeue) and vacate
+            # its chips so the starved run can place immediately.
             if victim in self.executor.active_runs:
                 self.executor.preempt(victim)
+                if self.slices is not None:
+                    self.slices.release(victim)
                 actions += 1
         started = 0
         for record, info in decision.admitted:
@@ -266,7 +360,7 @@ class Agent:
             # Scan PAST placement-pending runs until capacity fills: one
             # uncleared run must never waste a slot a clearable run
             # behind it could use (head-of-line fix).
-            if not self._cleared_to_start(record):
+            if not self._cleared_to_start(record, info):
                 continue
             # The pass that cleared this run becomes its ``admission``
             # span: queue/class/priority attributes explain WHY it won
@@ -285,7 +379,8 @@ class Agent:
                                 "queued": len(queued)})
             except OSError:
                 pass
-            self.executor.start(record.uuid)
+            self.executor.start(record.uuid,
+                                chips=self._placed_chips(record.uuid))
             started += 1
             actions += 1
         # Stop requests for gangs we own.

@@ -22,11 +22,18 @@ Modes per process:
   slice loss files a shrink, returned capacity a grow, and each segment
   is a new gang over the surviving devices.
 
-Port of ``polyaxon_tpu/agent/executor.py``. Left out until its ROADMAP
-item lands: the persistent XLA compile cache (there is none; the env is
-accepted and nothing is set, Queue 1 item 8). A multi-process gang's
-coordinator is ``127.0.0.1`` at a free port, one per gang, where the
-JAX executor keeps the plan's fixed port.
+Port of ``polyaxon_tpu/agent/executor.py``. ``runtime/compile_cache.py``
+has no counterpart: it points XLA's persistent compilation cache at a
+directory, and the port compiles nothing per process that a restart
+would repay (its kernels build once per checkout into ``ops/_build/``,
+and it calls no ``torch.compile``), so ``POLYAXON_TPU_COMPILE_CACHE``
+and ``POLYAXON_TPU_COMPILE_CACHE_DIR`` are accepted and ignored, as the
+spec's ``compile_cache_dir`` is (``runtime/loop.py``). A multi-process
+gang's coordinator is ``127.0.0.1`` at a free port, one per gang, where
+the JAX executor keeps the plan's fixed port. A run that a slice pool
+placed (``start(chips=...)``) holds the cards its placement names,
+which its processes share out; every other run keeps the policy of
+``device_shares``.
 """
 
 from __future__ import annotations
@@ -76,16 +83,17 @@ def _safe_join(root: str, rel: str) -> str:
     return joined
 
 
-def device_shares(n_proc: int, pool: Optional[list[int]]
-                  ) -> list[Optional[str]]:
+def device_shares(n_proc: int, pool: Optional[list[int]], *,
+                  pinned: bool = False) -> list[Optional[str]]:
     """Per plan process, the cards it holds as
     ``POLYAXON_TPU_LOCAL_DEVICE_IDS``: process ``p`` of ``P`` on a host of
     ``D`` cards (``pool``) takes ``[p·D/P, (p+1)·D/P)``, so that no two
     processes share a card. None for each (every process holds what
-    ``bootstrap.local_devices`` gives it) with one process, or without a
-    pool of cards (the CPU, which processes share). Raises
+    ``bootstrap.local_devices`` gives it) with one process, unless the
+    pool is the cards a slice placement ``pinned`` the run to, or without
+    a pool of cards (the CPU, which processes share). Raises
     ``ValueError`` when the cards do not split evenly."""
-    if pool is None or n_proc == 1:
+    if pool is None or n_proc == 1 and not pinned:
         return [None] * n_proc
     n = len(pool)
     if n % n_proc:
@@ -123,6 +131,8 @@ class _Gang:
     # ops surfaces read the store, not the thread.
     checkpoint_audit: Optional[dict] = None
     checkpoint_flushed: bool = False
+    # The cards a slice placement pinned the gang to (None: unpinned).
+    devices: Optional[list[int]] = None
 
 
 class LocalExecutor:
@@ -144,8 +154,8 @@ class LocalExecutor:
                               else local_devices)
         self._gangs: dict[str, _Gang] = {}
         # The JAX executor resolves POLYAXON_TPU_COMPILE_CACHE=1 to a
-        # shared XLA cache dir here. The port has no XLA cache: the env
-        # is accepted and nothing is set (ROADMAP.md, Queue 1 item 8).
+        # shared XLA cache dir here; the port has no per-process compile
+        # to keep (module docstring), so the env is accepted and ignored.
 
     # ------------------------------------------------------------------ init
     def _run_init_phases(self, plan: V1LaunchPlan) -> None:
@@ -306,8 +316,28 @@ class LocalExecutor:
                     f"git checkout {revision} failed: {checkout.stderr.strip()}")
 
     # ----------------------------------------------------------------- start
-    def start(self, run_uuid: str) -> bool:
-        """queued → scheduled → starting → running; spawns the gang."""
+    def _pinned_cards(self, chips: Optional[list[int]]
+                      ) -> Optional[list[int]]:
+        """The cards of a run placed on ``chips`` of a slice: each chip
+        indexes the executor's pool of cards (``_card_pool``). None
+        without a placement, or without a pool of cards (the CPU), where
+        the placement only gates the start."""
+        if chips is None:
+            return None
+        pool = self._card_pool()
+        if pool is None:
+            return None
+        if max(chips, default=-1) >= len(pool):
+            raise RuntimeError(
+                f"the slice placement holds chips {chips}, but this host's "
+                f"pool has {len(pool)} cards ({pool})")
+        return [pool[c] for c in chips]
+
+    def start(self, run_uuid: str,
+              chips: Optional[list[int]] = None) -> bool:
+        """queued → scheduled → starting → running; spawns the gang.
+        ``chips``: the run's slice placement, which pins it to those
+        cards of the executor's pool (``_pinned_cards``)."""
         record = self.store.get_run(run_uuid)
         plan_dict = record.launch_plan
         if not plan_dict:
@@ -333,6 +363,9 @@ class LocalExecutor:
                                    "processes": plan.num_processes,
                                    "in_process": self.in_process})
         try:
+            gang.devices = self._pinned_cards(chips)
+            if gang.devices is not None:
+                gang.span.set(devices=gang.devices)
             # Init runs inside a child span AS the current span, so the
             # deep seams it crosses (chaos store faults, with_retries
             # attempts, init stalls) annotate it (obs.trace.add_event).
@@ -351,12 +384,17 @@ class LocalExecutor:
                 from polyaxon_tpu_torch.parallel.bootstrap import free_port
 
                 coordinator = f"127.0.0.1:{free_port()}"
-                shares = device_shares(len(plan.processes),
-                                       self._card_pool())
+                pinned = gang.devices is not None
+                shares = device_shares(
+                    len(plan.processes),
+                    gang.devices if pinned else self._card_pool(),
+                    pinned=pinned)
                 for proc_spec, share in zip(plan.processes, shares):
                     env = dict(os.environ)
                     env.update(proc_spec.env)
-                    if share is not None:
+                    if pinned:
+                        env[ENV_LOCAL_DEVICE_IDS] = share
+                    elif share is not None:
                         env.setdefault(ENV_LOCAL_DEVICE_IDS, share)
                     # Trace propagation rides the same env plumbing as
                     # the graft/tracking contract: the child's runtime
@@ -555,7 +593,9 @@ class LocalExecutor:
             kwargs = dict(artifacts_dir=plan.artifacts_dir,
                           on_metrics=tracking.log_metrics_cb(),
                           should_stop=should_stop, tracer=tracer,
-                          device=self.device, devices=self.local_devices,
+                          device=self.device,
+                          devices=(gang.devices if gang.devices is not None
+                                   else self.local_devices),
                           gang_command=gang_command, gang_env=gang_env)
             if gang.elastic is not None:
                 result = elastic_mod.run_elastic(

@@ -1,7 +1,16 @@
 """The parallel layer (port of ``polyaxon_tpu/parallel``): meshes, the
 process bootstrap, the sharding rules, gather at use, tensor
 parallelism and the pipeline schedule. Every axis and every combination
-of them is placed, each axis's mechanism running inside the others'."""
+of them is placed, each axis's mechanism running inside the others'.
+
+Three parts of the JAX package's ``perf/`` have no counterpart here:
+``hlo.py`` parses XLA's HLO text, ``aot.py`` probes ahead-of-time TPU
+compiles, and ``flash_tiles.json`` is the Pallas flash kernel's tile
+table (the port's tiles are fixed in ``ops/csrc``). The rest of
+``perf/`` (``audit.py``, ``budgets.py``, ``budgets.json``,
+``__main__.py``) is a CI gate on the collectives a train step emits;
+its counterpart counts this layer's ``torch.distributed`` calls per
+schedule point and is still to come (ROADMAP.md, Queue 1 item 12)."""
 
 from polyaxon_tpu_torch.parallel.bootstrap import (ProcessGroup, initialize,
                                                    read_env_contract)

@@ -55,8 +55,10 @@ def _emit(step: int, vals: dict) -> None:
     print(json.dumps({"step": step, **vals}), flush=True)
 
 
-def _emit_launches() -> None:
-    """This process's kernel launches and its local gangs' ranks'."""
+def emit_launches() -> None:
+    """Print this process's kernel launches and its local gangs' ranks'
+    as one JSON line (``{"launches": {...}}``): the launcher's last line,
+    and what ``plx-torch serve`` prints as it stops."""
     from polyaxon_tpu_torch.ops import flash, paged_attention
     from polyaxon_tpu_torch.runtime.local_gang import LAUNCHES
 
@@ -110,6 +112,11 @@ def main(device=None) -> int:
 
         job = json.loads(spec_json)
         devices = [] if in_gang else bootstrap.local_devices(device)
+        if devices:
+            logging.getLogger(__name__).info(
+                "local devices %s (%s=%s)", devices,
+                bootstrap.ENV_LOCAL_DEVICE_IDS,
+                os.environ.get(bootstrap.ENV_LOCAL_DEVICE_IDS, ""))
         if len(devices) > 1:
             result = local_gang.run(
                 job, devices=devices, device=resolve_device(device),
@@ -163,7 +170,7 @@ def main(device=None) -> int:
         if tracking is not None:
             tracking.close()
         bootstrap.shutdown()
-        _emit_launches()
+        emit_launches()
 
 
 if __name__ == "__main__":

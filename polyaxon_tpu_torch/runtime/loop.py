@@ -258,7 +258,11 @@ def run_torchjob(job: dict, *, artifacts_dir: Optional[str] = None,
     saves to and restores from ``<artifacts>/checkpoints`` and
     ``profile_steps`` traces to ``<artifacts>/profile``. ``lora_rank >
     0`` trains LoRA adapters over a frozen base (``models/lora.py``);
-    ``compile_cache_dir`` is accepted and means nothing without XLA.
+    ``compile_cache_dir`` is accepted and ignored: the JAX package's
+    ``runtime/compile_cache.py`` keeps XLA's compiled programs in a
+    directory, and the port has no counterpart, since it compiles
+    nothing per process that a restart would repay (the kernels build
+    once per checkout into ``ops/_build/``; no ``torch.compile``).
 
     Tracing follows ``run_jaxjob``: an explicit ``tracer`` (the
     in-process executor passes one parented under its ``execute`` span)
@@ -601,7 +605,9 @@ def _run_torchjob(job: dict, cfg: RuntimeConfig, ckpt_spec: CheckpointSpec,
                 off_clock += dt_save
         _sync(device)
         wall = time.perf_counter() - t0 - off_clock
-        final_metrics = {k: float(v) for k, v in metrics.items()}
+        # In key order, as the JAX loop's (a jitted step's dict comes back
+        # sorted): the order of the run's outputs and lineage edges.
+        final_metrics = {k: float(metrics[k]) for k in sorted(metrics)}
         if run_eval is not None:
             if evaled_at != state["step"]:
                 last_eval = run_eval(state)

@@ -11,7 +11,8 @@ the JAX package's, on the CPU.
   runtime spans parent under the gang's ``execute`` span.
 - A plan's sync sidecar (``python -m polyaxon_tpu_torch.sidecar``) ships
   the run's files to the store as the JAX package's ``sync_tree`` does.
-- What the port leaves out raises and names its ROADMAP item.
+- What the port leaves out raises and names its ROADMAP item; the slice
+  pool, once refused, now gates starts (``TestRefusals``).
 """
 
 import json
@@ -332,11 +333,27 @@ def test_watchloop_module_runs(tmp_path):
 
 class TestRefusals:
     def test_slice_pool_names_item_10(self, tmp_path):
-        from polyaxon_tpu_torch.agent import Agent
+        """Item 10 is ported: the agent takes a slice pool and gates a
+        start through it; a topology no slice can hold fails the run
+        ``Unschedulable`` as the JAX agent does
+        (``tests/test_torch_slices.py`` holds the rest)."""
+        from polyaxon_tpu_torch.agent import Agent, SliceManager
         from polyaxon_tpu_torch.controlplane import ControlPlane
 
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            Agent(ControlPlane(str(tmp_path)), slice_manager=object())
+        plane = ControlPlane(str(tmp_path))
+        manager = SliceManager([("gpu0", "1", False)])
+        try:
+            agent = Agent(plane, slice_manager=manager)
+            job = script_job("print(1)")
+            job["run"]["environment"] = {"tpu": {"topology": "2"}}
+            record = plane.submit(job)
+            agent.reconcile_once()
+            agent.reconcile_once()
+            last = plane.get_statuses(record.uuid)[-1]
+            assert (last["type"], last["reason"]) == ("failed",
+                                                      "Unschedulable")
+        finally:
+            manager.close()
 
     @pytest.mark.parametrize("method", ["report", "verify"])
     def test_report_and_verify_name_item_9(self, method, tmp_path):

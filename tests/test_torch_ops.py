@@ -273,7 +273,9 @@ def test_import_boundary():
     the JAX package's tracking needs. pydantic and PyYAML are allowed:
     the port's spec and compile layer (``schemas``, ``polyflow``,
     ``polyaxonfile``, ``compiler``) is built on them, as the JAX
-    package's is."""
+    package's is; so are click (the port's CLI, ``cli/main.py``, as the
+    JAX package's) and safetensors (its ``convert``), both on the GPU
+    machine."""
     import glob
     import os
 
